@@ -1,0 +1,452 @@
+"""Scan-propagated soft shadows on a ColumnField, carried refine.
+
+Counterpart of illuminant_tpu/lighting/scan_shadows.py (its docstring
+explains the method): one occlusion image at the trace height, a column
+walk per light and sector that carries the minimum distance along each
+pixel's ray, its arg-distance and the blocker exit, then a per-pixel
+readout applying the cone formula of ConeTrace.fxh:122-189. On a
+ColumnField the walk also carries the nominated blocker column's interval
+(h_top, h_bot) and the running footprint minimum, so the 3D refine
+reconstructs candidate distances elementwise (the "carried" refine mode,
+the library default for voxel fields).
+
+Deviations from the JAX package:
+  * the column walk is a Python loop over columns in eager PyTorch (a
+    CUDA kernel for it is ROADMAP K1);
+  * carries and nominated fields stay float32. The JAX package stores the
+    walk outputs and the nominated fields in float16 and upsamples the
+    visibility in bfloat16 (scan_shadows.py:343-347, 876-890, 933); with
+    float32 the f16 range offsets it needs (`k_off`) are dropped;
+  * only the carried ColumnField refine is ported: other scenes, the
+    exact refine and the flatland (0-sample) mode raise
+    NotImplementedError (ROADMAP M1, M3). The fused multi-family scan's
+    arguments (trace plane, trace budgets, per-light lifts, windows) come
+    with the other light families (ROADMAP M9).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.config import QualitySettings
+from ..core.pytree import named_scope
+from ..sdf.analytic import scene_sample_p
+from ..sdf.columns import (ColumnField, reconstruct_profile,
+                           resample_map_to_grid)
+from .cone_trace import (FULLY_SHADOWED_THRESHOLD, HACK_DISTANCE_OFFSET,
+                         MIN_CONE_RADIUS, UNSHADOWED_THRESHOLD)
+
+_BIG = 1e9
+# The sphere lights' shading endpoint sits this far along the surface
+# normal (SphereLightCore.fxh:151).
+SELF_OCCLUSION_LIFT = 1.6
+# Neutral interval for rays with no nominated blocker: a huge [b, t]
+# reconstructs at the footprint term alone.
+_TOP_FILL = 4096.0
+_BOT_FILL = -4096.0
+
+
+def occlusion_image(scene, height: int, width: int, trace_z,
+                    render_scale: float = 1.0):
+    """Scene distance at every pixel center at height trace_z — a
+    separable grid query, so the exact grid resample of the volume."""
+    dev = trace_z.device
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) \
+        / render_scale
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
+        / render_scale
+    return scene_sample_p(scene, xs[None, :], ys[:, None], trace_z)
+
+
+def _shifted(c, fill):
+    """(c shifted one row down, one row up) along the last axis, with
+    `fill` ((K, 1, 1, 1) per channel) entering at the edge: a ray leaving
+    the image reads "nothing yet", not the opposite edge."""
+    fill_row = fill.expand(*c.shape[:-1], 1)
+    up = torch.cat([fill_row, c[..., :-1]], dim=-1)  # index y -> y - 1
+    dn = torch.cat([c[..., 1:], fill_row], dim=-1)
+    return up, dn
+
+
+def _bidirectional_scan(occ, light_x, light_y, light_radius,
+                        exit_band: float, extra, footprint):
+    """Both half-plane walks of one axis, the reverse pass as a batch row
+    on the x-flipped image. occ, extra = (h_top, h_bot), footprint: (H, W);
+    light_x/y/radius (L,) in grid pixels.
+
+    Returns (east, west), each (d, k, neg_k, f_min, h_top, h_bot) of
+    (L, H, W) pre-merge carries: the minimum scene distance along each
+    pixel's ray excluding its own column, the horizontal distance from
+    the light where it occurred, the blocker exit, the running footprint
+    minimum, and the interval selected at the arg-min."""
+    H, W = occ.shape
+    L = light_x.shape[0]
+    dev = occ.device
+    f32 = torch.float32
+    ys = torch.arange(H, dtype=f32, device=dev)[None, None, :] + 0.5
+    cols = torch.arange(W, dtype=f32, device=dev) + 0.5
+
+    def both(m):  # (H, W) -> (W, 2, H): east, then the x-flipped image
+        mt = m.T
+        return torch.stack([mt, mt.flip(0)], dim=1)
+
+    occ_both = both(occ)
+    fp_both = both(footprint)
+    tb_both = torch.stack([both(extra[0]), both(extra[1])], dim=1)
+
+    lx = torch.stack([light_x, float(W) - light_x])[:, :, None]  # (2, L, 1)
+    ly = light_y[None, :, None].expand(2, L, 1)
+    lr = light_radius[None, :, None].expand(2, L, 1)
+
+    # Fan geometry of every column at once: the ray to (x, y) passes the
+    # previous column at y - f, f = (y - ly) / dx in [-1, 1] in the wedge.
+    dx_all = cols[:, None, None, None] - lx[None]           # (W, 2, L, 1)
+    in_front_all = dx_all >= 1.0
+    valid_all = in_front_all & (dx_all > lr[None])
+    f_all = torch.clamp((ys - ly)[None] / torch.clamp(dx_all, min=1.0),
+                        -1.0, 1.0)                          # (W, 2, L, H)
+    af_all = torch.abs(f_all)
+    near_all = 1.0 - af_all
+    fpos_all = f_all >= 0.0
+
+    # Associative carries (d, k, neg_k, f_min) lerp-resample along the fan;
+    # the argmin payload (h_top, h_bot, row phase) moves by shifted copy.
+    fill_c = torch.tensor([_BIG, 0.0, 0.0, _BIG], dtype=f32,
+                          device=dev)[:, None, None, None]
+    fill_p = torch.tensor([_TOP_FILL, _BOT_FILL, 0.0], dtype=f32,
+                          device=dev)[:, None, None, None]
+    carry = fill_c.expand(4, 2, L, H).clone()
+    payload = fill_p.expand(3, 2, L, H).clone()
+    out_c = torch.empty((W, 4, 2, L, H), dtype=f32, device=dev)
+    out_p = torch.empty((W, 2, 2, L, H), dtype=f32, device=dev)
+
+    for x in range(W):
+        dx = dx_all[x]
+        in_front = in_front_all[x]
+        f = f_all[x]
+
+        up, dn = _shifted(carry, fill_c)
+        res = carry * near_all[x] + torch.where(fpos_all[x], up, dn) \
+            * af_all[x]
+        res = torch.where(in_front, res, fill_c)
+        res_d, res_k, res_n, res_f = res[0], res[1], res[2], res[3]
+
+        # Phase-corrected shifted copy (the JAX package's docstring at
+        # scan_shadows.py:256-270): round (f + phase) each step; the
+        # phase resets where the arg-min takes fresh column data.
+        shift = torch.clamp(torch.round(f + payload[2]), -1.0, 1.0)
+        up, dn = _shifted(payload, fill_p)
+        res_p = torch.where(shift > 0.5, up,
+                            torch.where(shift < -0.5, dn, payload))
+        res_p[2] = res_p[2] + f - shift
+        res_p = torch.where(in_front, res_p, fill_p)
+
+        valid = valid_all[x]
+        d_here = torch.where(valid, occ_both[x][:, None, :], _BIG)
+        f_here = torch.where(valid, fp_both[x][:, None, :], _BIG)
+        new_d = torch.minimum(res_d, d_here)
+        upd = d_here < res_d
+        new_k = torch.where(upd, dx, res_k)
+        new_n = torch.where(
+            d_here < torch.clamp(new_d + exit_band, min=exit_band), dx, res_n)
+        new_f = torch.minimum(res_f, f_here)
+        new_tb = torch.where(upd, tb_both[x][:, :, None, :], res_p[:2])
+        new_ph = torch.where(upd, 0.0, res_p[2])
+
+        out_c[x] = res
+        out_p[x] = res_p[:2]
+        carry = torch.stack([new_d, new_k, new_n, new_f])
+        payload = torch.cat([new_tb, new_ph[None]])
+
+    # (W, K, 2, L, H) -> (K, 2, L, H, W); undo the reverse pass's flip.
+    outs = torch.cat([out_c, out_p], dim=1).permute(1, 2, 3, 4, 0)
+    east = tuple(outs[i, 0] for i in range(6))
+    west = tuple(outs[i, 1].flip(-1) for i in range(6))
+    return east, west
+
+
+def _unsupported(scene, quality: QualitySettings) -> str:
+    if not isinstance(scene, ColumnField):
+        return (f"scan shadows on {type(scene).__name__} (ROADMAP M3: the "
+                "port has the ColumnField carried refine only)")
+    if quality.scan_refine_mode == "exact":
+        return "scan_refine_mode='exact' (ROADMAP M3)"
+    if quality.scan_refine_samples <= 0:
+        return "scan_refine_samples=0 flatland scan (ROADMAP M3)"
+    return ""
+
+
+@named_scope("illuminant/scan_shadows")
+def scan_visibility(scene, height: int, width: int, light_position,
+                    light_radius, light_ramp_length,
+                    quality: QualitySettings,
+                    render_scale: float = 1.0, pixel_z=None,
+                    light_active=None):
+    """Cone-trace-equivalent visibility of all lights -> (L, H, W).
+
+    light_position (L, 3), light_radius / light_ramp_length (L,);
+    `pixel_z` (H, W) or (L, H, W): shaded-surface heights, already lifted
+    along the normal; `light_active` (L,) 0/1 masks padded slots out of
+    the trace plane. The carried refine reads only heights, so the JAX
+    package's `pixel_offset_xy` has no use here."""
+    why = _unsupported(scene, quality)
+    if why:
+        raise NotImplementedError(why)
+    f32 = torch.float32
+    dev = light_position.device
+    lz = light_position[:, 2]
+    # The trace plane: 0.4 of the mean light height, over the active
+    # lights only (padded slots sit at z = 0).
+    if light_active is not None:
+        aw = light_active.to(f32)
+        trace_z = torch.sum(lz * aw) / torch.clamp(torch.sum(aw),
+                                                   min=1.0) * 0.4
+    else:
+        trace_z = torch.mean(lz) * 0.4
+
+    # --- NOMINATION on the coarser grid: power-of-two halvings while the
+    # dims stay even.
+    halvings = 0
+    nh, nw, nscale = height, width, render_scale
+    nm_left = quality.scan_nomination_scale
+    while (nm_left <= 0.5 + 1e-6 and nh % 2 == 0 and nw % 2 == 0
+           and min(nh, nw) >= 16):
+        nh, nw, nscale = nh // 2, nw // 2, nscale * 0.5
+        nm_left *= 2.0
+        halvings += 1
+    lx = light_position[:, 0] * nscale
+    ly = light_position[:, 1] * nscale
+    occ = occlusion_image(scene, nh, nw, trace_z, nscale)
+    # The near-light skip compares dx in nomination-grid pixels.
+    lr_n = light_radius * nscale
+    t_img = resample_map_to_grid(scene, scene.h_top, nh, nw, nscale)
+    b_img = resample_map_to_grid(scene, scene.h_bot, nh, nw, nscale)
+    f_img = resample_map_to_grid(scene, scene.flat_d, nh, nw, nscale)
+    band = float(min(1.0, max(nscale, 0.25)))
+    east, west = _bidirectional_scan(occ, lx, ly, lr_n, band,
+                                     (t_img, b_img), f_img)
+    north, south = _bidirectional_scan(occ.T, ly, lx, lr_n, band,
+                                       (t_img.T, b_img.T), f_img.T)
+    north = tuple(p.transpose(1, 2) for p in north)
+    south = tuple(p.transpose(1, 2) for p in south)
+
+    ys_n = torch.arange(nh, dtype=f32, device=dev)[None, :, None] + 0.5
+    xs_n = torch.arange(nw, dtype=f32, device=dev)[None, None, :] + 0.5
+    dx_n = xs_n - lx[:, None, None]
+    dy_n = ys_n - ly[:, None, None]
+    # Sector select: E/W own |dy| <= |dx|, N/S the rest.
+    horiz = torch.abs(dx_n) >= torch.abs(dy_n)
+    is_east = horiz & (dx_n >= 0.0)
+    is_west = horiz & (dx_n < 0.0)
+    is_north = (~horiz) & (dy_n >= 0.0)
+
+    def select(i):
+        return torch.where(is_east, east[i], torch.where(
+            is_west, west[i], torch.where(is_north, north[i], south[i])))
+
+    min_d, min_k, neg_k = select(0), select(1), select(2)
+    fmin, h_top, h_bot = select(3), select(4), select(5)
+    major_n = torch.clamp(torch.maximum(torch.abs(dx_n), torch.abs(dy_n)),
+                          min=1e-3)
+    k_frac = torch.clamp(min_k / major_n, 0.0, 1.0)  # 0 at light, 1 at px
+    exit_frac = torch.clamp(torch.maximum(neg_k, min_k) / major_n, 0.0, 1.0)
+    if halvings:
+        min_d, k_frac, exit_frac, has_blocker, tb_star = \
+            _upsample_nominated(min_d, k_frac, exit_frac, halvings,
+                                extras=(h_top, h_bot), fmin=fmin)
+    else:
+        has_blocker = min_d < 1e8
+        tb_star = (fmin, h_top, h_bot)
+
+    # --- READOUT at full shadow resolution (pixel centers at i + 0.5).
+    lx = light_position[:, 0] * render_scale
+    ly = light_position[:, 1] * render_scale
+    ys = torch.arange(height, dtype=f32, device=dev)[None, :, None] + 0.5
+    xs = torch.arange(width, dtype=f32, device=dev)[None, None, :] + 0.5
+    dx = xs - lx[:, None, None]
+    dy = ys - ly[:, None, None]
+    # Major-axis extents -> along-ray world distances (u = frac * major
+    # * sec): cone radii, HACK_DISTANCE_OFFSET and distances are world
+    # units.
+    major = torch.clamp(torch.maximum(torch.abs(dx), torch.abs(dy)),
+                        min=1e-3)
+    if pixel_z is None:
+        pz = torch.zeros((1,) + tuple(min_d.shape[1:]), dtype=f32,
+                         device=dev)
+    else:
+        pz = pixel_z if pixel_z.dim() == 3 else pixel_z[None]
+    lz3 = lz[:, None, None]
+    dz = pz - lz3
+    inv_rs = 1.0 / max(render_scale, 1e-6)
+    ray_len_w = torch.sqrt((dx * dx + dy * dy) * (inv_rs * inv_rs)
+                           + dz * dz)
+    sec = ray_len_w / major
+
+    # createTraceConfig (ConeTrace.fxh:122-139) + coneTraceStep (:51-71).
+    max_radius = torch.clamp(light_radius[:, None, None], MIN_CONE_RADIUS,
+                             quality.max_cone_radius)
+    ramp = torch.clamp(light_ramp_length[:, None, None], min=16.0)
+    growth = max_radius / ramp * quality.cone_growth_factor
+
+    # Refine candidates along the blocker span (scan_shadows.py:729-764).
+    fwd = torch.minimum((exit_frac - k_frac) * 0.5, 1.5 / (major * sec))
+    t_star = torch.where(min_d < -1.0, k_frac + fwd,
+                         (k_frac + exit_frac) * 0.5)
+    if quality.scan_refine_samples == 1:
+        candidates = (t_star,)
+    elif quality.scan_refine_samples == 2:
+        candidates = (t_star, exit_frac)
+    else:
+        t_entry = torch.where(min_d < -1.0, (k_frac + exit_frac) * 0.5,
+                              k_frac)
+        candidates = (t_star, t_entry, exit_frac)
+    vis = torch.ones(min_d.shape, dtype=f32, device=dev)
+    for t in candidates:
+        # Elementwise column reconstruction at the candidate's 3D height.
+        sz = lz3 + (pz - lz3) * t
+        d_i = reconstruct_profile(tb_star[0], tb_star[1], tb_star[2], sz)
+        u_i = torch.clamp((1.0 - t) * major * sec, min=0.0)
+        radius_i = torch.minimum(growth * u_i + MIN_CONE_RADIUS, max_radius)
+        vis_i = (d_i + HACK_DISTANCE_OFFSET) / radius_i
+        vis = torch.minimum(vis, torch.where(has_blocker, vis_i, 1.0))
+    # Compound-umbra guard (scan_shadows.py:791-829): where the 3D ray at
+    # the nominated blocker is at or below the trace plane, the flatland
+    # block applies.
+    ray_z_at_k = lz3 + (pz - lz3) * k_frac
+    ray_z_at_exit = lz3 + (pz - lz3) * exit_frac
+    low_ray = (ray_z_at_k <= trace_z + 0.5) | (
+        (ray_z_at_exit <= trace_z + 0.5) & (min_d < -0.5))
+    u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
+    radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
+    flat_vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0,
+                           max=1.0)
+    vis = torch.where(has_blocker & low_ray, torch.minimum(vis, flat_vis),
+                      vis)
+    final = torch.clamp(
+        torch.clamp(vis - FULLY_SHADOWED_THRESHOLD, 0.0, 1.0)
+        / (UNSHADOWED_THRESHOLD - FULLY_SHADOWED_THRESHOLD), 0.0, 1.0)
+    return final ** quality.occlusion_to_opacity_power
+
+
+def _upsample_nominated(min_d, k_frac, exit_frac, halvings: int, extras,
+                        fmin):
+    """Upsample the nominated fields to the readout grid
+    (scan_shadows.py:842-920): the no-blocker sentinel clamps to 8192 so
+    "bilinear min_d < 4096" is the 2x2 majority vote on the blocker mask;
+    the fractions upsample as a mask-normalized convolution of their
+    complements; the interval heights edge-aware (bilinear where the
+    coarse neighborhood agrees within 2 units, nearest across blocker
+    boundaries); the footprint minimum mask-normalized bilinear.
+
+    Returns (min_d, k_frac, exit_frac, has_blocker, (f_min, h_top, h_bot))
+    at 2**halvings the input resolution."""
+    nom_mask = min_d < 4096.0
+    min_d = torch.clamp(min_d, max=8192.0)
+    k_c = torch.where(nom_mask, 1.0 - k_frac, 0.0)
+    e_c = torch.where(nom_mask, 1.0 - exit_frac, 0.0)
+    wgt = nom_mask.to(torch.float32)
+    ex_c = [torch.where(nom_mask, e, fill)
+            for e, fill in zip(extras, (_TOP_FILL, _BOT_FILL))]
+    fm_c = torch.where(nom_mask, torch.clamp(fmin, max=4096.0), 0.0)
+    for _ in range(halvings):
+        k_c = upsample2x_bilinear(k_c)
+        e_c = upsample2x_bilinear(e_c)
+        min_d = upsample2x_bilinear(min_d)
+        wgt = upsample2x_bilinear(wgt)
+        ex_new = []
+        for e in ex_c:
+            nn = e.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+            bi = upsample2x_bilinear(e)
+            ex_new.append(torch.where(torch.abs(bi - nn) < 2.0, bi, nn))
+        ex_c = ex_new
+        fm_c = upsample2x_bilinear(fm_c)
+    has_blocker = min_d < 4096.0
+    wgt = torch.clamp(wgt, min=1e-3)
+    k_frac = torch.clamp(1.0 - k_c / wgt, 0.0, 1.0)
+    exit_frac = torch.clamp(1.0 - e_c / wgt, 0.0, 1.0)
+    return (min_d, k_frac, exit_frac, has_blocker,
+            (fm_c / wgt, ex_c[0], ex_c[1]))
+
+
+def resize_visibility(vis, target_hw):
+    """Resize (L, h, w) visibility to (L, H, W): identity when the shapes
+    match, the 2x bilinear upsample for an exact halving. The JAX package
+    upsamples in bfloat16; the port keeps float32. Other ratios (the JAX
+    package's jax.image.resize fallback) are ROADMAP M9."""
+    th, tw = target_hw
+    if tuple(vis.shape[1:]) == (th, tw):
+        return vis
+    if (vis.shape[1] * 2, vis.shape[2] * 2) == (th, tw):
+        return upsample2x_bilinear(vis)
+    raise NotImplementedError(
+        f"visibility resize {tuple(vis.shape[1:])} -> {(th, tw)} "
+        "(ROADMAP M9)")
+
+
+def downsample2x_linear(x, axis: int):
+    """Exact-2x linear-antialiased downsample along `axis`: interior kernel
+    [1/8, 3/8, 3/8, 1/8], edge kernels renormalized [3, 3, 1]/7 — the
+    values of jax.image.resize(..., "linear") for even dims."""
+    n = x.shape[axis]
+    m = n // 2
+    pairs = x.reshape(x.shape[:axis] + (m, 2) + x.shape[axis + 1:])
+    e = pairs.select(axis + 1, 0)
+    o = pairs.select(axis + 1, 1)
+
+    def sl(v, a, b):
+        return v.narrow(axis, a, b - a)
+
+    om1 = torch.cat([sl(o, 0, 1), sl(o, 0, m - 1)], dim=axis)
+    ep1 = torch.cat([sl(e, 1, m), sl(e, m - 1, m)], dim=axis)
+    s = 0.125 * om1 + 0.375 * e + 0.375 * o + 0.125 * ep1
+    first = (3.0 * sl(e, 0, 1) + 3.0 * sl(o, 0, 1) + sl(e, 1, 2)) / 7.0
+    last = (sl(o, m - 2, m - 1) + 3.0 * sl(e, m - 1, m)
+            + 3.0 * sl(o, m - 1, m)) / 7.0
+    return torch.cat([first, sl(s, 1, m - 1), last], dim=axis)
+
+
+def upsample2x_bilinear(v):
+    """Bilinear 2x upsample over the last two axes (edge-clamped)."""
+
+    def axis_up(x, axis):
+        n = x.shape[axis]
+        lo = torch.cat([x.narrow(axis, 0, 1), x], dim=axis)
+        hi = torch.cat([x, x.narrow(axis, n - 1, 1)], dim=axis)
+        a = 0.75 * x + 0.25 * lo.narrow(axis, 0, n)
+        b = 0.75 * x + 0.25 * hi.narrow(axis, 1, n)
+        shape = list(x.shape)
+        shape[axis] = 2 * n
+        return torch.stack([a, b], dim=axis + 1).reshape(shape)
+
+    return axis_up(axis_up(v, v.dim() - 2), v.dim() - 1)
+
+
+def scan_cone_visibility(scene, gbuffer, light_position, light_radius,
+                         light_ramp_length, quality: QualitySettings,
+                         light_active=None):
+    """Shadow-scale-aware scan visibility over a G-buffer -> (L, H, W):
+    the sphere lights' normal-lifted shading heights, the scan at
+    quality.shadow_scale resolution, and the upsample back. The JAX
+    package's per-family lifts and trace budgets of the fused
+    multi-family scan are ROADMAP M9."""
+    h, w = gbuffer.shape
+    ss = quality.shadow_scale
+    if ss == 0.5 and h % 2 == 0 and w % 2 == 0:
+        sh, sw = h // 2, w // 2
+    elif ss != 1.0:
+        raise NotImplementedError(
+            f"shadow_scale {ss} on a {h}x{w} buffer (ROADMAP M8: only the "
+            "exact halving and full resolution are ported)")
+    else:
+        sh, sw = h, w
+    lifted_z = gbuffer.z + SELF_OCCLUSION_LIFT * gbuffer.normal[..., 2]
+    if (sh, sw) != (h, w):
+        pixel_z = downsample2x_linear(downsample2x_linear(lifted_z, 0), 1)
+    else:
+        pixel_z = lifted_z
+    vis = scan_visibility(
+        scene, sh, sw, light_position, light_radius, light_ramp_length,
+        quality,
+        render_scale=gbuffer.render_scale * (sh / h if sh != h else 1.0),
+        pixel_z=pixel_z, light_active=light_active)
+    return resize_visibility(vis, (h, w))

@@ -1,0 +1,18 @@
+"""Small geometry helpers (counterpart of illuminant_tpu/ops/coords.py,
+only what the particle path uses)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def mul_point_rows(v4, matrix):
+    """mul(float4(v.xyz, 1), M) keeping the original w — the row-vector
+    point transform of the spawners (SpawnerCommon.fxh:166-180). Written
+    as row combinations, like the JAX package, so the float32 arithmetic
+    is the same elementwise chain on both sides."""
+    out = (v4[:, 0:1] * matrix[0, :3]
+           + v4[:, 1:2] * matrix[1, :3]
+           + v4[:, 2:3] * matrix[2, :3]
+           + matrix[3, :3])
+    return torch.cat([out, v4[:, 3:4]], dim=-1)

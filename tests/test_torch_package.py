@@ -1,0 +1,52 @@
+"""The port's package boundary: it never imports jax, and arguments
+outside the ported slice fail loudly."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from illuminant_tpu_torch.core.config import QualitySettings
+from illuminant_tpu_torch.scenes import build_flagship
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_leaves_jax_out():
+    """Every module of the port imported in a fresh interpreter: jax is
+    not in sys.modules afterwards."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import illuminant_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k == 'jax' or k.startswith(('jax.', 'jaxlib',\n"
+        "                                            'illuminant_tpu.')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_quality_rejects_unknown_refine_mode():
+    assert QualitySettings().scan_refine_mode == "carried"
+    with pytest.raises(ValueError):
+        QualitySettings(scan_refine_mode="carry")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(field="analytic"), dict(preset="parity"), dict(full_family=True),
+    dict(mesh=object()), dict(shadow_mode="march"),
+    dict(raster_preset="parity"), dict(spawn_sub_rings=2),
+    dict(collision_substeps=3),
+])
+def test_unported_arguments_raise(kwargs):
+    kw = dict(height=32, width=48, capacity=64, spawn_max=16, n_lights=2,
+              field="voxel")
+    kw.update(kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_flagship(**kw)
