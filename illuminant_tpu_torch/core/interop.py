@@ -2,12 +2,13 @@
 
 The JAX package's objects are frozen dataclasses of arrays. `as_numpy_fields`
 turns any such dataclass into a dict of numpy arrays keyed by field name
-(nested dataclasses become nested dicts, Python values pass through); it
-walks `dataclasses.fields` and calls `np.asarray`, so it needs no jax.
+(nested dataclasses become nested dicts, tuples stay tuples converted
+element by element, Python values pass through); it walks
+`dataclasses.fields` and calls `np.asarray`, so it needs no jax.
 `to_torch` builds the port's counterpart from such a dict on a device.
-It covers SdfVolume (with its config), ColumnField, ParticleState,
-SphereLights, EnvironmentUniforms, GBuffer, SpawnUniforms, GravityUniforms
-and SystemUniforms.
+It covers AnalyticScene, SdfVolume (with its config), ColumnField,
+ParticleState, SphereLights, EnvironmentUniforms, GBuffer, SpawnUniforms,
+GravityUniforms and SystemUniforms.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..lighting.gbuffer import GBuffer
 from ..particles.spawner import SpawnUniforms
 from ..particles.state import ParticleState, SystemUniforms
 from ..particles.transforms import GravityUniforms
+from ..sdf.analytic import AnalyticScene
 from ..sdf.columns import ColumnField
 from ..sdf.volume import SdfVolume, SdfVolumeConfig
 
@@ -32,30 +34,43 @@ _NESTED = {
     ColumnField: {"volume": SdfVolume},
 }
 
-SUPPORTED = (SdfVolume, SdfVolumeConfig, ColumnField, ParticleState,
-             SphereLights, EnvironmentUniforms, GBuffer, SpawnUniforms,
-             GravityUniforms, SystemUniforms)
+SUPPORTED = (AnalyticScene, SdfVolume, SdfVolumeConfig, ColumnField,
+             ParticleState, SphereLights, EnvironmentUniforms, GBuffer,
+             SpawnUniforms, GravityUniforms, SystemUniforms)
+
+
+def _as_numpy(v):
+    if dataclasses.is_dataclass(v):
+        return as_numpy_fields(v)
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, (tuple, list)):
+        # Per-group arrays of differing lengths and static ints: never
+        # stacked into one array.
+        return tuple(_as_numpy(e) for e in v)
+    return np.asarray(v)
 
 
 def as_numpy_fields(obj) -> Dict[str, Any]:
-    """Dataclass -> {field name: numpy array | nested dict | value}."""
-    out = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if dataclasses.is_dataclass(v):
-            out[f.name] = as_numpy_fields(v)
-        elif v is None or isinstance(v, (bool, int, float, str)):
-            out[f.name] = v
-        else:
-            out[f.name] = np.asarray(v)
-    return out
+    """Dataclass -> {field name: numpy array | nested dict | tuple | value}."""
+    return {f.name: _as_numpy(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def _tensors(v, device):
+    if isinstance(v, np.ndarray):
+        return torch.as_tensor(np.array(v), device=device)
+    if isinstance(v, tuple):
+        return tuple(_tensors(e, device) for e in v)
+    return v
 
 
 def to_torch(cls, fields: Dict[str, Any], device=None):
     """Build the port's `cls` from a dict keyed by field name. Arrays
-    become tensors on `device` (dtype kept); nested dicts become the
-    nested dataclass; other values pass through. Keys the port's class
-    does not have must hold None (JAX-side options the port leaves out)."""
+    become tensors on `device` (dtype kept), also inside tuples; nested
+    dicts become the nested dataclass; other values pass through. Keys
+    the port's class does not have must hold None (JAX-side options the
+    port leaves out)."""
     if cls not in SUPPORTED:
         raise TypeError(f"no interop for {cls.__name__}")
     names = {f.name for f in dataclasses.fields(cls)}
@@ -68,9 +83,6 @@ def to_torch(cls, fields: Dict[str, Any], device=None):
             continue
         v = fields[name]
         nested = _NESTED.get(cls, {}).get(name)
-        if nested is not None:
-            v = to_torch(nested, v, device)
-        elif isinstance(v, np.ndarray):
-            v = torch.as_tensor(np.array(v), device=device)
-        kwargs[name] = v
+        kwargs[name] = (to_torch(nested, v, device) if nested is not None
+                        else _tensors(v, device))
     return cls(**kwargs)

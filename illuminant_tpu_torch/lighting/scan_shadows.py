@@ -1,14 +1,20 @@
-"""Scan-propagated soft shadows on a ColumnField, carried refine.
+"""Scan-propagated soft shadows.
 
 Counterpart of illuminant_tpu/lighting/scan_shadows.py (its docstring
 explains the method): one occlusion image at the trace height, a column
 walk per light and sector that carries the minimum distance along each
 pixel's ray, its arg-distance and the blocker exit, then a per-pixel
-readout applying the cone formula of ConeTrace.fxh:122-189. On a
-ColumnField the walk also carries the nominated blocker column's interval
-(h_top, h_bot) and the running footprint minimum, so the 3D refine
-reconstructs candidate distances elementwise (the "carried" refine mode,
-the library default for voxel fields).
+readout applying the cone formula of ConeTrace.fxh:122-189 with a 3D
+refine at 1 to 3 candidate points along the ray (or none: the flatland
+mode, `scan_refine_samples=0`).
+  * The exact refine (analytic scenes, voxel volumes, and
+    `scan_refine_mode="exact"` on a ColumnField, which samples its
+    volume) evaluates the field at each candidate's 3D point.
+  * The carried refine (a ColumnField under "carried" / "carried_all",
+    the library default for voxel fields) has the walk also carry the
+    nominated blocker column's interval (h_top, h_bot) and the running
+    footprint minimum, and reconstructs the candidate distances
+    elementwise.
 
 Deviations from the JAX package:
   * the column walk is a Python loop over columns in eager PyTorch (a
@@ -17,11 +23,10 @@ Deviations from the JAX package:
     walk outputs and the nominated fields in float16 and upsamples the
     visibility in bfloat16 (scan_shadows.py:343-347, 876-890, 933); with
     float32 the f16 range offsets it needs (`k_off`) are dropped;
-  * only the carried ColumnField refine is ported: other scenes, the
-    exact refine and the flatland (0-sample) mode raise
-    NotImplementedError (ROADMAP M1, M3). The fused multi-family scan's
-    arguments (trace plane, trace budgets, per-light lifts, windows) come
-    with the other light families (ROADMAP M9).
+  * not ported: `carried_all` on an analytic scene (ROADMAP M3, its
+    `scene_column_images`), and the fused multi-family scan's trace
+    budgets (`max_trace_distance`) and windows (`world_offset`) (ROADMAP
+    M9).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from ..core.config import QualitySettings
 from ..core.pytree import named_scope
-from ..sdf.analytic import scene_sample_p
+from ..sdf.analytic import AnalyticScene, scene_sample_p
 from ..sdf.columns import (ColumnField, reconstruct_profile,
                            resample_map_to_grid)
 from .cone_trace import (FULLY_SHADOWED_THRESHOLD, HACK_DISTANCE_OFFSET,
@@ -49,7 +54,8 @@ _BOT_FILL = -4096.0
 def occlusion_image(scene, height: int, width: int, trace_z,
                     render_scale: float = 1.0):
     """Scene distance at every pixel center at height trace_z — a
-    separable grid query, so the exact grid resample of the volume."""
+    separable (1, W) x (H, 1) grid query: closed form on an analytic
+    scene, the exact grid resample of a voxel volume."""
     dev = trace_z.device
     ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) \
         / render_scale
@@ -69,16 +75,17 @@ def _shifted(c, fill):
 
 
 def _bidirectional_scan(occ, light_x, light_y, light_radius,
-                        exit_band: float, extra, footprint):
+                        exit_band: float, extra=(), footprint=None):
     """Both half-plane walks of one axis, the reverse pass as a batch row
-    on the x-flipped image. occ, extra = (h_top, h_bot), footprint: (H, W);
-    light_x/y/radius (L,) in grid pixels.
+    on the x-flipped image. occ, footprint: (H, W); extra: () or the
+    (h_top, h_bot) (H, W) images; light_x/y/radius (L,) in grid pixels.
 
-    Returns (east, west), each (d, k, neg_k, f_min, h_top, h_bot) of
+    Returns (east, west), each (d, k, neg_k[, f_min][, h_top, h_bot]) of
     (L, H, W) pre-merge carries: the minimum scene distance along each
     pixel's ray excluding its own column, the horizontal distance from
-    the light where it occurred, the blocker exit, the running footprint
-    minimum, and the interval selected at the arg-min."""
+    the light where it occurred, the blocker exit, and with a footprint
+    the running footprint minimum, with extras the interval selected at
+    the arg-min."""
     H, W = occ.shape
     L = light_x.shape[0]
     dev = occ.device
@@ -91,8 +98,7 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
         return torch.stack([mt, mt.flip(0)], dim=1)
 
     occ_both = both(occ)
-    fp_both = both(footprint)
-    tb_both = torch.stack([both(extra[0]), both(extra[1])], dim=1)
+    fp_both = None if footprint is None else both(footprint)
 
     lx = torch.stack([light_x, float(W) - light_x])[:, :, None]  # (2, L, 1)
     ly = light_y[None, :, None].expand(2, L, 1)
@@ -109,16 +115,20 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
     near_all = 1.0 - af_all
     fpos_all = f_all >= 0.0
 
-    # Associative carries (d, k, neg_k, f_min) lerp-resample along the fan;
-    # the argmin payload (h_top, h_bot, row phase) moves by shifted copy.
-    fill_c = torch.tensor([_BIG, 0.0, 0.0, _BIG], dtype=f32,
-                          device=dev)[:, None, None, None]
-    fill_p = torch.tensor([_TOP_FILL, _BOT_FILL, 0.0], dtype=f32,
-                          device=dev)[:, None, None, None]
-    carry = fill_c.expand(4, 2, L, H).clone()
-    payload = fill_p.expand(3, 2, L, H).clone()
-    out_c = torch.empty((W, 4, 2, L, H), dtype=f32, device=dev)
-    out_p = torch.empty((W, 2, 2, L, H), dtype=f32, device=dev)
+    # Associative carries (d, k, neg_k[, f_min]) lerp-resample along the
+    # fan; the argmin payload (h_top, h_bot, row phase) moves by shifted
+    # copy.
+    fills = [_BIG, 0.0, 0.0] + ([] if footprint is None else [_BIG])
+    K = len(fills)
+    fill_c = torch.tensor(fills, dtype=f32, device=dev)[:, None, None, None]
+    carry = fill_c.expand(K, 2, L, H).clone()
+    out_c = torch.empty((W, K, 2, L, H), dtype=f32, device=dev)
+    if extra:
+        tb_both = torch.stack([both(extra[0]), both(extra[1])], dim=1)
+        fill_p = torch.tensor([_TOP_FILL, _BOT_FILL, 0.0], dtype=f32,
+                              device=dev)[:, None, None, None]
+        payload = fill_p.expand(3, 2, L, H).clone()
+        out_p = torch.empty((W, 2, 2, L, H), dtype=f32, device=dev)
 
     for x in range(W):
         dx = dx_all[x]
@@ -129,75 +139,73 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
         res = carry * near_all[x] + torch.where(fpos_all[x], up, dn) \
             * af_all[x]
         res = torch.where(in_front, res, fill_c)
-        res_d, res_k, res_n, res_f = res[0], res[1], res[2], res[3]
-
-        # Phase-corrected shifted copy (the JAX package's docstring at
-        # scan_shadows.py:256-270): round (f + phase) each step; the
-        # phase resets where the arg-min takes fresh column data.
-        shift = torch.clamp(torch.round(f + payload[2]), -1.0, 1.0)
-        up, dn = _shifted(payload, fill_p)
-        res_p = torch.where(shift > 0.5, up,
-                            torch.where(shift < -0.5, dn, payload))
-        res_p[2] = res_p[2] + f - shift
-        res_p = torch.where(in_front, res_p, fill_p)
+        res_d = res[0]
 
         valid = valid_all[x]
         d_here = torch.where(valid, occ_both[x][:, None, :], _BIG)
-        f_here = torch.where(valid, fp_both[x][:, None, :], _BIG)
         new_d = torch.minimum(res_d, d_here)
         upd = d_here < res_d
-        new_k = torch.where(upd, dx, res_k)
-        new_n = torch.where(
-            d_here < torch.clamp(new_d + exit_band, min=exit_band), dx, res_n)
-        new_f = torch.minimum(res_f, f_here)
-        new_tb = torch.where(upd, tb_both[x][:, :, None, :], res_p[:2])
-        new_ph = torch.where(upd, 0.0, res_p[2])
-
+        new = [new_d, torch.where(upd, dx, res[1]),
+               torch.where(d_here < torch.clamp(new_d + exit_band,
+                                                min=exit_band), dx, res[2])]
+        if footprint is not None:
+            f_here = torch.where(valid, fp_both[x][:, None, :], _BIG)
+            new.append(torch.minimum(res[3], f_here))
+        if extra:
+            # Phase-corrected shifted copy (the JAX package's docstring at
+            # scan_shadows.py:256-270): round (f + phase) each step; the
+            # phase resets where the arg-min takes fresh column data.
+            shift = torch.clamp(torch.round(f + payload[2]), -1.0, 1.0)
+            up, dn = _shifted(payload, fill_p)
+            res_p = torch.where(shift > 0.5, up,
+                                torch.where(shift < -0.5, dn, payload))
+            res_p[2] = res_p[2] + f - shift
+            res_p = torch.where(in_front, res_p, fill_p)
+            new_tb = torch.where(upd, tb_both[x][:, :, None, :], res_p[:2])
+            new_ph = torch.where(upd, 0.0, res_p[2])
+            out_p[x] = res_p[:2]
+            payload = torch.cat([new_tb, new_ph[None]])
         out_c[x] = res
-        out_p[x] = res_p[:2]
-        carry = torch.stack([new_d, new_k, new_n, new_f])
-        payload = torch.cat([new_tb, new_ph[None]])
+        carry = torch.stack(new)
 
     # (W, K, 2, L, H) -> (K, 2, L, H, W); undo the reverse pass's flip.
-    outs = torch.cat([out_c, out_p], dim=1).permute(1, 2, 3, 4, 0)
-    east = tuple(outs[i, 0] for i in range(6))
-    west = tuple(outs[i, 1].flip(-1) for i in range(6))
+    outs = torch.cat([out_c, out_p], dim=1) if extra else out_c
+    outs = outs.permute(1, 2, 3, 4, 0)
+    east = tuple(outs[i, 0] for i in range(outs.shape[0]))
+    west = tuple(outs[i, 1].flip(-1) for i in range(outs.shape[0]))
     return east, west
-
-
-def _unsupported(scene, quality: QualitySettings) -> str:
-    if not isinstance(scene, ColumnField):
-        return (f"scan shadows on {type(scene).__name__} (ROADMAP M3: the "
-                "port has the ColumnField carried refine only)")
-    if quality.scan_refine_mode == "exact":
-        return "scan_refine_mode='exact' (ROADMAP M3)"
-    if quality.scan_refine_samples <= 0:
-        return "scan_refine_samples=0 flatland scan (ROADMAP M3)"
-    return ""
 
 
 @named_scope("illuminant/scan_shadows")
 def scan_visibility(scene, height: int, width: int, light_position,
                     light_radius, light_ramp_length,
-                    quality: QualitySettings,
+                    quality: QualitySettings, trace_z=None,
                     render_scale: float = 1.0, pixel_z=None,
-                    light_active=None):
+                    pixel_offset_xy=None, light_active=None):
     """Cone-trace-equivalent visibility of all lights -> (L, H, W).
 
     light_position (L, 3), light_radius / light_ramp_length (L,);
-    `pixel_z` (H, W) or (L, H, W): shaded-surface heights, already lifted
-    along the normal; `light_active` (L,) 0/1 masks padded slots out of
-    the trace plane. The carried refine reads only heights, so the JAX
-    package's `pixel_offset_xy` has no use here."""
-    why = _unsupported(scene, quality)
-    if why:
-        raise NotImplementedError(why)
+    `trace_z`: the occlusion image's height (default 0.4 of the mean
+    active light height); `pixel_z` (H, W) or (L, H, W): shaded-surface
+    heights, already lifted along the normal; `pixel_offset_xy` (H, W, 2)
+    or (L, H, W, 2): the lift's world xy offset, read by the exact refine;
+    `light_active` (L,) 0/1 masks padded slots out of the default trace
+    plane. The JAX package's `max_trace_distance` and `world_offset`
+    (the fused family scan, ROADMAP M9) are not arguments here."""
+    if (isinstance(scene, AnalyticScene)
+            and quality.scan_refine_mode == "carried_all"
+            and quality.scan_refine_samples > 0):
+        raise NotImplementedError(
+            "scan_refine_mode='carried_all' on an AnalyticScene (ROADMAP "
+            "M3: scene_column_images)")
     f32 = torch.float32
     dev = light_position.device
     lz = light_position[:, 2]
-    # The trace plane: 0.4 of the mean light height, over the active
-    # lights only (padded slots sit at z = 0).
-    if light_active is not None:
+    if trace_z is not None:
+        trace_z = torch.as_tensor(trace_z, dtype=f32, device=dev)
+    elif light_active is not None:
+        # The trace plane: 0.4 of the mean light height, over the active
+        # lights only (padded slots sit at z = 0).
         aw = light_active.to(f32)
         trace_z = torch.sum(lz * aw) / torch.clamp(torch.sum(aw),
                                                    min=1.0) * 0.4
@@ -219,14 +227,26 @@ def scan_visibility(scene, height: int, width: int, light_position,
     occ = occlusion_image(scene, nh, nw, trace_z, nscale)
     # The near-light skip compares dx in nomination-grid pixels.
     lr_n = light_radius * nscale
-    t_img = resample_map_to_grid(scene, scene.h_top, nh, nw, nscale)
-    b_img = resample_map_to_grid(scene, scene.h_bot, nh, nw, nscale)
-    f_img = resample_map_to_grid(scene, scene.flat_d, nh, nw, nscale)
+    use_cols = (isinstance(scene, ColumnField)
+                and quality.scan_refine_samples > 0
+                and quality.scan_refine_mode in ("carried", "carried_all"))
+    if isinstance(scene, ColumnField) and \
+            quality.scan_refine_mode == "exact":
+        # The exact refine samples the underlying volume.
+        scene = scene.volume
+    if use_cols:
+        t_img = resample_map_to_grid(scene, scene.h_top, nh, nw, nscale)
+        b_img = resample_map_to_grid(scene, scene.h_bot, nh, nw, nscale)
+        f_img = resample_map_to_grid(scene, scene.flat_d, nh, nw, nscale)
+        extra, extra_t = (t_img, b_img), (t_img.T, b_img.T)
+        fp, fp_t = f_img, f_img.T
+    else:
+        extra = extra_t = ()
+        fp = fp_t = None
     band = float(min(1.0, max(nscale, 0.25)))
-    east, west = _bidirectional_scan(occ, lx, ly, lr_n, band,
-                                     (t_img, b_img), f_img)
-    north, south = _bidirectional_scan(occ.T, ly, lx, lr_n, band,
-                                       (t_img.T, b_img.T), f_img.T)
+    east, west = _bidirectional_scan(occ, lx, ly, lr_n, band, extra, fp)
+    north, south = _bidirectional_scan(occ.T, ly, lx, lr_n, band, extra_t,
+                                       fp_t)
     north = tuple(p.transpose(1, 2) for p in north)
     south = tuple(p.transpose(1, 2) for p in south)
 
@@ -239,13 +259,11 @@ def scan_visibility(scene, height: int, width: int, light_position,
     is_east = horiz & (dx_n >= 0.0)
     is_west = horiz & (dx_n < 0.0)
     is_north = (~horiz) & (dy_n >= 0.0)
-
-    def select(i):
-        return torch.where(is_east, east[i], torch.where(
-            is_west, west[i], torch.where(is_north, north[i], south[i])))
-
-    min_d, min_k, neg_k = select(0), select(1), select(2)
-    fmin, h_top, h_bot = select(3), select(4), select(5)
+    sel = [torch.where(is_east, e, torch.where(
+        is_west, w, torch.where(is_north, n, s)))
+        for e, w, n, s in zip(east, west, north, south)]
+    # (min_d, k, neg_k) and, carried, (f_min, h_top, h_bot).
+    min_d, min_k, neg_k, tb_star = sel[0], sel[1], sel[2], tuple(sel[3:])
     major_n = torch.clamp(torch.maximum(torch.abs(dx_n), torch.abs(dy_n)),
                           min=1e-3)
     k_frac = torch.clamp(min_k / major_n, 0.0, 1.0)  # 0 at light, 1 at px
@@ -253,10 +271,10 @@ def scan_visibility(scene, height: int, width: int, light_position,
     if halvings:
         min_d, k_frac, exit_frac, has_blocker, tb_star = \
             _upsample_nominated(min_d, k_frac, exit_frac, halvings,
-                                extras=(h_top, h_bot), fmin=fmin)
+                                extras=tb_star[1:],
+                                fmin=tb_star[0] if use_cols else None)
     else:
         has_blocker = min_d < 1e8
-        tb_star = (fmin, h_top, h_bot)
 
     # --- READOUT at full shadow resolution (pixel centers at i + 0.5).
     lx = light_position[:, 0] * render_scale
@@ -288,58 +306,82 @@ def scan_visibility(scene, height: int, width: int, light_position,
     ramp = torch.clamp(light_ramp_length[:, None, None], min=16.0)
     growth = max_radius / ramp * quality.cone_growth_factor
 
-    # Refine candidates along the blocker span (scan_shadows.py:729-764).
-    fwd = torch.minimum((exit_frac - k_frac) * 0.5, 1.5 / (major * sec))
-    t_star = torch.where(min_d < -1.0, k_frac + fwd,
-                         (k_frac + exit_frac) * 0.5)
-    if quality.scan_refine_samples == 1:
-        candidates = (t_star,)
-    elif quality.scan_refine_samples == 2:
-        candidates = (t_star, exit_frac)
+    # The exact refine's ray endpoints: light (world) -> the lifted
+    # shaded surface.
+    px_x = xs * inv_rs
+    px_y = ys * inv_rs
+    if pixel_offset_xy is not None:
+        px_x = px_x + pixel_offset_xy[..., 0]
+        px_y = px_y + pixel_offset_xy[..., 1]
+    lx_w = light_position[:, 0][:, None, None]
+    ly_w = light_position[:, 1][:, None, None]
+
+    if quality.scan_refine_samples <= 0:
+        # Pure flatland: the scan's own 2D minimum.
+        u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
+        radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
+        vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0, max=1.0)
+        candidates = ()
     else:
-        t_entry = torch.where(min_d < -1.0, (k_frac + exit_frac) * 0.5,
-                              k_frac)
-        candidates = (t_star, t_entry, exit_frac)
-    vis = torch.ones(min_d.shape, dtype=f32, device=dev)
+        # Refine candidates along the blocker span (scan_shadows.py:
+        # 729-764).
+        fwd = torch.minimum((exit_frac - k_frac) * 0.5, 1.5 / (major * sec))
+        t_star = torch.where(min_d < -1.0, k_frac + fwd,
+                             (k_frac + exit_frac) * 0.5)
+        if quality.scan_refine_samples == 1:
+            candidates = (t_star,)
+        elif quality.scan_refine_samples == 2:
+            candidates = (t_star, exit_frac)
+        else:
+            t_entry = torch.where(min_d < -1.0, (k_frac + exit_frac) * 0.5,
+                                  k_frac)
+            candidates = (t_star, t_entry, exit_frac)
+        vis = torch.ones(min_d.shape, dtype=f32, device=dev)
     for t in candidates:
-        # Elementwise column reconstruction at the candidate's 3D height.
         sz = lz3 + (pz - lz3) * t
-        d_i = reconstruct_profile(tb_star[0], tb_star[1], tb_star[2], sz)
+        if use_cols:
+            # Elementwise column reconstruction at the candidate's height.
+            d_i = reconstruct_profile(tb_star[0], tb_star[1], tb_star[2], sz)
+        else:
+            d_i = scene_sample_p(scene, lx_w + (px_x - lx_w) * t,
+                                 ly_w + (px_y - ly_w) * t, sz)
         u_i = torch.clamp((1.0 - t) * major * sec, min=0.0)
         radius_i = torch.minimum(growth * u_i + MIN_CONE_RADIUS, max_radius)
         vis_i = (d_i + HACK_DISTANCE_OFFSET) / radius_i
         vis = torch.minimum(vis, torch.where(has_blocker, vis_i, 1.0))
-    # Compound-umbra guard (scan_shadows.py:791-829): where the 3D ray at
-    # the nominated blocker is at or below the trace plane, the flatland
-    # block applies.
-    ray_z_at_k = lz3 + (pz - lz3) * k_frac
-    ray_z_at_exit = lz3 + (pz - lz3) * exit_frac
-    low_ray = (ray_z_at_k <= trace_z + 0.5) | (
-        (ray_z_at_exit <= trace_z + 0.5) & (min_d < -0.5))
-    u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
-    radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
-    flat_vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0,
-                           max=1.0)
-    vis = torch.where(has_blocker & low_ray, torch.minimum(vis, flat_vis),
-                      vis)
+    if candidates:
+        # Compound-umbra guard (scan_shadows.py:791-829): where the 3D ray
+        # at the nominated blocker is at or below the trace plane, the
+        # flatland block applies.
+        ray_z_at_k = lz3 + (pz - lz3) * k_frac
+        ray_z_at_exit = lz3 + (pz - lz3) * exit_frac
+        low_ray = (ray_z_at_k <= trace_z + 0.5) | (
+            (ray_z_at_exit <= trace_z + 0.5) & (min_d < -0.5))
+        u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
+        radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
+        flat_vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0,
+                               max=1.0)
+        vis = torch.where(has_blocker & low_ray, torch.minimum(vis, flat_vis),
+                          vis)
     final = torch.clamp(
         torch.clamp(vis - FULLY_SHADOWED_THRESHOLD, 0.0, 1.0)
         / (UNSHADOWED_THRESHOLD - FULLY_SHADOWED_THRESHOLD), 0.0, 1.0)
     return final ** quality.occlusion_to_opacity_power
 
 
-def _upsample_nominated(min_d, k_frac, exit_frac, halvings: int, extras,
-                        fmin):
+def _upsample_nominated(min_d, k_frac, exit_frac, halvings: int, extras=(),
+                        fmin=None):
     """Upsample the nominated fields to the readout grid
     (scan_shadows.py:842-920): the no-blocker sentinel clamps to 8192 so
     "bilinear min_d < 4096" is the 2x2 majority vote on the blocker mask;
     the fractions upsample as a mask-normalized convolution of their
-    complements; the interval heights edge-aware (bilinear where the
-    coarse neighborhood agrees within 2 units, nearest across blocker
-    boundaries); the footprint minimum mask-normalized bilinear.
+    complements; the carried interval heights `extras` edge-aware
+    (bilinear where the coarse neighborhood agrees within 2 units, nearest
+    across blocker boundaries); the carried footprint minimum `fmin`
+    mask-normalized bilinear.
 
-    Returns (min_d, k_frac, exit_frac, has_blocker, (f_min, h_top, h_bot))
-    at 2**halvings the input resolution."""
+    Returns (min_d, k_frac, exit_frac, has_blocker, ([f_min,] *extras)) at
+    2**halvings the input resolution."""
     nom_mask = min_d < 4096.0
     min_d = torch.clamp(min_d, max=8192.0)
     k_c = torch.where(nom_mask, 1.0 - k_frac, 0.0)
@@ -347,7 +389,8 @@ def _upsample_nominated(min_d, k_frac, exit_frac, halvings: int, extras,
     wgt = nom_mask.to(torch.float32)
     ex_c = [torch.where(nom_mask, e, fill)
             for e, fill in zip(extras, (_TOP_FILL, _BOT_FILL))]
-    fm_c = torch.where(nom_mask, torch.clamp(fmin, max=4096.0), 0.0)
+    fm_c = (None if fmin is None
+            else torch.where(nom_mask, torch.clamp(fmin, max=4096.0), 0.0))
     for _ in range(halvings):
         k_c = upsample2x_bilinear(k_c)
         e_c = upsample2x_bilinear(e_c)
@@ -359,13 +402,16 @@ def _upsample_nominated(min_d, k_frac, exit_frac, halvings: int, extras,
             bi = upsample2x_bilinear(e)
             ex_new.append(torch.where(torch.abs(bi - nn) < 2.0, bi, nn))
         ex_c = ex_new
-        fm_c = upsample2x_bilinear(fm_c)
+        if fm_c is not None:
+            fm_c = upsample2x_bilinear(fm_c)
     has_blocker = min_d < 4096.0
     wgt = torch.clamp(wgt, min=1e-3)
     k_frac = torch.clamp(1.0 - k_c / wgt, 0.0, 1.0)
     exit_frac = torch.clamp(1.0 - e_c / wgt, 0.0, 1.0)
-    return (min_d, k_frac, exit_frac, has_blocker,
-            (fm_c / wgt, ex_c[0], ex_c[1]))
+    ex_out = tuple(ex_c)
+    if fm_c is not None:
+        ex_out = (fm_c / wgt,) + ex_out
+    return min_d, k_frac, exit_frac, has_blocker, ex_out
 
 
 def resize_visibility(vis, target_hw):
@@ -425,7 +471,7 @@ def scan_cone_visibility(scene, gbuffer, light_position, light_radius,
                          light_ramp_length, quality: QualitySettings,
                          light_active=None):
     """Shadow-scale-aware scan visibility over a G-buffer -> (L, H, W):
-    the sphere lights' normal-lifted shading heights, the scan at
+    the sphere lights' normal-lifted shading endpoints, the scan at
     quality.shadow_scale resolution, and the upsample back. The JAX
     package's per-family lifts and trace budgets of the fused
     multi-family scan are ROADMAP M9."""
@@ -439,14 +485,22 @@ def scan_cone_visibility(scene, gbuffer, light_position, light_radius,
             "exact halving and full resolution are ported)")
     else:
         sh, sw = h, w
-    lifted_z = gbuffer.z + SELF_OCCLUSION_LIFT * gbuffer.normal[..., 2]
+    lift = SELF_OCCLUSION_LIFT
+    lifted_z = gbuffer.z + lift * gbuffer.normal[..., 2]
+    # The lift's world xy (with the 2.5D screen -> world y offset): the
+    # exact refine's ray endpoint.
+    offset_xy = torch.stack(
+        [lift * gbuffer.normal[..., 0],
+         lift * gbuffer.normal[..., 1] + gbuffer.relative_y], dim=-1)
     if (sh, sw) != (h, w):
         pixel_z = downsample2x_linear(downsample2x_linear(lifted_z, 0), 1)
+        offset_xy = downsample2x_linear(downsample2x_linear(offset_xy, 0), 1)
     else:
         pixel_z = lifted_z
     vis = scan_visibility(
         scene, sh, sw, light_position, light_radius, light_ramp_length,
         quality,
         render_scale=gbuffer.render_scale * (sh / h if sh != h else 1.0),
-        pixel_z=pixel_z, light_active=light_active)
+        pixel_z=pixel_z, pixel_offset_xy=offset_xy,
+        light_active=light_active)
     return resize_visibility(vis, (h, w))

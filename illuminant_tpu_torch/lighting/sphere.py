@@ -2,7 +2,8 @@
 
 Counterpart of illuminant_tpu/lighting/sphere.py:accumulate_sphere_lights
 with scan shadows and without specular or ambient occlusion, the flagship
-frame's flags (scenes.py:681-685). All lights evaluate as
+frame's flags (scenes.py:681-685), against any field the scan takes (an
+AnalyticScene, a ColumnField, an SdfVolume). All lights evaluate as
 one batched (L, H, W) computation (LightCommon.fxh:154-210 falloff and
 normal ramp, SphereLightCore.fxh:58-158 sequencing) and sum into the
 lightmap as sum_l color_l.rgb * color_l.a * opacity_l (SphereLight.fx:

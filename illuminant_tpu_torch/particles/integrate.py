@@ -2,12 +2,16 @@
 
 Counterpart of illuminant_tpu/particles/integrate.py:
 integrate_with_distance_field (UpdateParticleSystemWithDistanceField.fx:
-29-147) at one sphere-trace substep against a ColumnField: friction and
-maximum velocity, life decay, the initial distance sample, one step
-sample fused with its gradient, and the bounce / escape / redirect
-outcomes, all branchless per particle over planar (N,) components. The
-two field samples are the column-map kernel's two launches per frame.
-Several substeps and the analytic field are ROADMAP M8 and M1.
+29-147) against any field: friction and maximum velocity, life decay, the
+initial distance sample, up to `substeps` sphere-trace steps with
+backtracking, the collision normal, and the bounce / escape / redirect
+outcomes, all branchless per particle over planar (N,) components.
+  * One substep on a ColumnField: the step sample rides its gradient in
+    one launch of the column-map kernel (two launches per call with the
+    initial distance).
+  * Otherwise each substep samples the field (`scene_sample_p`) and the
+    normal is the field's fast normal at the collision point
+    (`scene_normal_p(fast=True)`: closed form on an analytic scene).
 """
 
 from __future__ import annotations
@@ -15,12 +19,13 @@ from __future__ import annotations
 import torch
 
 from ..core.pytree import named_scope
-from ..sdf.analytic import scene_sample_grad_p, scene_sample_p
-from ..sdf.columns import ColumnField
+from ..sdf.analytic import (scene_normal_p, scene_sample_grad_p,
+                            scene_sample_p)
 from .render_data import RenderDataUniforms, compute_render_data
 from .state import ParticleState, SystemUniforms
 
 # UpdateParticleSystemWithDistanceField.fx:12-25.
+MAX_STEP_COUNT = 3
 BOUNCE_DELAY = 3.0
 NO_NORMAL_THRESHOLD = 0.33
 INITIAL_ESCAPE_SPEED = 0.33
@@ -61,15 +66,12 @@ def _slot_hash_direction(n: int, device):
 @named_scope("illuminant/particle_integrate")
 def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
                                   rd: RenderDataUniforms, volume,
-                                  maximum_z: float = 1e9
+                                  maximum_z: float = 1e9,
+                                  substeps: int = MAX_STEP_COUNT
                                   ) -> ParticleState:
     """SDF collision integrate (UpdateParticleSystemWithDistanceField.fx)
-    at one substep, the JAX function's `substeps=1`; particles above
-    `maximum_z` ignore the field. Returns a new state."""
-    if not isinstance(volume, ColumnField):
-        raise NotImplementedError(
-            f"collision against {type(volume).__name__} (ROADMAP M1: the "
-            "port collides against a ColumnField)")
+    with up to `substeps` sphere-trace steps; particles above `maximum_z`
+    ignore the field. Returns a new state."""
     pos = state.position
     vel = state.velocity
     dt = su.dt
@@ -96,32 +98,59 @@ def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
     was_colliding = initial_distance < collision_distance
     travel = torch.clamp(torch.minimum(initial_distance, scaled_len),
                          min=0.0)
-    # Active step (fx:66-71): zero travel takes no step.
-    active = was_colliding | ~(travel <= 0.001)
 
-    # The one step (fx:72-90). At one substep the collision point is this
-    # step's position, so the normal rides the same kernel launch.
-    tx = ox + travel * ux
-    ty = oy + travel * uy
-    tz = oz + travel * uz
-    step_distance, nnx, nny, nnz = scene_sample_grad_p(volume, tx, ty, tz)
-    step_distance = torch.where(above_field, 1e9, step_distance)
-    hit = step_distance < collision_distance
-    collided = active & hit
     zero = torch.zeros_like(ox)
-    cpx = torch.where(collided, tx, zero)
-    cpy = torch.where(collided, ty, zero)
-    cpz = torch.where(collided, tz, zero)
-    escaping = active & (step_distance > initial_distance)
-    backtrack = active & collided & ~escaping
-    offset = torch.clamp(step_distance + collision_distance, 0.05, 16.0)
-    travel = torch.where(backtrack, torch.clamp(travel - offset, min=0.0),
-                         travel)
+    collided = torch.zeros_like(was_colliding)
+    escaping = torch.zeros_like(was_colliding)
+    cpx, cpy, cpz = zero, zero, zero
+    # Active substeps (fx:66-71): a colliding particle takes one step,
+    # zero travel none.
+    steps_left = torch.where(was_colliding, 1, torch.where(
+        travel <= 0.001, 0, substeps))
+
+    # At one substep the collision point is this step's position, so a
+    # field with a fused path (a ColumnField) returns the normal with the
+    # step sample.
+    fused_normal = None
+    for _ in range(substeps):  # fx:72-90
+        active = steps_left > 0
+        tx = ox + travel * ux
+        ty = oy + travel * uy
+        tz = oz + travel * uz
+        fused = (scene_sample_grad_p(volume, tx, ty, tz)
+                 if substeps == 1 else None)
+        if fused is not None:
+            step_distance, *fused_normal = fused
+        else:
+            step_distance = scene_sample_p(volume, tx, ty, tz)
+        step_distance = torch.where(above_field, 1e9, step_distance)
+        hit = step_distance < collision_distance
+
+        newly = active & hit
+        collided = collided | newly
+        escaping = torch.where(active, step_distance > initial_distance,
+                               escaping)
+        # A new hit or a backtrack records this step's position.
+        backtrack = active & collided & ~escaping
+        at_step = newly | backtrack
+        cpx = torch.where(at_step, tx, cpx)
+        cpy = torch.where(at_step, ty, cpy)
+        cpz = torch.where(at_step, tz, cpz)
+        offset = torch.clamp(step_distance + collision_distance, 0.05, 16.0)
+        travel = torch.where(backtrack, torch.clamp(travel - offset, min=0.0),
+                             travel)
+        # stepCount = 0 when not backtracking or travel exhausted (fx:85-89).
+        steps_left = torch.where(active & backtrack & (travel > 0.001),
+                                 steps_left - 1, 0)
 
     # fx:92-139: resolve collision outcomes.
     bounce = v0w <= 0.0
     redirect = was_colliding & ~escaping
     needs_normal = collided & (bounce | redirect)
+    if fused_normal is not None:
+        nnx, nny, nnz = fused_normal
+    else:
+        nnx, nny, nnz = scene_normal_p(volume, cpx, cpy, cpz, fast=True)
     nx = torch.where(needs_normal, nnx, zero)
     ny = torch.where(needs_normal, nny, zero)
     nz = torch.where(needs_normal, nnz, zero)

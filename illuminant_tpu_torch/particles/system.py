@@ -21,7 +21,8 @@ class ParticleSystemConfig:
     """ParticleSystemConfiguration (ParticleConfiguration.cs:187-303,
     subset); the same fields and defaults as the JAX package's, less
     `collision_substeps`, which only the JAX system's own tick reads (the
-    port's collision takes one substep, ROADMAP M5, M8)."""
+    tick is ROADMAP M5; the frame takes its substeps from
+    `build_flagship`)."""
 
     capacity: int = 1 << 20
     updates_per_second: float = 60.0

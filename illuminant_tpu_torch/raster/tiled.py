@@ -11,7 +11,10 @@ lies inside its tile's window. The sort-key packing, rgba8 / compact
 payloads, the int8 splat and the overflow level are TPU machinery and are
 not ported, so colors, positions and sizes stay float32 (the JAX fast
 preset quantizes them: tiled.py:544, 659, 693) and no particle is ever
-dropped for bin capacity.
+dropped for bin capacity. The parity preset (the round kernel with float
+colours, scenes.py:544-550) is the same splat with `kernel="round"`; the
+JAX parity frame keeps bf16 colours and a fixed bin capacity, so it can
+report `dropped > 0` where the port reports 0.
 """
 
 from __future__ import annotations

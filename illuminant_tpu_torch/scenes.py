@@ -1,14 +1,22 @@
-"""The flagship scene, voxel-field variant, on PyTorch.
+"""The flagship scene on PyTorch.
 
-Counterpart of illuminant_tpu/scenes.py:build_flagship(preset="fast",
-field="voxel") — the frame a shipped Lumined scene exercises: a baked
-static voxel field saved and loaded (DistanceField.cs Save/Load :178-213),
-a dynamic partition regenerated every frame and min-combined with it
-(DynamicDistanceField :248-321), column maps built from the result, then
-  * 8 sphere lights with carried-refine scan shadows over a flat G-buffer,
-    radius pulse and orbit animated by beziers;
+Counterpart of illuminant_tpu/scenes.py:build_flagship, its two fields and
+two presets:
+  * field="analytic" (the headline frame): the type-grouped analytic scene
+    whose two dynamic occluders orbit every frame, evaluated in closed form
+    wherever the frame queries it;
+  * field="voxel": a baked static voxel field saved and loaded
+    (DistanceField.cs Save/Load :178-213), a dynamic partition regenerated
+    every frame and min-combined with it (DynamicDistanceField :248-321),
+    and column maps built from the result;
+  * preset="fast": library-default quality, one collision substep, the
+    Gaussian glow; preset="parity": full-resolution shadows with quarter-
+    resolution nomination, three collision substeps, the round kernel.
+On that field the frame runs
+  * 8 sphere lights with scan shadows over a flat G-buffer, radius pulse
+    and orbit animated by beziers;
   * a 1M-particle system: bezier-path spawner, gravity attractors, SDF
-    collision against the moving occluders through the column-map kernel;
+    collision against the moving occluders;
   * the additive particle splat, an HDR luminance histogram driving the
     next frame's exposure, and the Uncharted2 tonemap to uint8.
 
@@ -59,7 +67,9 @@ class FlagshipScene:
     config: RendererConfig
     environment: LightingEnvironment
     sdf_config: vol.SdfVolumeConfig
-    volume: vol.SdfVolume  # the loaded static partition
+    # The frame's field argument: the analytic pack, or the loaded static
+    # voxel partition.
+    volume: object
     gbuffer: gbuf.GBuffer
     sphere_lights: object
     system: ParticleSystem
@@ -89,8 +99,8 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
                    collision_substeps: Optional[int] = None,
                    raster_preset: Optional[str] = None, mesh=None,
                    field: str = "analytic", device="cpu") -> FlagshipScene:
-    """The voxel flagship frame on `device`; the arguments mean what they
-    mean in the JAX package. Values outside the ported slice raise
+    """The flagship frame on `device`; the arguments mean what they mean
+    in the JAX package. Values outside the ported slice raise
     NotImplementedError naming their ROADMAP item."""
     if preset not in ("fast", "parity"):
         raise ValueError(f"unknown preset {preset!r}")
@@ -98,14 +108,8 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
         raise ValueError(f"unknown field {field!r}")
     if raster_preset not in (None, "fast", "parity"):
         raise ValueError(f"unknown raster_preset {raster_preset!r}")
-    if field == "analytic":
-        raise _unported("the analytic-field frame", "M1")
-    if preset == "parity":
-        raise _unported("the parity preset", "M8")
     if full_family:
         raise _unported("the extra light families", "M9")
-    if raster_preset == "parity":
-        raise _unported("the parity raster preset", "M8")
     if mesh is not None:
         raise _unported("the multi-device frame", "M15")
     if spawn_sub_rings != 1:
@@ -113,10 +117,22 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
                         "per-device sub-rings)", "M15")
     if shadow_mode != "scan":
         raise _unported(f"shadow_mode={shadow_mode!r}", "K12")
-    if collision_substeps not in (None, 1):
-        raise _unported(f"collision_substeps={collision_substeps} (the "
-                        "port's collision takes one substep)", "M8")
+    if raster_preset not in (None, preset):
+        raise _unported(f"raster_preset={raster_preset!r} under "
+                        f"preset={preset!r} (the mixed presets)", "M8")
+    if collision_substeps not in (None, 1, 2, 3):
+        raise _unported(f"collision_substeps={collision_substeps} (1 to 3 "
+                        "are ported)", "M8")
     device = torch.device(device)
+    parity = preset == "parity"
+    substeps = (collision_substeps if collision_substeps is not None
+                else (3 if parity else 1))
+    if quality is None and parity:
+        # Full-resolution readout and refine under a quarter-resolution
+        # nomination walk, one refine sample (scenes.py:152-177).
+        quality = QualitySettings(shadow_scale=1.0, scan_refine_samples=1,
+                                  scan_nomination_scale=0.25,
+                                  extra_family_scale=1.0)
 
     env = LightingEnvironment(ground_z=0.0, maximum_z=128.0,
                               ambient=(0.03, 0.03, 0.04, 1.0))
@@ -149,28 +165,20 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
     sdf_config = vol.SdfVolumeConfig(
         virtual_width=width, virtual_height=height, virtual_depth=64,
         slice_count=16, resolution_scale=sdf_resolution_scale)
-    # The analytic pack keys each dynamic occluder's orbit frequency by
-    # its type group.
-    group_types = analytic.pack_scene(env.obstructions,
-                                      group_capacity_round=1).group_types
-
-    # Bake the static partition, save it and load it back (the shipped-
-    # scene path). The file name is the port's own, written by rename.
-    static_vox = vol.generate_volume(
-        sdf_config, env.pack_obstructions(dynamic=False, device=device))
-    path = os.path.join(
-        tempfile.gettempdir(),
-        f"illum_torch_flagship_field_{width}x{height}_"
-        f"{sdf_resolution_scale}.npz")
-    fd, tmp = tempfile.mkstemp(suffix=".npz", dir=os.path.dirname(path))
-    os.close(fd)
-    try:
-        vol.save(static_vox, tmp)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    voxel_static = vol.load(path, device=device)
+    # Tight group packing: the scene is fixed. Both fields key each dynamic
+    # occluder's orbit frequency by its type group here.
+    packed = analytic.pack_scene(env.obstructions, group_capacity_round=1,
+                                 device=device)
+    if field == "voxel":
+        volume = _load_static_voxels(env, sdf_config, width, height,
+                                     sdf_resolution_scale, device)
+        animate_field = _voxel_animation(
+            sdf_config, env.pack_obstructions(dynamic=True, device=device),
+            [0.9 + 0.3 * packed.group_types.index(o.type)
+             for o in env.obstructions if o.is_dynamic], device)
+    else:
+        volume = packed
+        animate_field = _analytic_animation(packed, env.obstructions, device)
 
     env_u = env.uniforms(device=device)
     gbuffer = gbuf.flat_ground(height, width, env_u)
@@ -224,55 +232,117 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
         rotation_from_life_and_index=torch.zeros(
             (2,), dtype=torch.float32, device=device),
     )
-    system = ParticleSystem(p_config, [spawner, grav], volume=voxel_static,
+    system = ParticleSystem(p_config, [spawner, grav], volume=volume,
                             render_data=render_data, device=device)
 
-    # The fast preset's Gaussian glow; the JAX presets' payload
-    # quantization and bin capacity have no counterpart in the direct
-    # splat.
+    # The preset's splat kernel: the parity round disc or the fast
+    # Gaussian glow. The JAX presets' payload quantization and bin
+    # capacity have no counterpart in the direct splat.
     raster_config = TiledRasterConfig(
         height=height, width=width, tile=32, apron=4, channels=3,
-        kernel="gauss")
+        kernel="round" if parity else "gauss")
 
     frame = _FlagshipFrame(
         device=device, cx=cx, cy=cy, ring=ring, config=config,
-        sdf_config=sdf_config,
-        dyn_obs=env.pack_obstructions(dynamic=True, device=device),
-        dyn_freqs=[0.9 + 0.3 * group_types.index(o.type)
-                   for o in env.obstructions if o.is_dynamic],
+        animate_field=animate_field, substeps=substeps,
         su=system.system_uniforms(DT), rd=system.render_data,
         grav_u=grav.uniforms(0.0, device=device),
         spawn_u=spawner.uniforms(0.0, device=device), spawner=spawner,
         raster_config=raster_config)
     return FlagshipScene(
         config=config, environment=env, sdf_config=sdf_config,
-        volume=voxel_static, gbuffer=gbuffer, sphere_lights=sphere_lights,
+        volume=volume, gbuffer=gbuffer, sphere_lights=sphere_lights,
         system=system, raster_config=raster_config, frame=frame.frame,
         frame_loop=frame.frame_loop, spawner=spawner, device=device)
+
+
+def _load_static_voxels(env, sdf_config, width, height,
+                        sdf_resolution_scale, device):
+    """Bake the static partition, save it and load it back (the shipped-
+    scene path). The file name is the port's own, written by rename."""
+    static_vox = vol.generate_volume(
+        sdf_config, env.pack_obstructions(dynamic=False, device=device))
+    path = os.path.join(
+        tempfile.gettempdir(),
+        f"illum_torch_flagship_field_{width}x{height}_"
+        f"{sdf_resolution_scale}.npz")
+    fd, tmp = tempfile.mkstemp(suffix=".npz", dir=os.path.dirname(path))
+    os.close(fd)
+    try:
+        vol.save(static_vox, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return vol.load(path, device=device)
+
+
+def _orbit(freq, t):
+    """(n, 3) offsets of a unit orbit at time t, one frequency per row."""
+    return torch.stack([torch.sin(freq * t), torch.cos(freq * t),
+                        torch.zeros_like(freq)], dim=-1)
+
+
+def _analytic_animation(scene, obstructions, device):
+    """animate(scene, t): each dynamic occluder of the analytic pack orbits
+    a (60, 40) ellipse at 0.9 + 0.3 * its group index per second
+    (scenes.py:374-404)."""
+    amps, freqs = [], []
+    for gi, type_id in enumerate(scene.group_types):
+        n = scene.centers[gi].shape[0]
+        amp = np.zeros((n, 3), np.float32)
+        freq = np.zeros((n,), np.float32)
+        group = [o for o in obstructions if o.type == type_id][:n]
+        for j, o in enumerate(group):
+            if o.is_dynamic:
+                amp[j] = (60.0, 40.0, 0.0)
+                freq[j] = 0.9 + 0.3 * gi
+        amps.append(torch.as_tensor(amp, device=device))
+        freqs.append(torch.as_tensor(freq, device=device))
+
+    def animate(scene_, t):
+        return scene_.replace(centers=tuple(
+            c + a * _orbit(f, t)
+            for c, a, f in zip(scene_.centers, amps, freqs)))
+
+    return animate
+
+
+def _voxel_animation(sdf_config, dyn_obs, dyn_freqs, device):
+    """animate(static volume, t): the same orbits applied to the packed
+    dynamic partition, which is regenerated, min-combined with the static
+    field and turned into column maps (scenes.py:406-443)."""
+    n_dyn = dyn_obs.centers.shape[0]
+    damp = np.zeros((n_dyn, 3), np.float32)
+    dfreq = np.zeros((n_dyn,), np.float32)
+    for j, fq in enumerate(dyn_freqs):
+        damp[j] = (60.0, 40.0, 0.0)
+        dfreq[j] = fq
+    damp = torch.as_tensor(damp, device=device)
+    dfreq = torch.as_tensor(dfreq, device=device)
+
+    def animate(static_volume, t):
+        centers = dyn_obs.centers + damp * _orbit(dfreq, t)
+        dyn_vol = vol.generate_volume(sdf_config,
+                                      dyn_obs.replace(centers=centers))
+        return build_column_maps(
+            vol.combine_static_dynamic(static_volume, dyn_vol))
+
+    return animate
 
 
 class _FlagshipFrame:
     """The frame's constants and its stages, one method each."""
 
-    def __init__(self, *, device, cx, cy, ring, config,
-                 sdf_config, dyn_obs, dyn_freqs, su, rd, grav_u, spawn_u,
-                 spawner, raster_config):
+    def __init__(self, *, device, cx, cy, ring, config, animate_field,
+                 substeps, su, rd, grav_u, spawn_u, spawner, raster_config):
         f32 = torch.float32
         self.device = device
         self.quality = config.quality
-        self.sdf_config = sdf_config
         self.center = torch.tensor([cx, cy, 0.0], dtype=f32, device=device)
-        # Both dynamic occluders orbit a (60, 40) ellipse at frequencies
-        # keyed to their analytic type group (scenes.py:406-418).
-        n_dyn = dyn_obs.centers.shape[0]
-        damp = np.zeros((n_dyn, 3), np.float32)
-        dfreq = np.zeros((n_dyn,), np.float32)
-        for j, fq in enumerate(dyn_freqs):
-            damp[j] = (60.0, 40.0, 0.0)
-            dfreq[j] = fq
-        self.dyn_obs = dyn_obs
-        self.damp = torch.as_tensor(damp, device=device)
-        self.dfreq = torch.as_tensor(dfreq, device=device)
+        # animate_field(volume, t) -> the field the frame queries at t.
+        self.animate_field = animate_field
+        self.substeps = substeps
         self.su, self.rd, self.grav_u = su, rd, grav_u
         self.spawn_u = spawn_u
         self.spawner = spawner
@@ -291,18 +361,6 @@ class _FlagshipFrame:
             torch.tensor(4.0, dtype=f32, device=device))
 
     # -- stages -----------------------------------------------------------
-
-    def animate_field(self, static_volume, t):
-        """Regenerate the dynamic partition at time t, min-combine it with
-        the static field, and build the column maps."""
-        orbit = torch.stack([torch.sin(self.dfreq * t),
-                             torch.cos(self.dfreq * t),
-                             torch.zeros_like(self.dfreq)], dim=-1)
-        centers = self.dyn_obs.centers + self.damp * orbit
-        dyn_vol = vol.generate_volume(
-            self.sdf_config, self.dyn_obs.replace(centers=centers))
-        return build_column_maps(
-            vol.combine_static_dynamic(static_volume, dyn_vol))
 
     def animate_lights(self, lights, i, t):
         """Orbit the lights about the screen center and pulse their
@@ -347,7 +405,8 @@ class _FlagshipFrame:
         pos, vel = tx.apply_gravity(state.position, state.velocity,
                                     self.grav_u, self.su)
         state = state.replace(position=pos, velocity=vel)
-        return integrate_with_distance_field(state, self.su, self.rd, field)
+        return integrate_with_distance_field(state, self.su, self.rd, field,
+                                             substeps=self.substeps)
 
     def raster(self, state):
         return rasterize_tiled(

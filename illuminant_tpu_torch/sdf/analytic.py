@@ -1,18 +1,23 @@
-"""Analytic SDF scene data and the field query dispatch.
+"""Analytic SDF scene and the field query dispatch.
 
-Counterpart of illuminant_tpu/sdf/analytic.py, as far as the voxel frame
-uses it:
-  * `pack_scene` / `AnalyticScene` as data: obstructions grouped by type in
-    sorted type order. The voxel frame reads `group_types` to key each
-    dynamic occluder's orbit frequency. Evaluating the analytic field
-    (`distance_p`, normals) comes with the analytic frame (ROADMAP M1).
-  * The uniform query interface over `ColumnField` and `SdfVolume`:
-    `scene_sample`, `scene_sample_p`, `scene_sample_grad_p`,
-    `scene_normal_p`. Separable grid queries (the occlusion image) go to
-    the exact `sampling.sample_grid`, never to the column kernel;
-    scattered queries on a ColumnField go to the kernel.
-The TPU dispatch gates `set_interp_dispatch` / `_use_interp` are not
-ported: the port has no MXU interpolation path to gate.
+Counterpart of illuminant_tpu/sdf/analytic.py:
+  * `pack_scene` / `AnalyticScene`: obstructions grouped by type in sorted
+    type order, each group's live count a static Python int. The field is
+    evaluated in closed form at every query point: `distance_p` unrolls
+    over the live primitives (pad slots, which sit at 1e9, are never
+    evaluated) and switches to one batched evaluation per group above
+    `_UNROLL_LIMIT` primitives. `normal_p` is the autograd gradient,
+    `normal_fast_p` the closed-form normal of the nearest primitive.
+  * The uniform query interface over `AnalyticScene`, `ColumnField` and
+    `SdfVolume`: `scene_sample`, `scene_normal`, `scene_sample_p`,
+    `scene_sample_grad_p`, `scene_normal_p`. Separable grid queries (the
+    occlusion image) on a voxel field go to the exact
+    `sampling.sample_grid`, never to the column kernel; scattered queries
+    on a ColumnField go to the kernel.
+Not ported: the TPU dispatch gates `set_interp_dispatch` / `_use_interp`
+(the port has no MXU interpolation path to gate), height-volume polygons
+(ROADMAP M12) and `scene_column_images`, which only the opt-in
+`carried_all` refine reads (ROADMAP M3).
 """
 
 from __future__ import annotations
@@ -42,7 +47,138 @@ class AnalyticScene:
     group_types: Tuple[int, ...] = ()
     group_rotated: Tuple[bool, ...] = ()
     maximum_distance: float = 128.0
+    # Live obstructions per group, pad slots excluded; empty means all.
     group_counts: Tuple[int, ...] = ()
+
+    # Above this many live primitives the per-primitive unroll gives way to
+    # one batched evaluation per group.
+    _UNROLL_LIMIT = 64
+
+    def _counts(self):
+        if self.group_counts:
+            return self.group_counts
+        return tuple(int(c.shape[0]) for c in self.centers)
+
+    def _primitives(self, x, y, z):
+        """Yield (group type, local px, py, pz, sx, sy, sz, quaternion or
+        None) for every live primitive, the query shifted to its center
+        and rotated into its frame."""
+        counts = self._counts()
+        for gi, type_id in enumerate(self.group_types):
+            c, s, q = self.centers[gi], self.sizes[gi], self.rotations[gi]
+            for i in range(counts[gi]):
+                px, py, pz = x - c[i, 0], y - c[i, 1], z - c[i, 2]
+                qi = None
+                if self.group_rotated[gi]:
+                    qi = (q[i, 0], q[i, 1], q[i, 2], q[i, 3])
+                    px, py, pz = sp.rotate_by_quaternion_p(px, py, pz, *qi)
+                yield type_id, px, py, pz, s[i, 0], s[i, 1], s[i, 2], qi
+
+    def distance(self, position):
+        """Scene distance at (..., 3) points -> (...,)."""
+        return self.distance_p(position[..., 0], position[..., 1],
+                               position[..., 2])
+
+    def distance_p(self, x, y, z):
+        """Planar scene distance: x, y, z broadcastable tensors -> the
+        distance of their broadcast shape, the min over all live
+        primitives and `maximum_distance` (the reference's MAX blend over
+        encoded distances, fxh:264-270)."""
+        if sum(self._counts()) > self._UNROLL_LIMIT:
+            return self._distance_vectorized(x, y, z)
+        d = torch.full(_broadcast_shape(x, y, z), self.maximum_distance,
+                       dtype=torch.float32, device=x.device)
+        for type_id, px, py, pz, sx, sy, sz, _ in self._primitives(x, y, z):
+            d = torch.minimum(
+                d, sp.PLANAR_EVALUATORS[type_id](px, py, pz, sx, sy, sz))
+        return d
+
+    def _distance_vectorized(self, x, y, z):
+        """One (..., n) evaluation per group, every slot of the group
+        (the JAX package's many-primitive path evaluates pad slots too)."""
+        position = _stack_p(x, y, z)
+        d = torch.full(position.shape[:-1], self.maximum_distance,
+                       dtype=torch.float32, device=x.device)
+        for gi, type_id in enumerate(self.group_types):
+            p = position[..., None, :] - self.centers[gi]
+            if self.group_rotated[gi]:
+                p = sp.rotate_by_quaternion(p, self.rotations[gi])
+            dg = _EVALUATORS[type_id](p, self.sizes[gi])
+            d = torch.minimum(d, torch.amin(dg, dim=-1))
+        return d
+
+    def normal_p(self, x, y, z):
+        """Planar field gradient by autograd -> unit (nx, ny, nz), zero
+        where the gradient vanishes. Runs under grad mode whatever the
+        caller's mode and returns detached tensors."""
+        with torch.inference_mode(False), torch.enable_grad():
+            xg, yg, zg = (v.detach().clone().requires_grad_(True)
+                          for v in (x, y, z))
+            d = self.distance_p(xg, yg, zg)
+            gx, gy, gz = torch.autograd.grad(d, (xg, yg, zg),
+                                             torch.ones_like(d),
+                                             allow_unused=True)
+        gx, gy, gz = (torch.zeros_like(v) if g is None else g.detach()
+                      for g, v in ((gx, x), (gy, y), (gz, z)))
+        gx, gy, gz = torch.broadcast_tensors(gx, gy, gz)
+        norm = torch.sqrt(gx * gx + gy * gy + gz * gz)
+        ok = norm > 1e-9
+        safe = torch.clamp(norm, min=1e-9)
+        return (torch.where(ok, gx / safe, 0.0),
+                torch.where(ok, gy / safe, 0.0),
+                torch.where(ok, gz / safe, 0.0))
+
+    def normal_fast_p(self, x, y, z):
+        """Closed-form normal of the nearest primitive (strictly nearer
+        than `maximum_distance` and than every earlier primitive; (0, 0, 0)
+        beyond it). Above `_UNROLL_LIMIT` primitives: central differences
+        of the batched distance, step 0.05."""
+        if sum(self._counts()) > self._UNROLL_LIMIT:
+            eps = 0.05
+            dist = self._distance_vectorized
+            gx = dist(x + eps, y, z) - dist(x - eps, y, z)
+            gy = dist(x, y + eps, z) - dist(x, y - eps, z)
+            gz = dist(x, y, z + eps) - dist(x, y, z - eps)
+            inv = 1.0 / torch.sqrt(gx * gx + gy * gy + gz * gz + 1e-12)
+            return gx * inv, gy * inv, gz * inv
+        shape = _broadcast_shape(x, y, z)
+        best = torch.full(shape, self.maximum_distance, dtype=torch.float32,
+                          device=x.device)
+        nx = torch.zeros(shape, dtype=torch.float32, device=x.device)
+        ny = torch.zeros_like(nx)
+        nz = torch.zeros_like(nx)
+        for type_id, px, py, pz, sx, sy, sz, q in self._primitives(x, y, z):
+            d = sp.PLANAR_EVALUATORS[type_id](px, py, pz, sx, sy, sz)
+            inx, iny, inz = sp.PLANAR_NORMALS[type_id](px, py, pz, sx, sy,
+                                                       sz)
+            if q is not None:
+                inx, iny, inz = sp.rotate_by_quaternion_inverse_p(
+                    inx, iny, inz, *q)
+            closer = d < best
+            nx = torch.where(closer, inx, nx)
+            ny = torch.where(closer, iny, ny)
+            nz = torch.where(closer, inz, nz)
+            best = torch.minimum(best, d)
+        return nx, ny, nz
+
+    def estimate_normal(self, position):
+        """The autograd field gradient at (..., 3) points -> (..., 3)."""
+        return torch.stack(self.normal_p(position[..., 0], position[..., 1],
+                                         position[..., 2]), dim=-1)
+
+
+_EVALUATORS = {
+    sp.TYPE_ELLIPSOID: sp.sd_ellipsoid,
+    sp.TYPE_BOX: sp.sd_box,
+    sp.TYPE_CYLINDER: sp.sd_cylinder,
+    sp.TYPE_SPHEROID: sp.sd_spheroid,
+    sp.TYPE_OCTAGON: sp.sd_octagon,
+}
+
+
+def _broadcast_shape(x, y, z):
+    return torch.broadcast_shapes(x.shape, torch.as_tensor(y).shape,
+                                  torch.as_tensor(z).shape)
 
 
 def _is_identity_rotation(q) -> bool:
@@ -93,10 +229,7 @@ def pack_scene(obstructions: List, maximum_distance: float = 128.0,
         maximum_distance=maximum_distance, group_counts=tuple(group_counts))
 
 
-def _unported(field):
-    if isinstance(field, AnalyticScene):
-        return NotImplementedError(
-            "analytic field evaluation is not ported yet (ROADMAP M1)")
+def _unsupported(field):
     return TypeError(f"unsupported field {type(field).__name__}")
 
 
@@ -110,17 +243,36 @@ def _stack_p(x, y, z):
 
 
 def scene_sample(field, position):
-    """Distance at world positions (..., 3): ColumnField -> column
-    reconstruction (the kernel); SdfVolume -> exact trilinear; None ->
-    128 (no field)."""
+    """Distance at world positions (..., 3): AnalyticScene -> closed form;
+    ColumnField -> column reconstruction (the kernel); SdfVolume -> exact
+    trilinear; None -> 128 (no field)."""
     if field is None:
         return torch.full(position.shape[:-1], 128.0, dtype=torch.float32,
                           device=position.device)
+    if isinstance(field, AnalyticScene):
+        return field.distance(position)
     if isinstance(field, ColumnField):
         return sample_columns(field, position)
     if isinstance(field, SdfVolume):
         return sampling.sample(field, position)
-    raise _unported(field)
+    raise _unsupported(field)
+
+
+def scene_normal(field, position):
+    """Unit normal at world positions (..., 3) -> (..., 3): the autograd
+    gradient of an AnalyticScene; the tetrahedral estimate of the exact
+    volume for a voxel field (through a ColumnField too); +z with no
+    field."""
+    if field is None:
+        return torch.tensor([0.0, 0.0, 1.0], device=position.device).expand(
+            position.shape)
+    if isinstance(field, AnalyticScene):
+        return field.estimate_normal(position)
+    if isinstance(field, ColumnField):
+        field = field.volume
+    if isinstance(field, SdfVolume):
+        return sampling.estimate_normal(field, position)
+    raise _unsupported(field)
 
 
 def _separable_grid(x, y) -> bool:
@@ -136,8 +288,11 @@ def _separable_grid(x, y) -> bool:
 
 def scene_sample_p(field, x, y, z):
     """Planar query: component arrays in, distance of their broadcast
-    shape out. Separable grids on a voxel field take the exact grid
-    resample of the volume — also through a ColumnField."""
+    shape out. An AnalyticScene evaluates the components directly;
+    separable grids on a voxel field take the exact grid resample of the
+    volume — also through a ColumnField."""
+    if isinstance(field, AnalyticScene):
+        return field.distance_p(x, y, z)
     vol_field = field.volume if isinstance(field, ColumnField) else field
     if isinstance(vol_field, SdfVolume) and _separable_grid(x, y):
         return sampling.sample_grid(vol_field, x.reshape(-1), y.reshape(-1),
@@ -148,7 +303,8 @@ def scene_sample_p(field, x, y, z):
 def scene_sample_grad_p(field, x, y, z):
     """Distance and normalized gradient at the same points for a
     ColumnField (one kernel launch with the gradient rows), or None for
-    fields without a fused path."""
+    fields without a fused path (an AnalyticScene keeps its closed-form
+    normals)."""
     if not isinstance(field, ColumnField):
         return None
     d, g = sample_columns_grad(field, _stack_p(x, y, z))
@@ -164,16 +320,16 @@ def _normalized(g):
 
 
 def scene_normal_p(field, x, y, z, fast: bool = False):
-    """Planar normal query -> (nx, ny, nz). On a ColumnField `fast` takes
-    the column reconstruction's own gradient (the collision normal);
-    otherwise the tetrahedral estimate of the exact volume."""
+    """Planar normal query -> (nx, ny, nz). `fast` selects the collision
+    normal: the nearest primitive's closed form on an AnalyticScene, the
+    column reconstruction's own gradient on a ColumnField. Otherwise
+    `scene_normal`."""
+    if isinstance(field, AnalyticScene):
+        return field.normal_fast_p(x, y, z) if fast else \
+            field.normal_p(x, y, z)
     pos = _stack_p(x, y, z)
-    if isinstance(field, ColumnField):
-        if fast:
-            _, g = sample_columns_grad(field, pos)
-            return _normalized(g)
-        field = field.volume
-    if isinstance(field, SdfVolume):
-        n = sampling.estimate_normal(field, pos)
-        return n[..., 0], n[..., 1], n[..., 2]
-    raise _unported(field)
+    if fast and isinstance(field, ColumnField):
+        _, g = sample_columns_grad(field, pos)
+        return _normalized(g)
+    n = scene_normal(field, pos)
+    return n[..., 0], n[..., 1], n[..., 2]

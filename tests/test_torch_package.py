@@ -38,11 +38,14 @@ def test_quality_rejects_unknown_refine_mode():
         QualitySettings(scan_refine_mode="carry")
 
 
+# Both fields and both presets are ported. A raster preset other than the
+# frame's own and a collision substep count outside 1-3 are not.
 @pytest.mark.parametrize("kwargs", [
-    dict(field="analytic"), dict(preset="parity"), dict(full_family=True),
+    dict(raster_preset="parity"),
+    dict(preset="parity", raster_preset="fast"), dict(full_family=True),
     dict(mesh=object()), dict(shadow_mode="march"),
-    dict(raster_preset="parity"), dict(spawn_sub_rings=2),
-    dict(collision_substeps=3),
+    dict(collision_substeps=0), dict(spawn_sub_rings=2),
+    dict(collision_substeps=4),
 ])
 def test_unported_arguments_raise(kwargs):
     kw = dict(height=32, width=48, capacity=64, spawn_max=16, n_lights=2,

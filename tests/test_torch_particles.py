@@ -236,7 +236,8 @@ def test_integrate_on_column_field_matches_jax():
 
     def run():
         return integrate_with_distance_field(
-            interop.to_torch(ParticleState, d), su_t, rd_t, cf_t)
+            interop.to_torch(ParticleState, d), su_t, rd_t, cf_t,
+            substeps=1)
 
     out_t = run()
     with sampler_rounding_like_jax():

@@ -177,5 +177,10 @@ def test_pack_scene_groups_like_jax():
     assert pt.group_counts == pj.group_counts
     for a, b in zip(pt.sizes, pj.sizes):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError):
-        analytic.scene_sample(pt, torch.zeros((4, 3)))
+    # The port's pack evaluates to the JAX field (its own scale-free
+    # points; tests/test_torch_analytic.py holds the field in full).
+    pos = np.random.default_rng(0).uniform(-2, 12, (64, 3)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        analytic.scene_sample(pt, torch.as_tensor(pos)).numpy(),
+        np.asarray(pj.distance(pos)), rtol=1e-5, atol=1e-4)
