@@ -2,23 +2,32 @@
 
     python3 chip_smoke.py [--warmup N] [--profile DIR]
 
-Builds the hand-written CUDA kernel of the port from this checkout's
-sources, holds it against its plain PyTorch version at the flagship's
-shapes, then drives three full-width flagship frames (1080x1920, 8 sphere
-lights, a 1M-particle system) through `build_flagship` and `frame`, the
-entry points a user calls, and checks what comes out:
-  * `slice`: the voxel field, fast preset — the path of the column-map
-    kernel, which must launch exactly twice a frame;
+Builds the hand-written CUDA kernels of the port from this checkout's
+sources (`illuminant_tpu_torch/csrc/column_maps.cu`: the map pack, the
+column-map sampler and the fused ColumnField query), holds each against
+its plain PyTorch version at the flagship's shapes, (5, 135, 240) maps and
+1M points, and times it on the device beside its plain version, the
+two-stage query it replaces, a PyTorch library call and its bound
+(`[kernel]`). Then it drives three full-width flagship
+frames (1080x1920, 8 sphere lights, a 1M-particle system) through
+`build_flagship` and `frame`, the entry points a user calls, and checks
+what comes out:
+  * `slice`: the voxel field, fast preset — the path of the column
+    kernels: the fused query and the pack launch exactly twice a frame,
+    the sampler (`sample_maps`, which the query replaced) never; after
+    its timed frames the fused query is checked and timed once more on
+    the slice's own particle positions (`[kernel] inputs=frame`);
   * `slice_analytic`: the analytic field, fast preset (the headline frame);
   * `slice_parity`: the analytic field, parity preset.
-The analytic slices must launch the column-map kernel 0 times: they never
-build a ColumnField. Each slice line gives ms/frame, live particles,
-avg_lum and the peak device memory. `reference` and `reference_analytic`
-hold the card's frame to the port's plain CPU path on a small input (the
-voxel frame; the analytic frame at both presets). Every phase prints one
-line; the line before the last holds the kernels' record as JSON, and the
-last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-before that line is printed. With no CUDA card the script exits 2.
+The analytic slices launch no column kernel: they never build a
+ColumnField. Each slice line gives ms/frame, live particles, avg_lum, the
+peak device memory and the launch counts. `reference` holds the card's
+voxel frame at both presets (the fused query 2 and 5 launches a frame) and
+`reference_analytic` the analytic frame at both presets to the port's
+plain CPU path on a small input. Every phase prints one line; the last
+three lines are the kernels' record as JSON, the card's name and power
+limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
+before those lines are printed. With no CUDA card the script exits 2.
 
 `--warmup N` runs N untimed frames before the timed ones of every slice
 (default 4). The particle ring fills after capacity / spawn_max = 256
@@ -26,9 +35,11 @@ frames, so `--warmup 260` times each frame at its steady population of
 about 1M live particles; the default times it at 16k-82k.
 
 `--profile DIR` additionally traces two frames of each slice with
-torch.profiler, writes the per-kernel and per-stage tables under
-DIR/<slice>/, and prints the device's busy time per frame and its idle
-share of the unprofiled frame.
+torch.profiler once every slice is timed (on a scene built anew and run
+through the same warm-up and timed frames, so no other slice's memory is
+held), writes the per-kernel and per-stage tables under DIR/<slice>/, and
+prints the device's busy time per frame and its idle share of the
+unprofiled frame.
 """
 
 from __future__ import annotations
@@ -61,6 +72,13 @@ SLICES = {
 SMALL = dict(height=96, width=160, n_lights=4, capacity=1 << 10,
              spawn_max=128, sdf_resolution_scale=0.5)
 TIMED_FRAMES = 16
+# The H100 SXM's published peaks: device memory and
+# float32 outside the tensor cores. A kernel's bound is the larger of its
+# bytes (each input read once, each output written once) and its
+# operations over these.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+KERNEL_REPS = 100
 
 
 def say(phase: str, **fields):
@@ -76,14 +94,22 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` launches, after one warm-up."""
-    fn()
+def device_ms(fn, reps: int) -> float:
+    """Device time of one fn() call: `reps` calls captured in one CUDA
+    graph, then CUDA events around a replay, over `reps`. The replay runs
+    the calls back to back, so the host's time to enqueue them (which
+    paces small kernels called one by one) is not in it."""
+    fn()  # warm-up: builds and loads what the call needs
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -100,54 +126,221 @@ def phase_build():
         ptxas=json.dumps(log[-400:]))
 
 
-def _slice_maps(device):
-    """The voxel slice's scene and a column-map pack of its shape: the
-    maps of the loaded static field, (5, 135, 240) at the flagship's
-    width."""
+def _slice_field(device):
+    """The voxel slice's scene and the ColumnField of its loaded static
+    field: (5, 135, 240) coarse maps at the flagship's width."""
     from illuminant_tpu_torch.scenes import build_flagship
     from illuminant_tpu_torch.sdf.columns import build_column_maps
 
     scene = build_flagship(device=device, **FULL, **SLICES["slice"])
-    return scene, build_column_maps(scene.volume).maps_c
+    return scene, build_column_maps(scene.volume)
 
 
-def phase_kernel(maps):
-    """The kernel against its plain version at the slice's shapes: the
-    real maps and 1M texel coordinates spanning past both edges, plus the
-    exact edge values."""
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
+def pointwise_ops(fn) -> int:
+    """The operations of one fn() call, counted as it runs: the elements
+    written by its pointwise aten operations (an add, a compare, a where,
+    a sqrt each count one per element; a gather, copy or reshape none).
+    Run on a plain version, this counts the work of the function a kernel
+    computes from its source, at this run's inputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                self.n += sum(t.numel() for t in tree_leaves(out)
+                              if isinstance(t, torch.Tensor))
+            return out
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by) of a function that moves n_bytes and does
+    n_ops float32 operations."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _max_err(out, ref) -> float:
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    if any(a.shape != b.shape or a.dtype != torch.float32
+           for a, b in zip(out, ref)) or len(out) != len(ref):
+        raise AssertionError("kernel output of another shape or type than "
+                             "its plain version")
+    return max(float((a - b).abs().max()) for a, b in zip(out, ref))
+
+
+def _require(name: str, err: float, tol: float, **what):
+    if not err <= tol:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({what}): {err} > {tol}")
+
+
+def _report(rec, key, name, err, bound, calls, **fields):
+    """Time each of `calls` by `device_ms`, print one [kernel] line with
+    the error and the bound, and keep the times under rec[key]."""
+    ms = {m: device_ms(fn, KERNEL_REPS) for m, fn in calls.items()}
+    bound_ms, bound_by = bound
+    say("kernel", name=name, **fields, max_abs_err=err,
+        **{m: f"{v:.4f}" for m, v in ms.items()},
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / ms['ms']:.3f}")
+    rec[key] = dict(ms, err=err, bound=bound)
+
+
+def _grid_sample(maps, ty, tx):
+    """The library yardstick of the sampler: grid_sample of the C-channel
+    map (bilinear, border padding, align_corners) at texel coords (ty, tx).
+    It matches the interior bilinear only and gives no derivative rows."""
+    import torch.nn.functional as F
 
     _, hc, wc = maps.shape
-    gen = torch.Generator(device=maps.device).manual_seed(1)
+    grid = torch.stack([2.0 * tx / (wc - 1) - 1.0, 2.0 * ty / (hc - 1) - 1.0],
+                       dim=-1)[None, None]
+    return lambda: F.grid_sample(maps[None], grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+
+
+def _query_job(rec, key, field, x, y, z, tol, **fields):
+    """The fused query as the frame calls it (`columns.query`: the pack,
+    then one query launch) at world x, y, z, without and with the unit
+    gradient, against its plain version; timed beside the query kernel
+    alone, the two-stage query (the sampler kernel between the PyTorch
+    head and tail), the plain version and grid_sample at the same texel
+    coords. Keys rec[key, want_grad]."""
+    from illuminant_tpu_torch.sdf import columns
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    maps = field.maps_c
+    n = x.shape[0]
+    tx, ty = columns._map_coords(field, x, y, z)[:2]
+    pack = ck.pack_maps(maps)
+    geometry = columns.query_geometry(field)
+    for grad in (False, True):
+        out = columns.query(field, x, y, z, grad, grad)
+        ref = columns.query_reference(field, x, y, z, grad, grad)
+        torch.cuda.synchronize()
+        out, ref = (out, ref) if grad else ((out,), (ref,))
+        err_d = _max_err(out[0], ref[0])
+        err_g = _max_err(out[1:], ref[1:]) if grad else 0.0
+        _require("column_query", err_d, tol, want_grad=grad, output="d")
+        _require("column_query", err_g, 1e-5, want_grad=grad,
+                 output="unit gradient")
+        ops = pointwise_ops(
+            lambda g=grad: columns.query_reference(field, x, y, z, g, g))
+        bound = _bound(4.0 * maps.numel() + 4.0 * n * (3 + (4 if grad
+                                                             else 1)), ops)
+        _report(rec, (key, grad), "column_query", max(err_d, err_g), bound, {
+            "ms": lambda g=grad: columns.query(field, x, y, z, g, g),
+            "kernel_only_ms": lambda g=grad: ck.query_columns(
+                pack, geometry, x, y, z, g, g),
+            "two_stage_ms": lambda g=grad: columns.query_reference(
+                field, x, y, z, g, g, sampler=ck.sample_maps),
+            "plain_ms": lambda g=grad: columns.query_reference(
+                field, x, y, z, g, g),
+            "library_ms": _grid_sample(maps, ty, tx)},
+            **fields, want_grad=grad, normalize=grad, points=n,
+            max_abs_err_d=err_d, max_abs_err_g=err_g, tol_d=tol)
+
+
+def _tolerance(maps) -> float:
+    """1e-5 of the largest map value, on a distance or a map sample: the
+    source is built with -fmad=false, so products and sums round as in
+    PyTorch; sqrt and division are IEEE on both sides. (1e-5 on a unit
+    gradient.)"""
+    return 1e-5 * max(1.0, float(maps.abs().max()))
+
+
+def phase_kernel(field):
+    """Each column kernel against its plain version at the voxel slice's
+    shapes: the real (5, 135, 240) maps, 1M texel coordinates spanning
+    past both edges for the sampler, and 1M world positions around and
+    outside the volume for the query, with exact edges among them. Each
+    [kernel] line gives the error, then the device time per call
+    (`device_ms`) of the wrapper as the frame calls it (`ms`), of the
+    plain version and of the library yardstick, beside the bound. Returns
+    {key: the times, the error and the bound}."""
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    maps = field.maps_c
+    dev = maps.device
+    n_maps, hc, wc = maps.shape
+    c = field.config
     n = 1 << 20
-    ty = torch.rand(n, generator=gen, device=maps.device) * (hc + 3) - 2
-    tx = torch.rand(n, generator=gen, device=maps.device) * (wc + 3) - 2
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def uniform(lo, hi):
+        return torch.rand(n, generator=gen, device=dev) * (hi - lo) + lo
+
+    ty, tx = uniform(-2.0, hc + 1.0), uniform(-2.0, wc + 1.0)
     ty[:6] = torch.tensor([-0.5, -3.0, 0.0, hc - 1.0, hc - 0.5, hc + 2.0])
     tx[:6] = torch.tensor([-0.5, wc - 1.0, wc + 3.0, -7.0, 0.25, wc - 1.5])
-    # Float32 on both sides in the same tap order; nvcc may fuse a
-    # multiply-add that PyTorch rounds twice, a few ulps of the largest
-    # map value.
-    tol = 1e-5 * max(1.0, float(maps.abs().max()))
-    record = {}
+    ex, ey, ez = (float(c.virtual_width), float(c.virtual_height),
+                  float(c.virtual_depth))
+    x, y = uniform(-20.0, ex + 20.0), uniform(-20.0, ey + 20.0)
+    z = uniform(-8.0, ez + 8.0) + c.z_offset
+    # Box faces, a coarse texel edge, the end slices.
+    sx = c.scale_x * wc / c.slice_width
+    x[:6] = torch.tensor([0.0, ex, 40.5 / sx, 700.0, 960.0, -1.0])
+    z[:6] = torch.tensor([20.0, 30.0, 10.0, 0.0, ez, ez - 4.0]) + c.z_offset
+    maps_bytes = 4.0 * maps.numel()
+    tol = _tolerance(maps)
+    rec = {}
+
+    # The pack: exact against its plain version. No one library call
+    # computes it.
+    out = ck.pack_maps(maps)
+    torch.cuda.synchronize()
+    err = _max_err(out, ck.pack_maps_reference(maps))
+    _require("column_maps_pack", err, 0.0)
+    _report(rec, "pack", "column_maps_pack", err,
+            _bound(maps_bytes + 4.0 * out.numel(),
+                   pointwise_ops(lambda: ck.pack_maps_reference(maps))),
+            {"ms": lambda: ck.pack_maps(maps),
+             "plain_ms": lambda: ck.pack_maps_reference(maps)},
+            shape=tuple(maps.shape), record=tuple(out.shape))
+
     for grad in (False, True):
-        out = ck.sample_maps(maps, ty, tx, want_grad=grad)
-        torch.cuda.synchronize()
         ref = ck.sample_maps_reference(maps, ty, tx, want_grad=grad)
-        if out.shape != ref.shape or out.dtype != torch.float32:
-            raise AssertionError(f"kernel output {tuple(out.shape)} "
-                                 f"{out.dtype} vs {tuple(ref.shape)}")
-        err = float((out - ref).abs().max())
-        if not err <= tol:
-            raise AssertionError(f"kernel disagrees with its plain version "
-                                 f"(want_grad={grad}): {err} > {tol}")
-        ms = cuda_time_ms(lambda: ck.sample_maps(maps, ty, tx, grad), 50)
-        plain_ms = cuda_time_ms(
-            lambda: ck.sample_maps_reference(maps, ty, tx, grad), 50)
-        say("kernel", name="column_maps_sample", want_grad=grad,
-            shape=f"{tuple(maps.shape)}x{n}", max_abs_err=err, tol=tol,
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-        record[grad] = dict(err=err, ms=ms, plain_ms=plain_ms)
-    return record
+        out = ck.sample_maps(maps, ty, tx, grad)
+        torch.cuda.synchronize()
+        err = _max_err(out, ref)
+        _require("column_maps_sample", err, tol, want_grad=grad)
+        rows = n_maps + (2 if grad else 0)
+        bound = _bound(maps_bytes + 4.0 * n * (2 + rows), pointwise_ops(
+            lambda g=grad: ck.sample_maps_reference(maps, ty, tx, g)))
+        _report(rec, ("sample", grad), "column_maps_sample", err, bound, {
+            "ms": lambda g=grad: ck.sample_maps(maps, ty, tx, g),
+            "plain_ms": lambda g=grad: ck.sample_maps_reference(
+                maps, ty, tx, g),
+            "library_ms": _grid_sample(maps, ty, tx)},
+            want_grad=grad, tol=tol, shape=f"{tuple(maps.shape)}x{n}")
+
+    _query_job(rec, "query", field, x, y, z, tol, inputs="uniform")
+    return rec
+
+
+def phase_frame_points(field, state):
+    """The fused query on the voxel slice's own traffic: the particles'
+    positions after its timed frames, in slot order, passed as the frame
+    passes them (strided columns of the (N, 4) state), against its plain
+    version and timed as in `phase_kernel`. The maps are the loaded
+    field's, the frame's before its animation."""
+    pos = state.position
+    rec = {}
+    _query_job(rec, "query_frame", field, pos[:, 0], pos[:, 1], pos[:, 2],
+               _tolerance(field.maps_c), inputs="frame",
+               live=int(state.live_count()))
+    return rec
 
 
 def _run_frames(scene, n, i0, generator, state, avg, spawn_uniforms=None):
@@ -165,10 +358,10 @@ def _run_frames(scene, n, i0, generator, state, avg, spawn_uniforms=None):
 
 def phase_slice(name, scene, warmup: int, frames: int):
     """One flagship frame at full width: warm-up, then the timed frames
-    that the launch counter watches. The voxel slice launches the
-    column-map kernel twice a frame (the initial distance and the fused
-    step sample with its gradient, particles/integrate.py); the analytic
-    slices never."""
+    that the launch counters watch. The voxel slice launches the fused
+    query and its pack twice a frame (the initial distance, and the step
+    sample with its unit gradient, particles/integrate.py) and the
+    sampler never; the analytic slices launch none of them."""
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     dev = scene.device
@@ -178,12 +371,14 @@ def phase_slice(name, scene, warmup: int, frames: int):
     torch.cuda.reset_peak_memory_stats()
     img, state, avg = _run_frames(scene, warmup, 0, gen, state, avg)
     torch.cuda.synchronize()
-    ck.LAUNCHES = 0
+    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
     t0 = time.perf_counter()
     img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = ck.LAUNCHES
+    launches = dict(column_query=ck.QUERY_LAUNCHES,
+                    column_maps_pack=ck.PACK_LAUNCHES,
+                    column_maps_sample=ck.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     live = int(state.live_count())
     img_np = img.cpu().numpy()
@@ -193,7 +388,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
         ms_per_frame=f"{ms_per_frame:.3f}", live_particles=live,
         avg_lum=f"{avg_f:.5f}", peak_mem_gb=f"{peak_gb:.3f}",
         image=f"{img_np.shape}/{img_np.dtype}",
-        column_map_launches=launches)
+        **{f"{k}_launches": v for k, v in launches.items()})
     if img_np.shape != (FULL["height"], FULL["width"], 3):
         raise AssertionError(f"{name}: image shape {img_np.shape}")
     if not img_np.astype(np.float64).var() > 0.0:
@@ -202,24 +397,30 @@ def phase_slice(name, scene, warmup: int, frames: int):
         raise AssertionError(f"{name}: no live particles")
     if not math.isfinite(avg_f):
         raise AssertionError(f"{name}: avg_lum {avg_f}")
-    expected = 2 * frames if SLICES[name]["field"] == "voxel" else 0
+    per_frame = 2 if SLICES[name]["field"] == "voxel" else 0
+    expected = dict(column_query=per_frame * frames,
+                    column_maps_pack=per_frame * frames,
+                    column_maps_sample=0)
     if launches != expected:
-        raise AssertionError(f"{name}: column-map kernel launched {launches} "
+        raise AssertionError(f"{name}: column kernels launched {launches} "
                              f"times in {frames} frames, expected {expected}")
-    return launches, state, avg, gen, ms_per_frame
+    return launches, state, ms_per_frame
 
 
 def _small_frames(device, draws, **kw):
     """Three frames of the small flagship on `device` from the same state
-    with the given spawn draws -> (images int32, positions, avg_lum)."""
+    with the given spawn draws -> (images int32, positions, avg_lum,
+    fused-query launches)."""
     from illuminant_tpu_torch.scenes import build_flagship
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     scene = build_flagship(device=device, **SMALL, **kw)
+    ck.QUERY_LAUNCHES = 0
     img, state, avg = _run_frames(
         scene, 3, 0, None, scene.system.state,
         torch.tensor(0.5, device=device), spawn_uniforms=draws)
     return (img.cpu().numpy().astype(np.int32), state.position.cpu().numpy(),
-            float(avg))
+            float(avg), ck.QUERY_LAUNCHES)
 
 
 def _compare_small(phase, cpu, cuda, **fields):
@@ -251,18 +452,32 @@ def _draws():
 
 
 def phase_reference():
-    """The voxel frame on the card against the port's plain CPU path on
-    the small input of the CPU tests (which hold the CPU path to the JAX
-    package): three frames from the same state with the same spawn
-    draws."""
+    """The voxel frame at both presets on the card against the port's
+    plain CPU path on the small input of the CPU tests (which hold the CPU
+    path to the JAX package): three frames from the same state with the
+    same spawn draws. The card's frames run the fused query 2 (fast) and
+    5 (parity: the initial distance, three substeps, the normal) times a
+    frame. Fast keeps the voxel slice's bound, 99% of particles within
+    0.05; parity is held to those of tests/test_torch_analytic_flagship.py.
+    """
     draws = _draws()
-    kw = SLICES["slice"]
-    out = {dev: _small_frames(dev, draws, **kw) for dev in ("cpu", "cuda")}
-    within, _ = _compare_small("reference", out["cpu"], out["cuda"], **kw)
-    # A particle within the float rounding of a collision threshold may
-    # resolve the other way on the card (nvcc fuses multiply-adds).
-    if not within >= 0.99:
-        raise AssertionError("reference: particles moved apart")
+    for preset, per_frame in (("fast", 2), ("parity", 5)):
+        kw = dict(field="voxel", preset=preset)
+        out = {dev: _small_frames(dev, draws, **kw)
+               for dev in ("cpu", "cuda")}
+        launches = out["cuda"][3]
+        within, within_1e3 = _compare_small(
+            "reference", out["cpu"], out["cuda"], **kw,
+            column_query_launches=launches)
+        if launches != 3 * per_frame:
+            raise AssertionError(f"reference ({kw}): the fused query "
+                                 f"launched {launches} times in 3 frames")
+        # A particle within the float rounding of a collision threshold
+        # may resolve the other way on the card.
+        ok = (within >= 0.99 if preset == "fast"
+              else within == 1.0 and within_1e3 >= 0.999)
+        if not ok:
+            raise AssertionError(f"reference ({kw}): particles moved apart")
 
 
 def phase_reference_analytic():
@@ -298,13 +513,24 @@ def _busy_us(events) -> tuple:
     return union, total
 
 
-def phase_profile(name, scene, state, avg, gen, i0, frame_ms, out_dir):
-    """Two traced frames of slice `name`: per-kernel and per-stage tables
-    under out_dir/name, the device's busy time per frame, and its idle
-    share of the unprofiled frame time `frame_ms` measured in the same
-    run."""
+def phase_profile(name, warmup: int, frame_ms, out_dir):
+    """Two traced frames of slice `name`, after its warm-up and timed
+    frames replayed untraced on a scene built anew (the same seeds, so the
+    same state; nothing of the other slices is held on the card):
+    per-kernel and per-stage tables under out_dir/name, the device's busy
+    time per frame, and its idle share of the unprofiled frame time
+    `frame_ms` measured in the same run."""
     from torch.profiler import ProfilerActivity, profile
 
+    from illuminant_tpu_torch.scenes import build_flagship
+
+    dev = torch.device("cuda")
+    scene = build_flagship(device=dev, **FULL, **SLICES[name])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    i0 = warmup + TIMED_FRAMES
+    _, state, avg = _run_frames(scene, i0, 0, gen, scene.system.state,
+                                torch.tensor(0.5, device=dev))
+    torch.cuda.synchronize()
     out_dir = os.path.join(out_dir, name)
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -355,36 +581,49 @@ def main(argv=None) -> int:
             torch.cuda.get_device_name(0)))
     phase_build()
     cuda = torch.device("cuda")
-    built = {}
-    built["slice"], maps = _slice_maps(cuda)
-    kernel = phase_kernel(maps)
-    del maps
-    launches = {}
+    scene, field = _slice_field(cuda)
+    kernel = phase_kernel(field)
+    launches, frame_ms = {}, {}
     for name, kw in SLICES.items():
-        # One slice's scene and state on the card at a time.
-        scene = built.pop(name, None) or build_flagship(device=cuda, **FULL,
-                                                        **kw)
-        launches[name], state, avg, gen, frame_ms = phase_slice(
+        if scene is None:
+            scene = build_flagship(device=cuda, **FULL, **kw)
+        launches[name], state, frame_ms[name] = phase_slice(
             name, scene, args.warmup, TIMED_FRAMES)
-        if args.profile:
-            phase_profile(name, scene, state, avg, gen,
-                          args.warmup + TIMED_FRAMES, frame_ms, args.profile)
-        del scene, state
+        if name == "slice":
+            kernel.update(phase_frame_points(field, state))
+            del field
+        scene = state = None
+        torch.cuda.empty_cache()
+    # Profiled after every slice is timed: a profiler session slows the
+    # launches that follow it in the process.
+    for name in SLICES if args.profile else ():
+        phase_profile(name, args.warmup, frame_ms[name], args.profile)
         torch.cuda.empty_cache()
     phase_reference()
     phase_reference_analytic()
+    # Each kernel at the heavier of the frame's calls: the query with the
+    # unit gradient, the sampler with the derivative rows; the other calls
+    # are in the [kernel] lines above. "ms" is one call of the wrapper the
+    # frame calls (the query and the sampler include their pack).
+    rows = [("column_query", "illuminant_tpu/sdf/columns_pallas.py:78",
+             kernel["query", True]),
+            ("column_maps_sample", "illuminant_tpu/sdf/columns_pallas.py:78",
+             kernel["sample", True]),
+            ("column_maps_pack", "illuminant_tpu/sdf/columns_pallas.py:108",
+             kernel["pack"])]
     kernels = [{
-        "name": "column_maps_sample",
+        "name": name,
         "route": "cuda",
         "source": "illuminant_tpu_torch/csrc/column_maps.cu",
-        "replaces": "illuminant_tpu/sdf/columns_pallas.py:78",
-        "launches": launches["slice"],
-        "max_abs_err": max(r["err"] for r in kernel.values()),
-        # The frame's heavier launch (want_grad=True); the other is in the
-        # [kernel] line above.
-        "ms": kernel[True]["ms"],
-        "plain_ms": kernel[True]["plain_ms"],
-    }]
+        "replaces": replaces,
+        "launches": launches["slice"][name],
+        "max_abs_err": r["err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0],
+        "bound_by": r["bound"][1],
+        "library_ms": r.get("library_ms"),
+    } for name, replaces, r in rows]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,83 +1,383 @@
-// Column-map sampler for Hopper (sm_90a): the bilinear sample of a
-// (C, Hc, Wc) float32 map pack at N texel coordinates (ty, tx), with the
-// two texel-space derivatives of map 0 when want_grad is set.
+// Column-map sampler and the fused ColumnField query for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel illuminant_tpu/sdf/columns_pallas.py:
-// sample_maps, which built one-hot interpolation rows and contracted them
-// with the maps on the MXU. On the card the same function is a 4-tap
-// gather per point: one thread per point, the maps (648 KB at the 1080p
-// flagship's 5 x 135 x 240) read through the read-only path and resident
-// in L2, outputs written point-major so that a warp's stores coalesce.
+// sample_maps (one-hot interpolation rows contracted with the maps on the
+// MXU) and, in column_query, the XLA elementwise head and tail that wrap
+// it in illuminant_tpu/sdf/columns.py (_map_coords before the sample,
+// _finish / _reconstruct after it) plus the unit normalisation of
+// illuminant_tpu/sdf/analytic.py (_normalized).
 //
-// Edge rules follow columns_pallas._rows exactly (not the texture unit's
-// clamp): i0 = clip(floor(t), 0, n - 1), i1 = min(i0 + 1, n - 1),
-// w = t - floor(t) taken from the unclipped floor.
+// What bounds it on an H100: bytes. A gradient query at 1M points moves
+// x, y, z in and d, gx, gy, gz out (28 B a point) around a few hundred
+// float operations, far below the card's operation rate. Two things stood
+// between the first port and that bound:
+//   * the maps were planar, so a point's 5 maps x 4 taps were 20
+//     scattered 4-byte L2 requests. Here the wrapper first packs the maps
+//     into one "quad" record per texel: the four taps of the cell whose
+//     low corner is the texel, with the i1 = min(i0 + 1, n - 1) edge
+//     clamp baked in, 4 * C floats read as 5 16-byte vector loads at
+//     C = 5 (3 sectors a point; 2.6 MB at the flagship's maps, held in
+//     L2). It beat a texel-interleaved pack (the C maps of a texel in one
+//     32-byte sector, 8 vector loads a point) on uniform points and on
+//     the frame's own (PERF.md);
+//   * the query ran as ~80 elementwise PyTorch passes over the points
+//     around the sample. column_query_kernel runs the whole query in
+//     registers: one launch, the points read once, the results written
+//     once.
 //
-// Output rows: out[c * n + i] for c < C the bilinear value of map c;
-// with want_grad, out[C * n + i] = d(map 0)/dtx and
-// out[(C + 1) * n + i] = d(map 0)/dty at point i.
+// Edge rules are columns_pallas._rows exactly (not the texture unit's
+// clamp or its 8-bit weights): i0 = clip(floor(t), 0, n - 1),
+// i1 = min(i0 + 1, n - 1), w = t - floor(t) from the unclipped floor.
+// The maps stay float32 (the TPU kernel cast them to bf16 for the MXU).
+//
+// The file is compiled with -fmad=false: every product and sum rounds on
+// its own, in the order of the plain PyTorch version (columns_kernel.
+// sample_maps_reference, columns.query_reference), so the kernel matches
+// it to the rounding of sqrt and division, which are IEEE on both sides.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ void taps(float t, int n, int* i0, int* i1,
-                                     float* w) {
+constexpr int kThreads = 256;
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+// The low tap i0 and the weight w of coordinate t on an axis of n texels
+// (the high tap, min(i0 + 1, n - 1), is baked into the pack).
+__device__ __forceinline__ void taps(float t, int n, int* i0, float* w) {
   float fl = floorf(t);
   *w = t - fl;
   // __float2int_rd saturates out-of-range values; the clip follows.
   int i = __float2int_rd(t);
-  i = min(max(i, 0), n - 1);
-  *i0 = i;
-  *i1 = min(i + 1, n - 1);
+  *i0 = min(max(i, 0), n - 1);
 }
 
-__global__ void sample_maps_kernel(const float* __restrict__ maps,
-                                   const float* __restrict__ ty,
-                                   const float* __restrict__ tx,
-                                   float* __restrict__ out, int n_maps,
-                                   int hc, int wc, long long n,
-                                   int want_grad) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int y0, y1, x0, x1;
-  float wy, wx;
-  taps(__ldg(ty + i), hc, &y0, &y1, &wy);
-  taps(__ldg(tx + i), wc, &x0, &x1, &wx);
-  const long long plane = (long long)hc * wc;
-  const int o00 = y0 * wc + x0;
-  const int o01 = y0 * wc + x1;
-  const int o10 = y1 * wc + x0;
-  const int o11 = y1 * wc + x1;
-  for (int c = 0; c < n_maps; ++c) {
-    const float* m = maps + c * plane;
-    // y-lerp each of the two columns, then x-lerp: the order of the
-    // Pallas kernel's (by @ map) then (. * bx) contraction.
-    float col0 = (1.0f - wy) * __ldg(m + o00) + wy * __ldg(m + o10);
-    float col1 = (1.0f - wy) * __ldg(m + o01) + wy * __ldg(m + o11);
-    out[c * n + i] = (1.0f - wx) * col0 + wx * col1;
-    if (want_grad && c == 0) {
-      out[(long long)n_maps * n + i] = col1 - col0;
-      float row0 = (1.0f - wx) * __ldg(m + o00) + wx * __ldg(m + o01);
-      float row1 = (1.0f - wx) * __ldg(m + o10) + wx * __ldg(m + o11);
-      out[(long long)(n_maps + 1) * n + i] = row1 - row0;
+// N floats from a 16-byte aligned record, as ceil(N / 4) vector loads
+// through the read-only path.
+template <int N>
+__device__ __forceinline__ void load(const float* __restrict__ p,
+                                     float (&v)[N]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int k = 0; k < (N + 3) / 4; ++k) {
+    const float4 a = __ldg(q + k);
+    const float e[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * k + j < N) v[4 * k + j] = e[j];
     }
   }
 }
 
+template <int NC>
+struct Sample {
+  float val[NC];  // bilinear value of each map
+  float dtx;      // d(map 0)/dtx
+  float dty;      // d(map 0)/dty
+};
+
+// The bilinear sample of the NC packed maps at texel coords (ty, tx): the
+// one device function behind both sample_maps and column_query.
+template <int NC>
+__device__ __forceinline__ void sample(const float* __restrict__ pack,
+                                       int hc, int wc, float ty, float tx,
+                                       bool grad, Sample<NC>* s) {
+  int y0, x0;
+  float wy, wx;
+  taps(ty, hc, &y0, &wy);
+  taps(tx, wc, &x0, &wx);
+  // The record of (y0, x0) holds the taps at (y0, x0), (y0, x1),
+  // (y1, x0), (y1, x1).
+  float q[4 * NC];
+  load<4 * NC>(pack + (long long)(y0 * wc + x0) * round4(4 * NC), q);
+  float v00[NC], v01[NC], v10[NC], v11[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    v00[c] = q[c];
+    v01[c] = q[NC + c];
+    v10[c] = q[2 * NC + c];
+    v11[c] = q[3 * NC + c];
+  }
+  const float ay = 1.0f - wy;
+  const float ax = 1.0f - wx;
+  float col0_0 = 0.0f, col1_0 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    // y-lerp each of the two columns, then x-lerp: the order of the
+    // Pallas kernel's (by @ map) then (. * bx) contraction.
+    const float col0 = ay * v00[c] + wy * v10[c];
+    const float col1 = ay * v01[c] + wy * v11[c];
+    s->val[c] = ax * col0 + wx * col1;
+    if (c == 0) {
+      col0_0 = col0;
+      col1_0 = col1;
+    }
+  }
+  if (grad) {
+    s->dtx = col1_0 - col0_0;
+    const float row0 = ax * v00[0] + wx * v01[0];
+    const float row1 = ax * v10[0] + wx * v11[0];
+    s->dty = row1 - row0;
+  }
+}
+
+// One thread per texel: the quad record of texel (y, x), the NC maps at
+// (y, x), (y, x1), (y1, x), (y1, x1) with the edge clamp baked in, zero
+// padded to round4(4 * NC) floats, built in registers and stored as
+// 16-byte vectors.
+template <int NC>
+__global__ void pack_quad_kernel(const float* __restrict__ maps,
+                                 float* __restrict__ pack, int hc, int wc) {
+  constexpr int kRec = round4(4 * NC);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int plane = hc * wc;
+  if (t >= plane) return;
+  const int y = t / wc;
+  const int x = t - y * wc;
+  const int y1 = min(y + 1, hc - 1);
+  const int x1 = min(x + 1, wc - 1);
+  const int src[4] = {t, y * wc + x1, y1 * wc + x, y1 * wc + x1};
+  float r[kRec];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      r[k * NC + c] = __ldg(maps + (long long)c * plane + src[k]);
+  }
+#pragma unroll
+  for (int s = 4 * NC; s < kRec; ++s) r[s] = 0.0f;
+  float4* dst = reinterpret_cast<float4*>(pack + (long long)t * kRec);
+#pragma unroll
+  for (int j = 0; j < kRec / 4; ++j)
+    dst[j] = make_float4(r[4 * j], r[4 * j + 1], r[4 * j + 2], r[4 * j + 3]);
+}
+
+// Output rows out[c * n + i]: the bilinear value of map c at point i; with
+// want_grad, rows C and C + 1 hold d(map 0)/dtx and d(map 0)/dty.
+template <int NC>
+__global__ void sample_maps_kernel(const float* __restrict__ pack,
+                                   const float* __restrict__ ty,
+                                   const float* __restrict__ tx,
+                                   float* __restrict__ out, int hc, int wc,
+                                   long long n, int want_grad) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Sample<NC> s;
+  sample<NC>(pack, hc, wc, __ldg(ty + i), __ldg(tx + i), want_grad != 0,
+             &s);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) out[c * n + i] = s.val[c];
+  if (want_grad) {
+    out[NC * n + i] = s.dtx;
+    out[(NC + 1) * n + i] = s.dty;
+  }
+}
+
+// The ColumnField's constants, float32 as the plain version rounds its
+// Python scalars (columns_kernel.QUERY_GEOMETRY names them in order).
+struct Geometry {
+  float ex, ey, ez, z_offset;  // virtual box and its z offset
+  float scale_x, scale_y;      // world -> fine texel
+  float rx, ry;                // fine texel -> coarse texel
+  float sx_c, sy_c;            // coarse texel derivative -> world
+  float z_lo, z_hi;            // the end slices' world z
+};
+
+constexpr int kColumnMaps = 5;  // f, t, b, d_top, d_bot
+
+__global__ void column_query_kernel(
+    const float* __restrict__ pack, int hc, int wc, Geometry g,
+    const float* __restrict__ xs, long long sx,
+    const float* __restrict__ ys, long long sy,
+    const float* __restrict__ zs, long long sz, long long n, int want_grad,
+    int normalize, float* __restrict__ d_out, float* __restrict__ gx_out,
+    float* __restrict__ gy_out, float* __restrict__ gz_out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float px = __ldg(xs + i * sx);
+  const float py = __ldg(ys + i * sy);
+  const float pz = __ldg(zs + i * sz);
+
+  // sampling._clamped_axes: the clamp into the box and the signed
+  // out-of-box offsets. (Its slice coordinate and z mask, the only terms
+  // that read max_valid_z, do not enter the column query.)
+  const float pzr = pz - g.z_offset;
+  const float cx = fminf(fmaxf(px, 0.0f), g.ex);
+  const float cy = fminf(fmaxf(py, 0.0f), g.ey);
+  const float ux = fminf(px, 0.0f) + fmaxf(px - g.ex, 0.0f);
+  const float uy = fminf(py, 0.0f) + fmaxf(py - g.ey, 0.0f);
+  const float uz = fminf(pzr, 0.0f) + fmaxf(pzr - g.ez, 0.0f);
+  const bool in_x = (px > 0.0f) && (px < g.ex);
+  const bool in_y = (py > 0.0f) && (py < g.ey);
+
+  // columns._map_coords: fine texel coords, then the coarse map's.
+  float tx = cx * g.scale_x - 0.5f;
+  float ty = cy * g.scale_y - 0.5f;
+  tx = (tx + 0.5f) * g.rx - 0.5f;
+  ty = (ty + 0.5f) * g.ry - 0.5f;
+
+  Sample<kColumnMaps> s;
+  sample<kColumnMaps>(pack, hc, wc, ty, tx, want_grad != 0, &s);
+  const float f = s.val[0], t = s.val[1], b = s.val[2];
+  const float d_top = s.val[3], d_bot = s.val[4];
+
+  // columns._finish: reconstruct at the z clamped to the end slices, the
+  // 1-Lipschitz end-slice clamps, then the out-of-volume distance.
+  const float pzc = fminf(fmaxf(pz - uz, g.z_lo), g.z_hi);
+  const float dist = sqrtf(ux * ux + uy * uy + uz * uz);
+  const float lip_top = d_top + (g.z_hi - pzc);
+  const float lip_bot = d_bot + (pzc - g.z_lo);
+  const float lip = fminf(lip_top, lip_bot);
+
+  // columns._reconstruct.
+  const float below = b - pzc;
+  const float above = pzc - t;
+  const float dz = fmaxf(below, above);
+  const float f_pos = fmaxf(f, 0.0f);
+  const float dz_pos = fmaxf(dz, 0.0f);
+  const float outside = sqrtf(f_pos * f_pos + dz_pos * dz_pos);
+  float d = fminf(fmaxf(f, dz), 0.0f) + outside;
+  if (!want_grad) {
+    d_out[i] = fminf(d, lip) + dist;
+    return;
+  }
+  const float gfx = in_x ? s.dtx * g.sx_c : 0.0f;
+  const float gfy = in_y ? s.dty * g.sy_c : 0.0f;
+  const float zsign = above > below ? 1.0f : -1.0f;
+  const float inv = 1.0f / fmaxf(outside, 1e-9f);
+  const bool out_mask = (f > 0.0f) || (dz > 0.0f);
+  const float side_w = out_mask ? f_pos * inv : (f >= dz ? 1.0f : 0.0f);
+  const float cap_w = out_mask ? dz_pos * inv : (f >= dz ? 0.0f : 1.0f);
+  float gx = side_w * gfx;
+  float gy = side_w * gfy;
+  float gz = cap_w * zsign;
+  // A winning end clamp puts the nearest feature toward that end.
+  const bool top_wins = lip_top <= lip_bot;
+  if (lip < d) {
+    gx = 0.0f;
+    gy = 0.0f;
+    gz = top_wins ? -1.0f : 1.0f;
+  }
+  d = fminf(d, lip);
+  const float safe = fmaxf(dist, 1e-9f);
+  const bool off_box = dist > 0.0f;
+  gx = gx + (off_box ? ux / safe : 0.0f);
+  gy = gy + (off_box ? uy / safe : 0.0f);
+  gz = gz + (off_box ? uz / safe : 0.0f);
+  if (normalize) {
+    // analytic._normalized: unit length, zero where the gradient vanishes.
+    const float norm = sqrtf(gx * gx + gy * gy + gz * gz);
+    if (norm > 1e-9f) {
+      const float div = fmaxf(norm, 1e-9f);
+      gx = gx / div;
+      gy = gy / div;
+      gz = gz / div;
+    } else {
+      gx = 0.0f;
+      gy = 0.0f;
+      gz = 0.0f;
+    }
+  }
+  d_out[i] = d + dist;
+  gx_out[i] = gx;
+  gy_out[i] = gy;
+  gz_out[i] = gz;
+}
+
+unsigned int blocks_for(long long n) {
+  return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
-extern "C" int column_maps_sample(const void* maps, const void* ty,
-                                  const void* tx, void* out, int n_maps,
-                                  int hc, int wc, long long n,
-                                  int want_grad, void* stream) {
+extern "C" int column_maps_pack(const void* maps, void* pack, int n_maps,
+                                int hc, int wc, void* stream) {
+  const long long plane = (long long)hc * wc;
+  if (plane <= 0) return 0;
+  const unsigned int blocks = blocks_for(plane);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* src = (const float*)maps;
+  float* dst = (float*)pack;
+#define ILLUM_PACK_CASE(NC)                                                 \
+  case NC:                                                                  \
+    pack_quad_kernel<NC><<<blocks, kThreads, 0, st>>>(src, dst, hc, wc);    \
+    break;
+  switch (n_maps) {
+    ILLUM_PACK_CASE(1)
+    ILLUM_PACK_CASE(2)
+    ILLUM_PACK_CASE(3)
+    ILLUM_PACK_CASE(4)
+    ILLUM_PACK_CASE(5)
+    ILLUM_PACK_CASE(6)
+    ILLUM_PACK_CASE(7)
+    ILLUM_PACK_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ILLUM_PACK_CASE
+  return (int)cudaGetLastError();
+}
+
+extern "C" int column_maps_sample(const void* pack_, const void* ty_,
+                                  const void* tx_, void* out_, int n_maps,
+                                  int hc, int wc, long long n, int want_grad,
+                                  void* stream_) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  sample_maps_kernel<<<(unsigned int)blocks, threads, 0,
-                       (cudaStream_t)stream>>>(
-      (const float*)maps, (const float*)ty, (const float*)tx, (float*)out,
-      n_maps, hc, wc, n, want_grad);
+  const float* pack = (const float*)pack_;
+  const float* ty = (const float*)ty_;
+  const float* tx = (const float*)tx_;
+  float* out = (float*)out_;
+  const cudaStream_t stream = (cudaStream_t)stream_;
+  const unsigned int blocks = blocks_for(n);
+#define ILLUM_SAMPLE_CASE(NC)                                            \
+  case NC:                                                               \
+    sample_maps_kernel<NC><<<blocks, kThreads, 0, stream>>>(             \
+        pack, ty, tx, out, hc, wc, n, want_grad);                        \
+    break;
+  switch (n_maps) {
+    ILLUM_SAMPLE_CASE(1)
+    ILLUM_SAMPLE_CASE(2)
+    ILLUM_SAMPLE_CASE(3)
+    ILLUM_SAMPLE_CASE(4)
+    ILLUM_SAMPLE_CASE(5)
+    ILLUM_SAMPLE_CASE(6)
+    ILLUM_SAMPLE_CASE(7)
+    ILLUM_SAMPLE_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ILLUM_SAMPLE_CASE
+  return (int)cudaGetLastError();
+}
+
+// geometry: the 12 floats of Geometry, in its order, in host memory.
+extern "C" int column_query(const void* pack, int hc, int wc,
+                            const float* geometry, const void* x,
+                            long long sx, const void* y, long long sy,
+                            const void* z, long long sz, long long n,
+                            int want_grad, int normalize, void* d, void* gx,
+                            void* gy, void* gz, void* stream) {
+  if (n <= 0) return 0;
+  Geometry g;
+  g.ex = geometry[0];
+  g.ey = geometry[1];
+  g.ez = geometry[2];
+  g.z_offset = geometry[3];
+  g.scale_x = geometry[4];
+  g.scale_y = geometry[5];
+  g.rx = geometry[6];
+  g.ry = geometry[7];
+  g.sx_c = geometry[8];
+  g.sy_c = geometry[9];
+  g.z_lo = geometry[10];
+  g.z_hi = geometry[11];
+  const unsigned int blocks = blocks_for(n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  column_query_kernel<<<blocks, kThreads, 0, st>>>(
+      (const float*)pack, hc, wc, g, (const float*)x, sx, (const float*)y, sy,
+      (const float*)z, sz, n, want_grad, normalize, (float*)d, (float*)gx,
+      (float*)gy, (float*)gz);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ class EnvironmentUniforms:
     @staticmethod
     def make(ground_z=0.0, maximum_z=128.0, z_to_y=0.0, light_occlusion=0.0,
              ambient=(0.0, 0.0, 0.0, 1.0),
-             device=None) -> "EnvironmentUniforms":
+             device="cuda") -> "EnvironmentUniforms":
         def f32(v):
             return torch.tensor(v, dtype=torch.float32, device=device)
 
@@ -90,7 +90,7 @@ class SphereLightSource:
 
 def pack_sphere_lights(lights: List[SphereLightSource],
                        capacity: Optional[int] = None,
-                       device=None) -> SphereLights:
+                       device="cuda") -> SphereLights:
     """Pack host lights into the SoA tensors (the LightVertex build,
     LightingRenderer.cs:1193-1446, minus instancing)."""
     n = len(lights)
@@ -166,7 +166,7 @@ class LightingEnvironment:
     ambient: tuple = (0.0, 0.0, 0.0, 1.0)
     light_occlusion: float = 0.0
 
-    def uniforms(self, device=None) -> EnvironmentUniforms:
+    def uniforms(self, device="cuda") -> EnvironmentUniforms:
         return EnvironmentUniforms.make(
             ground_z=self.ground_z, maximum_z=self.maximum_z,
             z_to_y=self.z_to_y_multiplier,
@@ -175,7 +175,7 @@ class LightingEnvironment:
 
     def pack_obstructions(self, capacity: Optional[int] = None,
                           dynamic: Optional[bool] = None,
-                          device=None) -> SdfObstructions:
+                          device="cuda") -> SdfObstructions:
         """Pack obstructions; dynamic=True/False selects the partition
         (DynamicDistanceField, SDF/DistanceField.cs:248-321)."""
         obs = self.obstructions

@@ -6,9 +6,10 @@ integrate_with_distance_field (UpdateParticleSystemWithDistanceField.fx:
 initial distance sample, up to `substeps` sphere-trace steps with
 backtracking, the collision normal, and the bounce / escape / redirect
 outcomes, all branchless per particle over planar (N,) components.
-  * One substep on a ColumnField: the step sample rides its gradient in
-    one launch of the column-map kernel (two launches per call with the
-    initial distance).
+  * One substep on a ColumnField: the step sample returns the unit
+    gradient too, in one launch of the fused column query (two launches
+    per call with the initial distance; at three substeps five: the
+    initial distance, one a substep, the normal).
   * Otherwise each substep samples the field (`scene_sample_p`) and the
     normal is the field's fast normal at the collision point
     (`scene_normal_p(fast=True)`: closed form on an analytic scene).

@@ -47,7 +47,7 @@ class ParticleSystem:
     def __init__(self, config: ParticleSystemConfig,
                  transforms: Optional[List] = None, volume=None,
                  render_data: Optional[RenderDataUniforms] = None,
-                 device=None):
+                 device="cuda"):
         self.config = config
         self.transforms = list(transforms or [])
         self.volume = volume

@@ -98,10 +98,12 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
                    spawn_sub_rings: int = 1,
                    collision_substeps: Optional[int] = None,
                    raster_preset: Optional[str] = None, mesh=None,
-                   field: str = "analytic", device="cpu") -> FlagshipScene:
-    """The flagship frame on `device`; the arguments mean what they mean
-    in the JAX package. Values outside the ported slice raise
-    NotImplementedError naming their ROADMAP item."""
+                   field: str = "analytic",
+                   device="cuda") -> FlagshipScene:
+    """The flagship frame on `device` (the card unless the caller asks for
+    another); the arguments mean what they mean in the JAX package.
+    Values outside the ported slice raise NotImplementedError naming their
+    ROADMAP item."""
     if preset not in ("fast", "parity"):
         raise ValueError(f"unknown preset {preset!r}")
     if field not in ("analytic", "voxel"):

@@ -13,7 +13,8 @@ Counterpart of illuminant_tpu/sdf/analytic.py:
     `scene_sample_grad_p`, `scene_normal_p`. Separable grid queries (the
     occlusion image) on a voxel field go to the exact
     `sampling.sample_grid`, never to the column kernel; scattered queries
-    on a ColumnField go to the kernel.
+    on a ColumnField go to the fused column query (`columns.query`), one
+    launch each on the card.
 Not ported: the TPU dispatch gates `set_interp_dispatch` / `_use_interp`
 (the port has no MXU interpolation path to gate), height-volume polygons
 (ROADMAP M12) and `scene_column_images`, which only the opt-in
@@ -30,7 +31,7 @@ import torch
 from ..core.pytree import tensor_dataclass
 from ..ops import sdf_primitives as sp
 from . import sampling
-from .columns import ColumnField, sample_columns, sample_columns_grad
+from .columns import ColumnField, query as column_query, sample_columns
 from .volume import SdfVolume
 
 _FAR = 1e9
@@ -186,7 +187,8 @@ def _is_identity_rotation(q) -> bool:
 
 
 def pack_scene(obstructions: List, maximum_distance: float = 128.0,
-               group_capacity_round: int = 2, device=None) -> AnalyticScene:
+               group_capacity_round: int = 2,
+               device="cuda") -> AnalyticScene:
     """Group host obstructions (.type/.center/.size/.rotation) by type,
     each group padded to a multiple of `group_capacity_round` with far
     unit boxes (illuminant_tpu/sdf/analytic.py:pack_scene)."""
@@ -297,26 +299,19 @@ def scene_sample_p(field, x, y, z):
     if isinstance(vol_field, SdfVolume) and _separable_grid(x, y):
         return sampling.sample_grid(vol_field, x.reshape(-1), y.reshape(-1),
                                     z)
+    if isinstance(field, ColumnField):
+        return column_query(field, x, y, z)
     return scene_sample(field, _stack_p(x, y, z))
 
 
 def scene_sample_grad_p(field, x, y, z):
     """Distance and normalized gradient at the same points for a
-    ColumnField (one kernel launch with the gradient rows), or None for
-    fields without a fused path (an AnalyticScene keeps its closed-form
+    ColumnField (one launch of the fused query), or None for fields
+    without a fused path (an AnalyticScene keeps its closed-form
     normals)."""
     if not isinstance(field, ColumnField):
         return None
-    d, g = sample_columns_grad(field, _stack_p(x, y, z))
-    gx, gy, gz = _normalized(g)
-    return d, gx, gy, gz
-
-
-def _normalized(g):
-    norm = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
-    g = torch.where(norm > 1e-9, g / torch.clamp(norm, min=1e-9),
-                    torch.zeros_like(g))
-    return g[..., 0], g[..., 1], g[..., 2]
+    return column_query(field, x, y, z, want_grad=True, normalize=True)
 
 
 def scene_normal_p(field, x, y, z, fast: bool = False):
@@ -327,9 +322,8 @@ def scene_normal_p(field, x, y, z, fast: bool = False):
     if isinstance(field, AnalyticScene):
         return field.normal_fast_p(x, y, z) if fast else \
             field.normal_p(x, y, z)
-    pos = _stack_p(x, y, z)
     if fast and isinstance(field, ColumnField):
-        _, g = sample_columns_grad(field, pos)
-        return _normalized(g)
-    n = scene_normal(field, pos)
+        return column_query(field, x, y, z, want_grad=True,
+                            normalize=True)[1:]
+    n = scene_normal(field, _stack_p(x, y, z))
     return n[..., 0], n[..., 1], n[..., 2]

@@ -9,12 +9,16 @@ f = min_z d, top t, bottom b — plus the end-slice profile values
     d(x, y, z) = min(max(f, dz), 0) + hypot(max(f, 0), max(dz, 0)),
     dz = max(b - z, z - t).
 
-Scattered queries (particle collision) sample the coarse 5-map pack
-`maps_c` with the column-map kernel (`columns_kernel.sample_maps`) and
-reconstruct elementwise. Grid queries stay exact on the volume
-(`analytic.scene_sample_p`). The TPU's chunked one-hot matmul sampler
-(`_map_core`, `_packed_maps`) is not ported: on the card the kernel is the
-path for every batch size.
+Scattered queries (particle collision) go through `query`: on the card one
+launch of the fused column-query kernel (`columns_kernel.query_columns`)
+takes world positions to the distance and its gradient, doing in
+registers what the JAX package does as the map sample between an
+elementwise head and tail. Its plain version, `query_reference`, is that
+two-stage composition: `_map_coords`, the map sample
+(`columns_kernel.sample_maps_reference`), then `_finish`. Grid queries
+stay exact on the volume (`analytic.scene_sample_p`). The TPU's chunked
+one-hot matmul sampler (`_map_core`, `_packed_maps`) is not ported: on the
+card the kernel is the path for every batch size.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..core.pytree import tensor_dataclass
-from .columns_kernel import sample_maps
+from . import columns_kernel
 from .sampling import _clamped_axes, _interp_rows
 from .volume import SdfVolume
 
@@ -157,15 +161,14 @@ def resample_map_to_grid(field: ColumnField, map2d, nh: int, nw: int,
     return by @ map2d @ bx.T
 
 
-def _map_coords(field: ColumnField, pos_flat):
-    """World (N, 3) -> coarse-map texel coords plus the clamp/box terms.
-    Coarse cell centers align with the 2x2 fine-box centers:
+def _map_coords(field: ColumnField, px, py, pz):
+    """World x, y, z (N,) -> coarse-map texel coords plus the clamp/box
+    terms. Coarse cell centers align with the 2x2 fine-box centers:
     t_c = (t_fine + 0.5) * ratio - 0.5."""
     c = field.config
     _, Hc, Wc = field.maps_c.shape
     rx = Wc / float(c.slice_width)
     ry = Hc / float(c.slice_height)
-    px, py, pz = pos_flat[:, 0], pos_flat[:, 1], pos_flat[:, 2]
     tx, ty, _sp, (ux, uy, uz), (in_x, in_y, _) = _clamped_axes(
         field.volume, px, py, pz)
     tx = (tx + 0.5) * rx - 0.5
@@ -211,30 +214,99 @@ def _finish(field: ColumnField, coords, f, t, b, d_top, d_bot,
     return d + dist, gx, gy, gz
 
 
-def _sample(field: ColumnField, pos_flat, want_grad: bool):
-    """The kernel's sample of the five maps, then `_finish` — the shape of
-    the JAX package's `_sample_pallas`, for every batch size."""
-    coords = _map_coords(field, pos_flat)
+def _normalized(gx, gy, gz):
+    """Unit gradient, zero where it vanishes (|g| <= 1e-9)."""
+    norm = torch.sqrt(gx * gx + gy * gy + gz * gz)
+    ok = norm > 1e-9
+    safe = torch.clamp(norm, min=1e-9)
+    zero = torch.zeros_like(gx)
+    return (torch.where(ok, gx / safe, zero), torch.where(ok, gy / safe, zero),
+            torch.where(ok, gz / safe, zero))
+
+
+def query_reference(field: ColumnField, x, y, z, want_grad: bool = False,
+                    normalize: bool = False, sampler=None):
+    """Plain PyTorch version of the fused query kernel, composed as the
+    JAX package's `_sample_pallas` composes the query: the coordinate
+    head, `sampler(maps, ty, tx, want_grad)` over the five maps (default:
+    `columns_kernel.sample_maps_reference`, looked up at the call;
+    `columns_kernel.sample_maps` gives the two-stage query with the
+    sampler kernel), then the reconstruction tail, on (N,) world x, y, z."""
+    sampler = sampler or columns_kernel.sample_maps_reference
+    coords = _map_coords(field, x, y, z)
     tx, ty = coords[0], coords[1]
     sx_c, sy_c = coords[5]
-    out = sample_maps(field.maps_c, ty.contiguous(), tx.contiguous(),
-                      want_grad=want_grad)
+    out = sampler(field.maps_c, ty.contiguous(), tx.contiguous(), want_grad)
     f, t, b, d_top, d_bot = out[0], out[1], out[2], out[3], out[4]
     if not want_grad:
         return _finish(field, coords, f, t, b, d_top, d_bot, False)
-    return _finish(field, coords, f, t, b, d_top, d_bot, True,
-                   out[5] * sx_c, out[6] * sy_c)
+    d, gx, gy, gz = _finish(field, coords, f, t, b, d_top, d_bot, True,
+                            out[5] * sx_c, out[6] * sy_c)
+    if normalize:
+        gx, gy, gz = _normalized(gx, gy, gz)
+    return d, gx, gy, gz
+
+
+def query_geometry(field: ColumnField):
+    """The fused kernel's ColumnField constants
+    (`columns_kernel.QUERY_GEOMETRY`), the Python scalars that
+    `_clamped_axes`, `_map_coords` and `_finish` use."""
+    c = field.config
+    _, Hc, Wc = field.maps_c.shape
+    rx = Wc / float(c.slice_width)
+    ry = Hc / float(c.slice_height)
+    return (float(c.virtual_width), float(c.virtual_height),
+            float(c.virtual_depth), c.z_offset, c.scale_x, c.scale_y, rx, ry,
+            c.scale_x * rx, c.scale_y * ry, c.z_offset,
+            c.z_offset + min((c.slice_count - 1) * c.slice_z_size, 1e30))
+
+
+def _flat(v):
+    """A 1-D view of v without a copy where its strides allow one."""
+    try:
+        return v.view(-1)
+    except RuntimeError:
+        return v.reshape(-1)
+
+
+def query(field: ColumnField, x, y, z, want_grad: bool = False,
+          normalize: bool = False):
+    """The ColumnField query at world x, y, z (a tensor and tensors or
+    scalars that broadcast with it) -> the distance of their broadcast
+    shape, or (d, gx, gy, gz) with `want_grad`: the world-space gradient,
+    of unit length (0 where it vanishes) with `normalize`.
+
+    A CPU tensor runs `query_reference`; a CUDA tensor packs the maps and
+    launches the fused kernel once, reading strided views (a column of an
+    (N, 4) state, a broadcast scalar) in place, or raises."""
+    dev = x.device
+    x, y, z = torch.broadcast_tensors(
+        *(torch.as_tensor(v, dtype=torch.float32, device=dev)
+          for v in (x, y, z)))
+    shape = x.shape
+    x, y, z = _flat(x), _flat(y), _flat(z)
+    if dev.type == "cpu":
+        out = query_reference(field, x, y, z, want_grad, normalize)
+    else:
+        out = columns_kernel.query_columns(
+            columns_kernel.pack_maps(field.maps_c), query_geometry(field),
+            x, y, z, want_grad, normalize)
+    if not want_grad:
+        return out.reshape(shape)
+    return tuple(o.reshape(shape) for o in out)
 
 
 def sample_columns(field: ColumnField, position):
     """Column-reconstruction distance at world positions (..., 3)."""
-    shape = position.shape[:-1]
-    return _sample(field, position.reshape(-1, 3), False).reshape(shape)
+    p = position.reshape(-1, 3)
+    d = query(field, p[:, 0], p[:, 1], p[:, 2])
+    return d.reshape(position.shape[:-1])
 
 
 def sample_columns_grad(field: ColumnField, position):
     """Distance and world-space gradient (the collision normal)."""
     shape = position.shape[:-1]
-    d, gx, gy, gz = _sample(field, position.reshape(-1, 3), True)
+    p = position.reshape(-1, 3)
+    d, gx, gy, gz = query(field, p[:, 0], p[:, 1], p[:, 2], want_grad=True)
     g = torch.stack([gx, gy, gz], dim=-1)
     return d.reshape(shape), g.reshape(tuple(shape) + (3,))

@@ -1,23 +1,24 @@
-"""Column-map sampler: the CUDA kernel `csrc/column_maps.cu` and its plain
-PyTorch version.
+"""Column-map kernels: the CUDA source `csrc/column_maps.cu`, its wrappers
+and their plain PyTorch versions.
 
 Replaces the Pallas TPU kernel `illuminant_tpu/sdf/columns_pallas.py:
-sample_maps`: a bilinear sample of the (C, Hc, Wc) column-map pack at N
+sample_maps` (a bilinear sample of the (C, Hc, Wc) column-map pack at N
 texel coordinates, plus map 0's two texel-space derivatives with
-`want_grad`, as a (C[+2], N) float32 array.
+`want_grad`) and, through the fused query, the elementwise head and tail
+that wrap it in a ColumnField query. Three kernels, one wrapper each:
+  * `pack_maps`: the planar (C, Hc, Wc) maps -> one "quad" record per
+    texel, (Hc, Wc, R) float32 with R = 4C rounded up to 4: the four taps
+    of the cell whose low corner the texel is, the edge clamp baked in;
+  * `sample_maps`: the direct counterpart of the Pallas kernel, (C[+2], N)
+    out; it packs, then samples with the device function the query uses;
+  * `query_columns`: the fused ColumnField query from world positions to
+    the distance, or the distance and the (optionally unit) gradient,
+    behind `sdf/columns.py:query`.
 
-What bounds it on an H100: per point, four scattered reads of each of the
-C maps (at C = 5 with the gradient about 28 bytes of useful map data that
-arrive as L2 sector reads) and 28 bytes of output writes, against ~40
-flops — a memory-latency-bound gather. The design answers with the plain
-shape: one thread per point, maps kept in float32 (648 KB at the 1080p
-flagship, resident in the 50 MB L2) and read with `__ldg`, the point loop
-point-major so that the (C[+2], N) output rows are written with coalesced
-stores. The TPU kernel cast the maps to bf16 for the MXU; this one keeps
-float32, so it is closer to the exact bilinear than the reference.
-
-`sample_maps` chooses by device: a CPU tensor takes `sample_maps_reference`;
-a CUDA tensor launches the kernel or raises. The kernel is compiled from
+What bounds them on an H100 is bytes; the source's header says what the
+design does about it. On a CPU tensor `pack_maps` and `sample_maps` run
+their plain versions (`pack_maps_reference`, `sample_maps_reference`); a
+CUDA tensor launches the kernel or raises. The library is compiled from
 the repository's source with nvcc at first use, into
 `build/illuminant_tpu_torch/` beside the package.
 """
@@ -37,12 +38,23 @@ _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "column_maps.cu"
 _BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
               / "illuminant_tpu_torch")
 _LIBRARY = _BUILD_DIR / "libcolumn_maps.so"
+# -fmad=false: products and sums round one by one, as in the plain
+# versions (see the source's header).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
-# Launches of the CUDA kernel since import (or since a caller reset it):
-# `sample_maps` adds one where it launches the kernel and nowhere else.
-LAUNCHES = 0
+MAX_MAPS = 8
+# The fused query's ColumnField constants, in the order of the source's
+# `Geometry` (`columns.query_geometry` computes them).
+QUERY_GEOMETRY = ("ex", "ey", "ez", "z_offset", "scale_x", "scale_y", "rx",
+                  "ry", "sx_c", "sy_c", "z_lo", "z_hi")
+
+# Launches since import (or since a caller reset them): each wrapper adds
+# one where it launches its kernel and nowhere else.
+LAUNCHES = 0        # sample_maps
+QUERY_LAUNCHES = 0  # query_columns
+PACK_LAUNCHES = 0   # pack_maps
 # nvcc's output from the build of this process (ptxas register and
 # shared-memory report), or None before the first build.
 BUILD_LOG = None
@@ -58,7 +70,7 @@ def _nvcc() -> str:
     candidate = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(candidate):
         return candidate
-    raise RuntimeError("nvcc not found: the column-map kernel needs the "
+    raise RuntimeError("nvcc not found: the column-map kernels need the "
                        "CUDA toolkit to build")
 
 
@@ -92,14 +104,42 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.column_maps_sample
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.column_maps_pack.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+        lib.column_maps_sample.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                           i64, i32, ptr]
+        lib.column_query.argtypes = [
+            ptr, i32, i32, ctypes.POINTER(ctypes.c_float), ptr, i64, ptr, i64,
+            ptr, i64, i64, i32, i32, ptr, ptr, ptr, ptr, ptr]
+        for fn in (lib.column_maps_pack, lib.column_maps_sample,
+                   lib.column_query):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _on_cuda(name: str, tensors):
+    """Raise unless every tensor lies on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: the tensors must share a device")
+
+
+def _record(n_maps: int) -> int:
+    """Floats per texel record of the pack: four taps of n_maps, rounded
+    up to whole 16-byte vectors."""
+    return -(-4 * n_maps // 4) * 4
 
 
 def _taps(t, n: int):
@@ -109,6 +149,57 @@ def _taps(t, n: int):
     i0 = torch.clamp(fl, 0, n - 1).long()
     i1 = torch.clamp(i0 + 1, max=n - 1)
     return i0, i1, t - fl
+
+
+def pack_maps_reference(maps):
+    """Plain PyTorch version of the pack kernel: (C, Hc, Wc) -> (Hc, Wc,
+    R) float32, unused slots zero. The record of texel (y, x) holds the
+    taps (y, x), (y, x1), (y1, x), (y1, x1), each C maps long, with
+    y1 = min(y + 1, Hc - 1) and x1 = min(x + 1, Wc - 1)."""
+    n_maps, hc, wc = maps.shape
+    dev = maps.device
+    m = maps.permute(1, 2, 0)
+    y1 = torch.clamp(torch.arange(hc, device=dev) + 1, max=hc - 1)
+    x1 = torch.clamp(torch.arange(wc, device=dev) + 1, max=wc - 1)
+    m = torch.cat([m, m[:, x1], m[y1], m[y1][:, x1]], dim=-1)
+    pack = torch.zeros((hc, wc, _record(n_maps)), dtype=torch.float32,
+                       device=dev)
+    pack[..., :m.shape[-1]] = m
+    return pack
+
+
+def _check_maps(name: str, maps):
+    if maps.dim() != 3:
+        raise ValueError(f"{name} wants maps (C, Hc, Wc); got "
+                         f"{tuple(maps.shape)}")
+    if maps.dtype != torch.float32:
+        raise TypeError(f"{name}: maps must be float32, got {maps.dtype}")
+
+
+def pack_maps(maps):
+    """Pack the (C, Hc, Wc) maps into (Hc, Wc, R) texel records (see
+    `pack_maps_reference`). A CPU tensor runs the plain version; a CUDA
+    tensor launches the pack kernel on the current stream, or raises."""
+    global PACK_LAUNCHES
+    _check_maps("pack_maps", maps)
+    n_maps, hc, wc = maps.shape
+    if not 1 <= n_maps <= MAX_MAPS:
+        raise ValueError(f"pack_maps: the pack takes 1 to {MAX_MAPS} "
+                         f"maps, got {n_maps}")
+    if maps.device.type == "cpu":
+        return pack_maps_reference(maps)
+    _on_cuda("pack_maps", [maps])
+    if not maps.is_contiguous():
+        raise ValueError("pack_maps: maps must be contiguous")
+    pack = torch.empty((hc, wc, _record(n_maps)), dtype=torch.float32,
+                       device=maps.device)
+    with torch.cuda.device(maps.device):
+        err = _library().column_maps_pack(
+            maps.data_ptr(), pack.data_ptr(), n_maps, hc, wc,
+            _stream(maps.device))
+    _raise_on(err, "column_maps_pack")
+    PACK_LAUNCHES += 1
+    return pack
 
 
 def sample_maps_reference(maps, ty, tx, want_grad: bool = False):
@@ -151,15 +242,15 @@ def sample_maps(maps, ty, tx, want_grad: bool = False):
     (N,) -> (C[+2], N) float32; rows C and C+1 are map 0's texel-space
     derivatives d/dtx and d/dty when `want_grad`.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel on the current stream, or raises."""
+    A CPU tensor runs the plain version; a CUDA tensor packs the maps
+    (`pack_maps`, C <= 8) and launches the sampler on the current stream,
+    or raises."""
     global LAUNCHES
     _check(maps, ty, tx)
     if maps.device.type == "cpu":
         return sample_maps_reference(maps, ty, tx, want_grad)
-    if maps.device.type != "cuda":
-        raise ValueError(f"sample_maps: no kernel for device {maps.device}")
-    for name, t in (("maps", maps), ("ty", ty), ("tx", tx)):
+    _on_cuda("sample_maps", [maps, ty, tx])
+    for name, t in (("ty", ty), ("tx", tx)):
         if not t.is_contiguous():
             raise ValueError(f"sample_maps: {name} must be contiguous")
     n_maps, hc, wc = maps.shape
@@ -168,14 +259,59 @@ def sample_maps(maps, ty, tx, want_grad: bool = False):
                       dtype=torch.float32, device=maps.device)
     if n == 0:
         return out
-    lib = _library()
+    pack = pack_maps(maps)
     with torch.cuda.device(maps.device):
-        stream = torch.cuda.current_stream(maps.device).cuda_stream
-        err = lib.column_maps_sample(
-            maps.data_ptr(), ty.data_ptr(), tx.data_ptr(), out.data_ptr(),
-            n_maps, hc, wc, n, int(bool(want_grad)), stream)
-    if err != 0:
-        raise RuntimeError(f"column_maps_sample launch failed: CUDA error "
-                           f"{err}")
+        err = _library().column_maps_sample(
+            pack.data_ptr(), ty.data_ptr(), tx.data_ptr(), out.data_ptr(),
+            n_maps, hc, wc, n, int(bool(want_grad)), _stream(maps.device))
+    _raise_on(err, "column_maps_sample")
     LAUNCHES += 1
     return out
+
+
+def _flat_arg(name: str, t, n: int):
+    """A 1-D float32 CUDA view of n elements -> (pointer, element stride)
+    for the kernel; any stride, 0 included (a broadcast scalar)."""
+    if t.dim() != 1 or t.shape[0] != n or t.dtype != torch.float32:
+        raise ValueError(f"query_columns: {name} must be a float32 (N,) "
+                         f"tensor, got {t.dtype} {tuple(t.shape)}")
+    return t.data_ptr(), t.stride(0)
+
+
+def query_columns(pack, geometry, x, y, z, want_grad: bool = False,
+                  normalize: bool = False):
+    """Launch the fused ColumnField query on the current stream: a
+    5-map `pack_maps` pack, the 12 `QUERY_GEOMETRY` floats, world
+    positions as three (N,) float32 views of any element stride -> d, or
+    (d, gx, gy, gz) with `want_grad` ((gx, gy, gz) of unit length, or 0
+    where it vanishes, with `normalize`). CUDA tensors only: the plain
+    version is `columns.query_reference`, which `columns.query` takes for
+    CPU tensors."""
+    global QUERY_LAUNCHES
+    _on_cuda("query_columns", [pack, x, y, z])
+    hc, wc, rec = pack.shape
+    if (pack.dtype != torch.float32 or not pack.is_contiguous()
+            or rec != _record(5)):
+        raise ValueError(f"query_columns: pack must be a contiguous "
+                         f"float32 5-map pack, got {pack.dtype} "
+                         f"{tuple(pack.shape)}")
+    if len(geometry) != len(QUERY_GEOMETRY):
+        raise ValueError(f"query_columns: geometry holds "
+                         f"{len(QUERY_GEOMETRY)} values {QUERY_GEOMETRY}")
+    n = x.shape[0] if x.dim() == 1 else -1
+    args = [_flat_arg(name, t, n) for name, t in (("x", x), ("y", y),
+                                                  ("z", z))]
+    outs = [torch.empty(n, dtype=torch.float32, device=x.device)
+            for _ in range(4 if want_grad else 1)]
+    if n == 0:
+        return tuple(outs) if want_grad else outs[0]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    geom = (ctypes.c_float * len(QUERY_GEOMETRY))(*map(float, geometry))
+    with torch.cuda.device(x.device):
+        err = _library().column_query(
+            pack.data_ptr(), hc, wc, geom, *args[0], *args[1], *args[2], n,
+            int(bool(want_grad)), int(bool(normalize)), *ptrs,
+            _stream(x.device))
+    _raise_on(err, "column_query")
+    QUERY_LAUNCHES += 1
+    return tuple(outs) if want_grad else outs[0]

@@ -268,7 +268,7 @@ def test_interop_carries_analytic_scene(groups):
     own = analytic.pack_scene(
         [PortObstruction(type=o.type, center=o.center, size=o.size,
                          rotation=o.rotation, is_dynamic=o.is_dynamic)
-         for o in obs], group_capacity_round=1)
+         for o in obs], group_capacity_round=1, device="cpu")
     assert own.group_types == scene_t.group_types
     for a, b in zip(own.centers, scene_t.centers):
         np.testing.assert_array_equal(a.numpy(), b.numpy())

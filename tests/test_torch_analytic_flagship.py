@@ -39,7 +39,7 @@ def _run_frames(run):
     """{"jax", "port"} -> per-frame outputs as numpy."""
     kw = {**KW, **RUNS[run]}
     sj = jax_build_flagship(**kw)
-    st = build_flagship(**kw)
+    st = build_flagship(device="cpu", **kw)
     key = jax.random.key(0)
     state0 = interop.as_numpy_fields(sj.system.state)
     draws = [_jax_uniforms(key, i, sj.spawner.spawn_max)
@@ -65,7 +65,7 @@ def _run_frames(run):
     with rounding:
         state = interop.to_torch(ParticleState, state0)
         avg = torch.tensor(0.5)
-        env_t = st.environment.uniforms()
+        env_t = st.environment.uniforms(device="cpu")
         for i in range(N_FRAMES):
             img, state, avg, drops = st.frame(
                 state, avg, None, st.volume, st.gbuffer, st.sphere_lights,

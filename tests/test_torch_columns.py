@@ -276,5 +276,128 @@ def test_cuda_kernel_matches_plain(want_grad):
     torch.cuda.synchronize()
     assert columns_kernel.LAUNCHES == before + 1
     ref = columns_kernel.sample_maps_reference(m, y, x, want_grad)
-    # Both float32 with the same tap order; fused multiply-adds differ.
+    # Both float32 with the same tap order and, with -fmad=false, the same
+    # rounding of every product and sum.
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+# -- the quad pack and the fused query -----------------------------------
+
+
+def _gather_from_pack(pack, n_maps, ty, tx, want_grad):
+    """The kernel's device function (`sample` in csrc/column_maps.cu) in
+    plain PyTorch: the four taps read from the record of the low corner
+    (y0, x0) of the (Hc, Wc, R) pack, then the lerps of
+    sample_maps_reference."""
+    hc, wc, _ = pack.shape
+    y0, _, wy = columns_kernel._taps(ty, hc)
+    x0, _, wx = columns_kernel._taps(tx, wc)
+    rec = pack[y0, x0]                           # (N, R): the cell's taps
+    v00, v01, v10, v11 = (rec[:, k * n_maps:(k + 1) * n_maps].T
+                          for k in range(4))
+    col0 = (1.0 - wy) * v00 + wy * v10
+    col1 = (1.0 - wy) * v01 + wy * v11
+    out = (1.0 - wx) * col0 + wx * col1
+    if not want_grad:
+        return out
+    row0 = (1.0 - wx) * v00[0] + wx * v01[0]
+    row1 = (1.0 - wx) * v10[0] + wx * v11[0]
+    return torch.cat([out, (col1[0] - col0[0])[None],
+                      (row1 - row0)[None]], dim=0)
+
+
+def _edge_tap_inputs():
+    maps = torch.arange(2 * 3 * 4, dtype=torch.float32).reshape(2, 3, 4)
+    return (maps, torch.tensor([-0.5, 0.0, 2.0, 5.0]),
+            torch.tensor([0.0, -0.5, 3.0, 9.0]))
+
+
+@pytest.mark.parametrize("inputs", ["random", "edge_taps"])
+@pytest.mark.parametrize("want_grad", [False, True])
+def test_gather_from_pack_equals_plain(want_grad, inputs):
+    """The pack holds what the kernel reads: a gather from it equals
+    sample_maps_reference exactly, at the edges too (the taps of
+    test_sample_maps_edge_taps; coordinates before the first and past the
+    last texel)."""
+    if inputs == "random":
+        m, ty, tx = (torch.as_tensor(a) for a in _maps_and_coords(6))
+    else:
+        m, ty, tx = _edge_tap_inputs()
+    pack = columns_kernel.pack_maps(m)
+    n_maps, hc, wc = m.shape
+    # Four taps of n_maps floats, padded to whole 16-byte vectors.
+    assert pack.shape == (hc, wc, -(-4 * n_maps // 4) * 4)
+    torch.testing.assert_close(
+        _gather_from_pack(pack, n_maps, ty, tx, want_grad),
+        columns_kernel.sample_maps_reference(m, ty, tx, want_grad),
+        rtol=0, atol=0)
+
+
+def test_pack_records():
+    """A texel's record holds its cell's four taps with the last row and
+    column clamped."""
+    m, _, _ = _edge_tap_inputs()             # (2, 3, 4)
+    quad = columns_kernel.pack_maps(m)
+    # Texel (1, 2): taps (1, 2), (1, 3), (2, 2), (2, 3), two maps each.
+    assert quad[1, 2].tolist() == [6.0, 18.0, 7.0, 19.0, 10.0, 22.0, 11.0,
+                                   23.0]
+    # The corner texel (2, 3) repeats itself in every tap.
+    assert quad[2, 3].tolist() == [11.0, 23.0] * 4
+    # Three maps: 12 floats a record, no padding; five: 20.
+    assert columns_kernel.pack_maps(torch.zeros((3, 2, 2))).shape[-1] == 12
+    assert columns_kernel.pack_maps(torch.zeros((5, 2, 2))).shape[-1] == 20
+    with pytest.raises(ValueError):
+        columns_kernel.pack_maps(torch.zeros((9, 2, 2)))
+
+
+def test_query_reads_strided_and_broadcast_inputs(fields):
+    """`columns.query` takes planar x, y, z as the frame passes them (the
+    columns of an (N, 4) state, a scalar, a 0-d tensor) and gives what the
+    stacked (N, 3) query gives."""
+    _, cf_t = fields
+    p = torch.as_tensor(_points(7, 600))
+    state = torch.cat([p, torch.ones(600, 1)], dim=1)
+    d, g = columns.sample_columns_grad(cf_t, p)
+    out = columns.query(cf_t, state[:, 0], state[:, 1], state[:, 2],
+                        want_grad=True)
+    torch.testing.assert_close(out[0], d, rtol=0, atol=0)
+    torch.testing.assert_close(torch.stack(out[1:], -1), g, rtol=0, atol=0)
+    flat = columns.query(cf_t, p[:, 0], 30.0, torch.tensor(12.0))
+    ref = columns.sample_columns(cf_t, torch.stack(
+        [p[:, 0], torch.full((600,), 30.0), torch.full((600,), 12.0)], -1))
+    torch.testing.assert_close(flat, ref, rtol=0, atol=0)
+    # A (rows, 1) x (1, cols) grid broadcasts to (rows, cols).
+    grid = columns.query(cf_t, p[:8, 0][None, :], p[:5, 1][:, None],
+                         torch.tensor(20.0))
+    assert grid.shape == (5, 8)
+
+
+def test_query_geometry_is_the_plain_constants(fields):
+    """The twelve floats the kernel takes are the scalars of the plain
+    version: the texel and derivative scales of `_map_coords`, the box of
+    `_clamped_axes`, the end-slice heights of `_finish`."""
+    _, cf_t = fields
+    geom = dict(zip(columns_kernel.QUERY_GEOMETRY,
+                    columns.query_geometry(cf_t)))
+    c = cf_t.config
+    p = torch.as_tensor(_points(8, 16))
+    coords = columns._map_coords(cf_t, p[:, 0], p[:, 1], p[:, 2])
+    assert (geom["sx_c"], geom["sy_c"]) == coords[5]
+    assert (geom["ex"], geom["ey"], geom["ez"]) == (128.0, 96.0, 64.0)
+    assert geom["rx"] * c.slice_width == cf_t.maps_c.shape[2]
+    assert geom["ry"] * c.slice_height == cf_t.maps_c.shape[1]
+    assert (geom["z_lo"], geom["z_hi"]) == (0.0, 60.0)
+    tx = (torch.clamp(p[:, 0], 0.0, 128.0) * geom["scale_x"] - 0.5 + 0.5) \
+        * geom["rx"] - 0.5
+    torch.testing.assert_close(tx, coords[0], rtol=0, atol=0)
+
+
+def test_query_columns_refuses_cpu_tensors(fields):
+    """The fused kernel's launcher takes CUDA tensors only: no silent
+    plain path behind it."""
+    _, cf_t = fields
+    pack = columns_kernel.pack_maps(cf_t.maps_c)
+    x = torch.zeros(4)
+    with pytest.raises(ValueError, match="no kernel"):
+        columns_kernel.query_columns(pack, columns.query_geometry(cf_t), x,
+                                     x, x)

@@ -51,7 +51,7 @@ def _frame_out(img, state, avg, drops):
 def _run_frames():
     """{"jax", "port", "port_rounded"} -> per-frame outputs as numpy."""
     sj = jax_build_flagship(field="voxel", **KW)
-    st = build_flagship(field="voxel", **KW)
+    st = build_flagship(field="voxel", device="cpu", **KW)
     key = jax.random.key(0)
     spawn_max = sj.spawner.spawn_max
     state0 = interop.as_numpy_fields(sj.system.state)
@@ -71,7 +71,7 @@ def _run_frames():
         frames = []
         state = interop.to_torch(ParticleState, state0)
         avg = torch.tensor(0.5)
-        env_t = st.environment.uniforms()
+        env_t = st.environment.uniforms(device="cpu")
         for i in range(N_FRAMES):
             img, state, avg, drops = st.frame(
                 state, avg, None, st.volume, st.gbuffer, st.sphere_lights,

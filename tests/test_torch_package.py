@@ -53,3 +53,31 @@ def test_unported_arguments_raise(kwargs):
     kw.update(kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_flagship(**kw)
+
+
+def _entry_points():
+    from illuminant_tpu_torch.lighting import environment as env
+    from illuminant_tpu_torch.particles.system import ParticleSystem
+    from illuminant_tpu_torch.sdf.analytic import pack_scene
+
+    return {
+        "build_flagship": build_flagship,
+        "ParticleSystem": ParticleSystem.__init__,
+        "pack_scene": pack_scene,
+        "EnvironmentUniforms.make": env.EnvironmentUniforms.make,
+        "pack_sphere_lights": env.pack_sphere_lights,
+        "LightingEnvironment.uniforms": env.LightingEnvironment.uniforms,
+        "LightingEnvironment.pack_obstructions":
+            env.LightingEnvironment.pack_obstructions,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """What a user builds lands on the card unless the caller asks for
+    another device (the CPU tests pass device="cpu")."""
+    import inspect
+
+    default = inspect.signature(_entry_points()[name]).parameters[
+        "device"].default
+    assert default == "cuda", (name, default)

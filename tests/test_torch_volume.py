@@ -33,7 +33,8 @@ def _obstructions(mod, dynamic=None):
         L.cylinder((70.0, 20.0, 10.0), (6.0, 6.0, 10.0), is_dynamic=True),
         L.box((80.0, 50.0, 40.0), (6.0, 4.0, 8.0)),
     ]
-    return e.pack_obstructions(dynamic=dynamic)
+    kw = {"device": "cpu"} if mod is env_t else {}
+    return e.pack_obstructions(dynamic=dynamic, **kw)
 
 
 def test_scene_distance_every_type_matches_jax():
@@ -172,7 +173,8 @@ def test_pack_scene_groups_like_jax():
                            L.ellipsoid((7, 8, 9), (3, 2, 1)),
                            L.box((1, 1, 1), (0, 1, 1))]
     pj = janalytic.pack_scene(e_j.obstructions, group_capacity_round=1)
-    pt = analytic.pack_scene(e_t.obstructions, group_capacity_round=1)
+    pt = analytic.pack_scene(e_t.obstructions, group_capacity_round=1,
+                             device="cpu")
     assert pt.group_types == pj.group_types
     assert pt.group_counts == pj.group_counts
     for a, b in zip(pt.sizes, pj.sizes):
