@@ -8,7 +8,7 @@ column-map sampler and the fused ColumnField query), holds each against
 its plain PyTorch version at the flagship's shapes, (5, 135, 240) maps and
 1M points, and times it on the device beside its plain version, the
 two-stage query it replaces, a PyTorch library call and its bound
-(`[kernel]`). Then it drives three full-width flagship
+(`[kernel]`). Then it drives five full-width flagship
 frames (1080x1920, 8 sphere lights, a 1M-particle system) through
 `build_flagship` and `frame`, the entry points a user calls, and checks
 what comes out:
@@ -18,13 +18,22 @@ what comes out:
     its timed frames the fused query is checked and timed once more on
     the slice's own particle positions (`[kernel] inputs=frame`);
   * `slice_analytic`: the analytic field, fast preset (the headline frame);
-  * `slice_parity`: the analytic field, parity preset.
+  * `slice_parity`: the analytic field, parity preset;
+  * `slice_family`, `slice_family_parity`: the analytic field at both
+    presets with `full_family=True`: a directional sun, a line light, a
+    shadowed volumetric light, a projector and particle lights on top of
+    the sphere lights. Before them `families` checks on a small frame
+    that each of the five families changes the image.
 The analytic slices launch no column kernel: they never build a
 ColumnField. Each slice line gives ms/frame, live particles, avg_lum, the
 peak device memory and the launch counts. `reference` holds the card's
-voxel frame at both presets (the fused query 2 and 5 launches a frame) and
-`reference_analytic` the analytic frame at both presets to the port's
-plain CPU path on a small input. Every phase prints one line; the last
+voxel frame at both presets (the fused query 2 and 5 launches a frame),
+`reference_analytic` the analytic frame at both presets and
+`reference_family` the full-family frame on the analytic field at both
+presets and on the voxel field (the fused query 4 launches a frame: the
+two of the collision, the volumetric window's exact refine and the
+projector's AO sample) to the port's plain CPU path on a small input.
+Every phase prints one line; the last
 three lines are the kernels' record as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
 before those lines are printed. With no CUDA card the script exits 2.
@@ -66,12 +75,15 @@ SLICES = {
     "slice": dict(field="voxel", preset="fast"),
     "slice_analytic": dict(field="analytic", preset="fast"),
     "slice_parity": dict(field="analytic", preset="parity"),
+    "slice_family": dict(field="analytic", preset="fast", full_family=True),
+    "slice_family_parity": dict(field="analytic", preset="parity",
+                                full_family=True),
 }
 # The small input of tests/test_torch_flagship.py and
 # tests/test_torch_analytic_flagship.py, for the reference checks.
 SMALL = dict(height=96, width=160, n_lights=4, capacity=1 << 10,
              spawn_max=128, sdf_resolution_scale=0.5)
-TIMED_FRAMES = 16
+TIMED_FRAMES = 8
 # The H100 SXM's published peaks: device memory and
 # float32 outside the tensor cores. A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) and its
@@ -410,17 +422,17 @@ def phase_slice(name, scene, warmup: int, frames: int):
 def _small_frames(device, draws, **kw):
     """Three frames of the small flagship on `device` from the same state
     with the given spawn draws -> (images int32, positions, avg_lum,
-    fused-query launches)."""
+    fused-query launches, pack launches)."""
     from illuminant_tpu_torch.scenes import build_flagship
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     scene = build_flagship(device=device, **SMALL, **kw)
-    ck.QUERY_LAUNCHES = 0
+    ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
     img, state, avg = _run_frames(
         scene, 3, 0, None, scene.system.state,
         torch.tensor(0.5, device=device), spawn_uniforms=draws)
     return (img.cpu().numpy().astype(np.int32), state.position.cpu().numpy(),
-            float(avg), ck.QUERY_LAUNCHES)
+            float(avg), ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES)
 
 
 def _compare_small(phase, cpu, cuda, **fields):
@@ -495,6 +507,76 @@ def phase_reference_analytic():
                                  "moved apart")
 
 
+# Fused-query launches of one voxel full-family frame at the fast preset:
+# the collision's initial distance and its step sample with the unit
+# gradient (particles/integrate.py), the exact per-candidate refine of the
+# volumetric light's windowed scan (one refine sample; a windowed view
+# never takes the carried refine, lighting/scan_shadows.py), and the
+# projector's AO sample (lighting/projector.py; its cone march runs no
+# step: the flagship's projector has no origin). The sun's and the line
+# light's AO are gated off on the host, the particle lights' template has
+# no AO radius, and every grid query samples the volume itself.
+FAMILY_VOXEL_QUERIES_PER_FRAME = 4
+
+
+def phase_reference_family():
+    """The full-family frame on the card against the port's plain CPU
+    path on the small input: the analytic field at both presets to the
+    bounds of `reference_analytic`, and the voxel field at the fast
+    preset to those of `reference`, its fused-query and pack launches
+    counted against FAMILY_VOXEL_QUERIES_PER_FRAME."""
+    draws = _draws()
+    for kw in (SLICES["slice_family"], SLICES["slice_family_parity"],
+               dict(field="voxel", preset="fast", full_family=True)):
+        out = {dev: _small_frames(dev, draws, **kw)
+               for dev in ("cpu", "cuda")}
+        queries, packs = out["cuda"][3:5]
+        within, within_1e3 = _compare_small(
+            "reference_family", out["cpu"], out["cuda"], **kw,
+            column_query_launches=queries, column_maps_pack_launches=packs)
+        if kw["field"] == "voxel":
+            expected = 3 * FAMILY_VOXEL_QUERIES_PER_FRAME
+            ok = within >= 0.99
+        else:
+            expected = 0
+            ok = within == 1.0 and within_1e3 >= 0.999
+        if (queries, packs) != (expected, expected):
+            raise AssertionError(
+                f"reference_family ({kw}): the fused query launched "
+                f"{queries} times and its pack {packs} times in 3 frames, "
+                f"expected {expected}")
+        if not ok:
+            raise AssertionError(f"reference_family ({kw}): particles "
+                                 "moved apart")
+
+
+def phase_families():
+    """Each extra family is in the frame: on the card, at the small size,
+    the second frame (the particle lights read the first frame's
+    particles) with every family differs from the frame with any one
+    family left out."""
+    from illuminant_tpu_torch.scenes import FAMILIES, build_flagship
+
+    def image(full_family):
+        scene = build_flagship(device="cuda", **SMALL, field="analytic",
+                               preset="fast", full_family=full_family)
+        img, _, _ = _run_frames(
+            scene, 2, 0, torch.Generator(device="cuda").manual_seed(0),
+            scene.system.state, torch.tensor(0.5, device="cuda"))
+        return img.cpu().numpy().astype(np.int32)
+
+    full = image(True)
+    moved = {name: float(np.abs(
+        full - image(tuple(f for f in FAMILIES if f != name))).mean())
+        for name in FAMILIES}
+    say("families", size=f"{SMALL['height']}x{SMALL['width']}",
+        **{f"mean_abs_lsb_without_{k}": f"{v:.4f}" for k, v in moved.items()})
+    missing = [k for k, v in moved.items() if not v > 0.0]
+    if missing:
+        raise AssertionError(f"families: leaving out {missing} does not "
+                             "change the frame")
+
+
 def _busy_us(events) -> tuple:
     """(union of the device events' intervals, sum of their durations),
     in microseconds. The union counts overlapping work once; the stage
@@ -553,11 +635,17 @@ def phase_profile(name, warmup: int, frame_ms, out_dir):
                     "\n")
     union, total = _busy_us(prof.events())
     busy_ms = union / 2e3
+    # Device-to-host reads of a scalar (a march's "any ray live?" check,
+    # a percentile): each waits for the device to drain its queue.
+    reads = [e for e in ka if e.key == "aten::_local_scalar_dense"]
     say(name.replace("slice", "profile"), frames=2, out=out_dir,
         device_busy_ms_per_frame=f"{busy_ms:.3f}",
         device_kernel_sum_ms_per_frame=f"{total / 2e3:.3f}",
         unprofiled_ms_per_frame=f"{frame_ms:.3f}",
         device_idle_share=f"{1.0 - busy_ms / frame_ms:.4f}",
+        host_reads_per_frame=sum(e.count for e in reads) / 2,
+        host_read_ms_per_frame="%.3f" % (
+            sum(e.cpu_time_total for e in reads) / 2e3),
         stages=len(stages))
 
 
@@ -585,6 +673,8 @@ def main(argv=None) -> int:
     kernel = phase_kernel(field)
     launches, frame_ms = {}, {}
     for name, kw in SLICES.items():
+        if name == "slice_family":
+            phase_families()
         if scene is None:
             scene = build_flagship(device=cuda, **FULL, **kw)
         launches[name], state, frame_ms[name] = phase_slice(
@@ -601,6 +691,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     phase_reference()
     phase_reference_analytic()
+    phase_reference_family()
     # Each kernel at the heavier of the frame's calls: the query with the
     # unit gradient, the sampler with the derivative rows; the other calls
     # are in the [kernel] lines above. "ms" is one call of the wrapper the

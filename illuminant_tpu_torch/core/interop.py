@@ -7,8 +7,10 @@ element by element, Python values pass through); it walks
 `dataclasses.fields` and calls `np.asarray`, so it needs no jax.
 `to_torch` builds the port's counterpart from such a dict on a device.
 It covers AnalyticScene, SdfVolume (with its config), ColumnField,
-ParticleState, SphereLights, EnvironmentUniforms, GBuffer, SpawnUniforms,
-GravityUniforms and SystemUniforms.
+ParticleState, SphereLights, DirectionalLights, LineLights,
+VolumetricLights, ProjectorLights (with its tuple of mip levels),
+EnvironmentUniforms, GBuffer (also a windowed view, with its
+`pixel_origin`), SpawnUniforms, GravityUniforms and SystemUniforms.
 """
 
 from __future__ import annotations
@@ -19,8 +21,12 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..lighting.directional import DirectionalLights
 from ..lighting.environment import EnvironmentUniforms, SphereLights
 from ..lighting.gbuffer import GBuffer
+from ..lighting.line import LineLights
+from ..lighting.projector import ProjectorLights
+from ..lighting.volumetric import VolumetricLights
 from ..particles.spawner import SpawnUniforms
 from ..particles.state import ParticleState, SystemUniforms
 from ..particles.transforms import GravityUniforms
@@ -35,7 +41,8 @@ _NESTED = {
 }
 
 SUPPORTED = (AnalyticScene, SdfVolume, SdfVolumeConfig, ColumnField,
-             ParticleState, SphereLights, EnvironmentUniforms, GBuffer,
+             ParticleState, SphereLights, DirectionalLights, LineLights,
+             VolumetricLights, ProjectorLights, EnvironmentUniforms, GBuffer,
              SpawnUniforms, GravityUniforms, SystemUniforms)
 
 

@@ -32,13 +32,16 @@ def _saturate(x):
 
 
 def cone_trace(volume, light_center, light_radius, light_ramp_length,
-               shaded_position, enable, quality: QualitySettings):
+               shaded_position, enable, quality: QualitySettings,
+               raw: bool = False):
     """Visibility in [0, 1] of `light_center` from `shaded_position`
-    through the field `volume`.
+    through the field `volume` (None: no field, every ray is clear).
 
     light_center / shaded_position (..., 3); light_radius /
     light_ramp_length broadcastable tensors (...); enable (...) bool —
-    disabled rays return 1.0 (fxh:190)."""
+    disabled rays return 1.0 (fxh:190). `raw` returns the pre-threshold
+    visibility min(vis, step window) (fxh:175-180), which the line
+    light's 3-ray average thresholds once (LineLightCore.fxh:52-65)."""
     dev = shaded_position.device
     f32 = torch.float32
     light_radius = torch.as_tensor(light_radius, dtype=f32, device=dev)
@@ -48,6 +51,8 @@ def cone_trace(volume, light_center, light_radius, light_ramp_length,
     shape = torch.broadcast_shapes(shaded_position.shape[:-1],
                                    light_center.shape[:-1], enable.shape,
                                    light_radius.shape)
+    if volume is None:
+        return torch.ones(shape, dtype=f32, device=dev)
 
     trace_vector = light_center - shaded_position
     trace_length = torch.sqrt(torch.clamp(
@@ -97,6 +102,8 @@ def cone_trace(volume, light_center, light_radius, light_ramp_length,
 
     # Ramp visibility to 0 when the step budget ran out (fxh:175-180).
     visibility = torch.minimum(vis, steps / MAX_STEP_RAMP_WINDOW)
+    if raw:
+        return torch.where(enable, visibility, 1.0)
     final = _saturate(_saturate(visibility - FULLY_SHADOWED_THRESHOLD)
                       / (UNSHADOWED_THRESHOLD - FULLY_SHADOWED_THRESHOLD)) \
         ** quality.occlusion_to_opacity_power

@@ -24,9 +24,8 @@ Deviations from the JAX package:
     visibility in bfloat16 (scan_shadows.py:343-347, 876-890, 933); with
     float32 the f16 range offsets it needs (`k_off`) are dropped;
   * not ported: `carried_all` on an analytic scene (ROADMAP M3, its
-    `scene_column_images`), and the fused multi-family scan's trace
-    budgets (`max_trace_distance`) and windows (`world_offset`) (ROADMAP
-    M9).
+    `scene_column_images`), isotropic shadow scales other than 0.5 and
+    1 and visibility resizes other than 1x and 2x (ROADMAP M3).
 """
 
 from __future__ import annotations
@@ -52,15 +51,20 @@ _BOT_FILL = -4096.0
 
 
 def occlusion_image(scene, height: int, width: int, trace_z,
-                    render_scale: float = 1.0):
+                    render_scale: float = 1.0, world_offset=None):
     """Scene distance at every pixel center at height trace_z — a
     separable (1, W) x (H, 1) grid query: closed form on an analytic
-    scene, the exact grid resample of a voxel volume."""
+    scene, the exact grid resample of a voxel volume. `world_offset`
+    ((2,) [x, y], world units): the top-left corner of a windowed view
+    (GBuffer.window)."""
     dev = trace_z.device
     ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) \
         / render_scale
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
         / render_scale
+    if world_offset is not None:
+        xs = xs + world_offset[0]
+        ys = ys + world_offset[1]
     return scene_sample_p(scene, xs[None, :], ys[:, None], trace_z)
 
 
@@ -135,9 +139,19 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
         in_front = in_front_all[x]
         f = f_all[x]
 
+        # carry * near + shifted * af as one fused multiply-add onto the
+        # rounded second product (addcmul), the form XLA's CPU backend
+        # contracts the JAX expression into. The rounding decides results:
+        # on a plateau of the occlusion image (the flat interior of a prism
+        # cut by the trace plane) both rows hold the same value, the lerp
+        # lands within an ulp of it, and the strict arg-min update below
+        # moves along the plateau or stays by that ulp. With two rounded
+        # products the arg-min of a far light's ray (a directional
+        # pseudo-center) sat many world units from the JAX package's, and
+        # so did the refine's sample and a trace budget's cut.
         up, dn = _shifted(carry, fill_c)
-        res = carry * near_all[x] + torch.where(fpos_all[x], up, dn) \
-            * af_all[x]
+        res = torch.addcmul(torch.where(fpos_all[x], up, dn) * af_all[x],
+                            carry, near_all[x])
         res = torch.where(in_front, res, fill_c)
         res_d = res[0]
 
@@ -181,7 +195,8 @@ def scan_visibility(scene, height: int, width: int, light_position,
                     light_radius, light_ramp_length,
                     quality: QualitySettings, trace_z=None,
                     render_scale: float = 1.0, pixel_z=None,
-                    pixel_offset_xy=None, light_active=None):
+                    pixel_offset_xy=None, max_trace_distance=None,
+                    world_offset=None, light_active=None):
     """Cone-trace-equivalent visibility of all lights -> (L, H, W).
 
     light_position (L, 3), light_radius / light_ramp_length (L,);
@@ -189,9 +204,13 @@ def scan_visibility(scene, height: int, width: int, light_position,
     active light height); `pixel_z` (H, W) or (L, H, W): shaded-surface
     heights, already lifted along the normal; `pixel_offset_xy` (H, W, 2)
     or (L, H, W, 2): the lift's world xy offset, read by the exact refine;
+    `max_trace_distance` (L,) world units: blockers farther than this
+    from the shaded pixel along the ray are ignored (the directional
+    lights' ShadowTraceLength; None traces to the light); `world_offset`
+    (2,) world units: the origin of a windowed view (GBuffer.window), which
+    also keeps the exact per-candidate refine on a ColumnField;
     `light_active` (L,) 0/1 masks padded slots out of the default trace
-    plane. The JAX package's `max_trace_distance` and `world_offset`
-    (the fused family scan, ROADMAP M9) are not arguments here."""
+    plane."""
     if (isinstance(scene, AnalyticScene)
             and quality.scan_refine_mode == "carried_all"
             and quality.scan_refine_samples > 0):
@@ -200,6 +219,8 @@ def scan_visibility(scene, height: int, width: int, light_position,
             "M3: scene_column_images)")
     f32 = torch.float32
     dev = light_position.device
+    windowed_eval = world_offset is not None
+    off_x, off_y = world_offset if windowed_eval else (0.0, 0.0)
     lz = light_position[:, 2]
     if trace_z is not None:
         trace_z = torch.as_tensor(trace_z, dtype=f32, device=dev)
@@ -222,14 +243,20 @@ def scan_visibility(scene, height: int, width: int, light_position,
         nh, nw, nscale = nh // 2, nw // 2, nscale * 0.5
         nm_left *= 2.0
         halvings += 1
-    lx = light_position[:, 0] * nscale
-    ly = light_position[:, 1] * nscale
-    occ = occlusion_image(scene, nh, nw, trace_z, nscale)
+    # Window-local pixel coordinates: the light shifts into the window's
+    # frame, so the column walk's dx math is unchanged.
+    lx = (light_position[:, 0] - off_x) * nscale
+    ly = (light_position[:, 1] - off_y) * nscale
+    occ = occlusion_image(scene, nh, nw, trace_z, nscale, world_offset)
     # The near-light skip compares dx in nomination-grid pixels.
     lr_n = light_radius * nscale
+    # Windowed evaluations keep the exact per-candidate sampling: their
+    # grids are small, and the carried maps' grid quantization made
+    # windowed lights resolution-dependent (scan_shadows.py:477-489).
     use_cols = (isinstance(scene, ColumnField)
                 and quality.scan_refine_samples > 0
-                and quality.scan_refine_mode in ("carried", "carried_all"))
+                and quality.scan_refine_mode in ("carried", "carried_all")
+                and not windowed_eval)
     if isinstance(scene, ColumnField) and \
             quality.scan_refine_mode == "exact":
         # The exact refine samples the underlying volume.
@@ -277,8 +304,8 @@ def scan_visibility(scene, height: int, width: int, light_position,
         has_blocker = min_d < 1e8
 
     # --- READOUT at full shadow resolution (pixel centers at i + 0.5).
-    lx = light_position[:, 0] * render_scale
-    ly = light_position[:, 1] * render_scale
+    lx = (light_position[:, 0] - off_x) * render_scale
+    ly = (light_position[:, 1] - off_y) * render_scale
     ys = torch.arange(height, dtype=f32, device=dev)[None, :, None] + 0.5
     xs = torch.arange(width, dtype=f32, device=dev)[None, None, :] + 0.5
     dx = xs - lx[:, None, None]
@@ -308,19 +335,27 @@ def scan_visibility(scene, height: int, width: int, light_position,
 
     # The exact refine's ray endpoints: light (world) -> the lifted
     # shaded surface.
-    px_x = xs * inv_rs
-    px_y = ys * inv_rs
+    px_x = xs * inv_rs + off_x
+    px_y = ys * inv_rs + off_y
     if pixel_offset_xy is not None:
         px_x = px_x + pixel_offset_xy[..., 0]
         px_y = px_y + pixel_offset_xy[..., 1]
     lx_w = light_position[:, 0][:, None, None]
     ly_w = light_position[:, 1][:, None, None]
+    if max_trace_distance is not None:
+        # The blocker's distance from the pixel along the ray, in world
+        # units (major * sec is the world ray length).
+        u_blocker = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
+        has_blocker = has_blocker & (
+            u_blocker <= max_trace_distance[:, None, None])
 
     if quality.scan_refine_samples <= 0:
         # Pure flatland: the scan's own 2D minimum.
         u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
         radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
         vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0, max=1.0)
+        if max_trace_distance is not None:
+            vis = torch.where(has_blocker, vis, 1.0)
         candidates = ()
     else:
         # Refine candidates along the blocker span (scan_shadows.py:
@@ -418,7 +453,7 @@ def resize_visibility(vis, target_hw):
     """Resize (L, h, w) visibility to (L, H, W): identity when the shapes
     match, the 2x bilinear upsample for an exact halving. The JAX package
     upsamples in bfloat16; the port keeps float32. Other ratios (the JAX
-    package's jax.image.resize fallback) are ROADMAP M9."""
+    package's jax.image.resize fallback) are ROADMAP M3."""
     th, tw = target_hw
     if tuple(vis.shape[1:]) == (th, tw):
         return vis
@@ -426,7 +461,7 @@ def resize_visibility(vis, target_hw):
         return upsample2x_bilinear(vis)
     raise NotImplementedError(
         f"visibility resize {tuple(vis.shape[1:])} -> {(th, tw)} "
-        "(ROADMAP M9)")
+        "(ROADMAP M3)")
 
 
 def downsample2x_linear(x, axis: int):
@@ -469,38 +504,75 @@ def upsample2x_bilinear(v):
 
 def scan_cone_visibility(scene, gbuffer, light_position, light_radius,
                          light_ramp_length, quality: QualitySettings,
-                         light_active=None):
+                         max_trace_distance=None, trace_z=None,
+                         self_occlusion_lift=SELF_OCCLUSION_LIFT,
+                         upsample: bool = True, light_active=None):
     """Shadow-scale-aware scan visibility over a G-buffer -> (L, H, W):
-    the sphere lights' normal-lifted shading endpoints, the scan at
-    quality.shadow_scale resolution, and the upsample back. The JAX
-    package's per-family lifts and trace budgets of the fused
-    multi-family scan are ROADMAP M9."""
+    the shared dispatch of every light family on the scan path. It lifts
+    the shading endpoints along the normal (with the 2.5D screen -> world
+    y offset), runs the scan at quality.shadow_scale resolution from the
+    G-buffer's window origin, and upsamples back.
+
+    `self_occlusion_lift`: the family's constant (1.6 for sphere lights,
+    SphereLightCore.fxh:151; 1.5 for directional and line lights,
+    LineLightCore.fxh:10), or an (L,) tensor of per-light lifts for a
+    fused multi-family call. `upsample=False` returns the scan-resolution
+    (L, sh, sw) visibility; fused callers slice it per family and resize
+    to each consumer's resolution."""
     h, w = gbuffer.shape
     ss = quality.shadow_scale
+    world_off = (gbuffer.pixel_origin / gbuffer.render_scale
+                 if gbuffer.pixel_origin is not None else None)
     if ss == 0.5 and h % 2 == 0 and w % 2 == 0:
         sh, sw = h // 2, w // 2
     elif ss != 1.0:
-        raise NotImplementedError(
-            f"shadow_scale {ss} on a {h}x{w} buffer (ROADMAP M8: only the "
-            "exact halving and full resolution are ported)")
+        sh, sw = max(int(h * ss), 8), max(int(w * ss), 8)
+        if sh * w == sw * h:
+            raise NotImplementedError(
+                f"shadow_scale {ss} on a {h}x{w} buffer (ROADMAP M3: of the "
+                "isotropic scales only the exact halving and full "
+                "resolution are ported)")
+        # Anisotropic rounding (odd dims, the min-8 clamp) would give the
+        # two axes different scales; the scan's ray geometry assumes
+        # square pixels, so the JAX package falls back to full resolution.
+        sh, sw = h, w
     else:
         sh, sw = h, w
-    lift = SELF_OCCLUSION_LIFT
-    lifted_z = gbuffer.z + lift * gbuffer.normal[..., 2]
-    # The lift's world xy (with the 2.5D screen -> world y offset): the
-    # exact refine's ray endpoint.
-    offset_xy = torch.stack(
-        [lift * gbuffer.normal[..., 0],
-         lift * gbuffer.normal[..., 1] + gbuffer.relative_y], dim=-1)
-    if (sh, sw) != (h, w):
-        pixel_z = downsample2x_linear(downsample2x_linear(lifted_z, 0), 1)
-        offset_xy = downsample2x_linear(downsample2x_linear(offset_xy, 0), 1)
+    halve = (sh, sw) != (h, w)
+
+    def resize(arr, axis):
+        """Exact 2x downsample of the two spatial axes from `axis`."""
+        if not halve:
+            return arr
+        return downsample2x_linear(downsample2x_linear(arr, axis), axis + 1)
+
+    # Lifting then resizing equals resizing then lifting (both linear). A
+    # scalar lift goes first (3 planes through the resize); an array lift
+    # resizes the 5 shared G-buffer planes once and lifts per light at scan
+    # resolution, instead of materializing 3L full-resolution planes.
+    if not torch.is_tensor(self_occlusion_lift) or \
+            self_occlusion_lift.dim() == 0:
+        lift = self_occlusion_lift
+        pixel_z = resize(gbuffer.z + lift * gbuffer.normal[..., 2], 0)
+        # The lift's world xy: the exact refine's ray endpoint.
+        offset_xy = resize(torch.stack(
+            [lift * gbuffer.normal[..., 0],
+             lift * gbuffer.normal[..., 1] + gbuffer.relative_y], dim=-1), 0)
     else:
-        pixel_z = lifted_z
+        z_s = resize(gbuffer.z, 0)
+        n_s = resize(gbuffer.normal, 0)
+        ry_s = resize(gbuffer.relative_y, 0)
+        li = self_occlusion_lift[:, None, None]
+        pixel_z = z_s[None] + li * n_s[None, ..., 2]
+        offset_xy = torch.stack([li * n_s[None, ..., 0],
+                                 li * n_s[None, ..., 1] + ry_s[None]], dim=-1)
     vis = scan_visibility(
         scene, sh, sw, light_position, light_radius, light_ramp_length,
-        quality,
+        quality, trace_z=trace_z,
         render_scale=gbuffer.render_scale * (sh / h if sh != h else 1.0),
         pixel_z=pixel_z, pixel_offset_xy=offset_xy,
+        max_trace_distance=max_trace_distance, world_offset=world_off,
         light_active=light_active)
+    if not upsample:
+        return vis
     return resize_visibility(vis, (h, w))

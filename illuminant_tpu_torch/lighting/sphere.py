@@ -1,15 +1,16 @@
 """Sphere-light per-pixel shading.
 
-Counterpart of illuminant_tpu/lighting/sphere.py:accumulate_sphere_lights
-with scan shadows and without specular or ambient occlusion, the flagship
-frame's flags (scenes.py:681-685), against any field the scan takes (an
-AnalyticScene, a ColumnField, an SdfVolume). All lights evaluate as
-one batched (L, H, W) computation (LightCommon.fxh:154-210 falloff and
-normal ramp, SphereLightCore.fxh:58-158 sequencing) and sum into the
-lightmap as sum_l color_l.rgb * color_l.a * opacity_l (SphereLight.fx:
-42-45). The JAX package sums that contraction from bfloat16 operands
-(sphere.py:367-368); the port sums in float32. Specular, AO, the march
-shadow mode, precomputed visibility and ramp textures are ROADMAP M4.
+Counterpart of illuminant_tpu/lighting/sphere.py: `accumulate_sphere_lights`
+with scan shadows, a caller's precomputed visibility or no shadows, with
+or without ambient occlusion, against any field the scan takes (an
+AnalyticScene, a ColumnField, an SdfVolume); and the normal-factor and AO
+helpers the other light families share. All lights evaluate as one
+batched (L, H, W) computation (LightCommon.fxh:154-210 falloff and normal
+ramp, AOCommon.fxh:1-20, SphereLightCore.fxh:58-158 sequencing) and sum
+into the lightmap as sum_l color_l.rgb * color_l.a * opacity_l
+(SphereLight.fx:42-45). The JAX package sums that contraction from
+bfloat16 operands (sphere.py:367-368); the port sums in float32.
+Specular, the march shadow mode and ramp textures are ROADMAP M4 / K12.
 """
 
 from __future__ import annotations
@@ -18,10 +19,14 @@ import torch
 
 from ..core.config import QualitySettings
 from ..core.pytree import named_scope
+from ..sdf.analytic import scene_sample, scene_sample_p
+from ..sdf.columns import ColumnField
+from ..sdf.volume import SdfVolume
 from .environment import EnvironmentUniforms, SphereLights
 from .gbuffer import GBuffer
 
-SHADOW_OPACITY_THRESHOLD = 0.75 / 255.0  # SphereLightCore.fxh:10-11
+SELF_OCCLUSION_HACK = 1.6  # SphereLightCore.fxh:10-11
+SHADOW_OPACITY_THRESHOLD = 0.75 / 255.0
 
 DOT_OFFSET = 0.15  # LightCommon.fxh:1-10
 DOT_RAMP_RANGE = 0.15
@@ -32,21 +37,85 @@ def _saturate(x):
     return torch.clamp(x, 0.0, 1.0)
 
 
+def compute_normal_factor(light_normal, shaded_normal, offset=DOT_OFFSET,
+                          range_=DOT_RAMP_RANGE):
+    """LightCommon.fxh:154-171; a zero shaded normal gives 1 (no
+    occlusion). `offset` / `range_`: floats or tensors of the result's
+    shape."""
+    d = torch.sum(-light_normal * shaded_normal, dim=-1)
+    factor = _saturate((d + offset) / range_) ** DOT_EXPONENT
+    no_normal = torch.all(shaded_normal == 0.0, dim=-1)
+    return torch.where(no_normal, 1.0, factor)
+
+
+def _ao_ramp(d, ao_radius, ao_opacity, visible):
+    """The squared AO ramp of a field sample `d` taken `ao_radius` above
+    the surface (AOCommon.fxh:1-20)."""
+    clamped = torch.minimum(torch.clamp(d, min=0.0), ao_radius)
+    r = 1.0 - _saturate(clamped / torch.clamp(ao_radius, min=1e-6))
+    r = 1.0 - r * r
+    result = (1.0 - ao_opacity) + r * ao_opacity
+    return torch.where((ao_radius >= 0.5) & visible, result, 1.0)
+
+
+def compute_ao(volume, shaded_position, shaded_normal, ao_radius,
+               ao_opacity, visible):
+    """AOCommon.fxh:1-20 on (..., 3) positions: one field sample above
+    the surface, squared ramp. ao_radius / ao_opacity / visible: tensors
+    that broadcast with the positions' leading shape."""
+    if volume is None:
+        return torch.ones(ao_radius.shape, dtype=torch.float32,
+                          device=ao_radius.device)
+    offset = torch.stack([torch.zeros_like(ao_radius),
+                          torch.zeros_like(ao_radius),
+                          shaded_normal[..., 2] * ao_radius], dim=-1)
+    d = scene_sample(volume, shaded_position + offset)
+    return _ao_ramp(d, ao_radius, ao_opacity, visible)
+
+
+def compute_ao_p(volume, px, py, pz, nz, ao_radius, ao_opacity, visible,
+                 pixel_grid=None):
+    """Planar compute_ao. `pixel_grid` ((xs, ys) world vectors): on a
+    voxel field the probe's xy anchors to the frame's pixel grid, so the
+    lookup is the resampled-stack z-lerp (sampling.grid_stack); exact
+    where relative_y is 0."""
+    if volume is None:
+        return torch.ones(torch.broadcast_shapes(px.shape, ao_radius.shape),
+                          dtype=torch.float32, device=ao_radius.device)
+    vol_field = volume.volume if isinstance(volume, ColumnField) else volume
+    if pixel_grid is not None and isinstance(vol_field, SdfVolume):
+        from ..sdf.sampling import grid_stack, sample_stack_z
+
+        xs, ys = pixel_grid
+        d = sample_stack_z(vol_field, grid_stack(vol_field, xs, ys), xs, ys,
+                           pz + nz * ao_radius)
+    else:
+        d = scene_sample_p(volume, px, py, pz + nz * ao_radius)
+    return _ao_ramp(d, ao_radius, ao_opacity, visible)
+
+
 @named_scope("illuminant/sphere_lights")
 def accumulate_sphere_lights(volume, gbuffer: GBuffer, lights: SphereLights,
                              env: EnvironmentUniforms,
                              quality: QualitySettings,
                              with_specular: bool = True,
                              shadow_mode: str = "march",
-                             with_ao: bool = True, with_alpha: bool = True):
-    """Shade all sphere lights against the G-buffer with scan shadows ->
-    (H, W, 3) HDR add, or (H, W, 4) with the accumulated opacity when
-    `with_alpha`. The arguments and their defaults are the JAX package's;
-    the values outside the flagship's raise NotImplementedError."""
-    if with_specular or with_ao:
+                             with_ao: bool = True, with_alpha: bool = True,
+                             scan_visibility_precomputed=None):
+    """Shade all sphere lights against the G-buffer -> (H, W, 3) HDR add,
+    or (H, W, 4) with the accumulated opacity when `with_alpha`.
+
+    `scan_visibility_precomputed` ((L, H, W)): a caller's cone visibility,
+    usually a slice of one fused radial scan shared by several light
+    families; it implies the scan path. `shadow_mode="none"` is the host's
+    static skip for a set in which no light casts shadows. The arguments
+    and their defaults are the JAX package's; specular and the march raise
+    NotImplementedError."""
+    if with_specular:
         raise NotImplementedError(
-            "sphere-light specular and AO are not ported yet (ROADMAP M4)")
-    if shadow_mode != "scan":
+            "sphere-light specular is not ported yet (ROADMAP M4)")
+    if scan_visibility_precomputed is None and \
+            shadow_mode not in ("scan", "none"):
         raise NotImplementedError(
             f"shadow_mode={shadow_mode!r} (ROADMAP M4/K12: the port has "
             "the scan path)")
@@ -107,17 +176,30 @@ def accumulate_sphere_lights(volume, gbuffer: GBuffer, lights: SphereLights,
     visible = (pre_trace > 0.0) & (wx > -9999.0)
     visible = visible & (gbuffer.fullbright[None] < 0.5)
 
+    if with_ao:
+        # AO only on upward-facing surfaces (SphereLightCore.fxh:77).
+        ao_radius = lplane(lights.more[:, 0]) * torch.clamp(nz, min=0.0)
+        pre_trace = pre_trace * compute_ao_p(
+            volume, wx, wy, wz, nz, ao_radius, lplane(lights.more[:, 3]),
+            visible, pixel_grid=(xs, ys))
+
     cast_shadows = lplane(lights.properties[:, 3]) \
         * gbuffer.enable_shadows[None]
     trace_enable = (visible & (cast_shadows > 0.0)
                     & (pre_trace >= SHADOW_OPACITY_THRESHOLD)
                     & (active > 0.0))
-    from .scan_shadows import scan_cone_visibility
+    if scan_visibility_precomputed is not None:
+        cone = torch.where(trace_enable,
+                           scan_visibility_precomputed.to(f32), 1.0)
+    elif shadow_mode == "none":
+        cone = 1.0
+    else:
+        from .scan_shadows import scan_cone_visibility
 
-    vis = scan_cone_visibility(
-        volume, gbuffer, lights.position, lights.properties[:, 0],
-        lights.properties[:, 1], quality, light_active=lights.active)
-    cone = torch.where(trace_enable, vis, 1.0)
+        vis = scan_cone_visibility(
+            volume, gbuffer, lights.position, lights.properties[:, 0],
+            lights.properties[:, 1], quality, light_active=lights.active)
+        cone = torch.where(trace_enable, vis, 1.0)
 
     opacity = pre_trace * cone
     opacity = torch.where(visible, opacity, 0.0) * active

@@ -1,5 +1,5 @@
 """Small geometry helpers (counterpart of illuminant_tpu/ops/coords.py,
-only what the particle path uses)."""
+only what the particle path and the particle lights use)."""
 
 from __future__ import annotations
 
@@ -16,3 +16,13 @@ def mul_point_rows(v4, matrix):
            + v4[:, 2:3] * matrix[2, :3]
            + matrix[3, :3])
     return torch.cat([out, v4[:, 3:4]], dim=-1)
+
+
+def stipple_keep(count_or_slots, factor, offset=0.0, device=None):
+    """StippleReject keep mask (RasterizeParticleSystem.fx:101-110): a
+    deterministic golden-ratio fraction of the slots. `count_or_slots`: a
+    count (slots 0..count-1 on `device`) or a tensor of slot indices."""
+    slots = (torch.arange(count_or_slots, dtype=torch.float32, device=device)
+             if isinstance(count_or_slots, int)
+             else count_or_slots.to(torch.float32))
+    return torch.remainder(slots * 0.6180339887 + offset, 1.0) < factor

@@ -19,6 +19,12 @@ On that field the frame runs
     collision against the moving occluders;
   * the additive particle splat, an HDR luminance histogram driving the
     next frame's exposure, and the Uncharted2 tonemap to uint8.
+With `full_family` (True, or a set of family names) the frame also shades
+the full "Lumined scene" light set (scenes.py:259-372, 593-799): a
+directional sun and a line light whose shadows ride the sphere lights'
+scan as extra lanes, a shadowed volumetric light and a projector
+evaluated on windows, and particle lights from the incoming particle
+state.
 
 JAX's jit, buffer donation and fori_loop have no counterpart here: `frame`
 runs the stages eagerly, and `frame_loop` is a Python loop over `frame`.
@@ -41,9 +47,28 @@ import torch
 
 from .core.config import QualitySettings, RendererConfig
 from .lighting import gbuffer as gbuf
+from .lighting.directional import (DirectionalLightSource,
+                                   accumulate_directional_lights,
+                                   directional_scan_args,
+                                   pack_directional_lights)
 from .lighting.environment import (LightObstruction, LightingEnvironment,
                                    SphereLightSource, pack_sphere_lights)
+from .lighting.line import (LineLightSource, accumulate_line_lights,
+                            line_scan_anchors, pack_line_lights)
+from .lighting.particle_light import (ParticleLightSource,
+                                      accumulate_particle_lights)
+from .lighting.projector import (ProjectorLightSource,
+                                 accumulate_projector_lights,
+                                 pack_projector_lights)
+from .lighting.projector import support_radius_px as projector_support_px
+from .lighting.scan_shadows import (resize_visibility, scan_cone_visibility,
+                                    upsample2x_bilinear)
 from .lighting.sphere import accumulate_sphere_lights
+from .lighting.volumetric import (SHAPE_ELLIPSOID, VolumetricLightSource,
+                                  accumulate_volumetric_lights,
+                                  pack_volumetric_lights)
+from .lighting.volumetric import support_radius_px as volumetric_support_px
+from .lighting.windowed import accumulate_windowed, window_for_support
 from .ops import tonemap as tm
 from .ops.bezier import (DynamicMatrix, constant_bezier, evaluate_bezier,
                          evaluate_bezier_matrix, pack_bezier,
@@ -60,6 +85,7 @@ from .sdf.columns import build_column_maps
 from .utils.histogram import bucket_boundaries, compute_histogram, percentile
 
 DT = 1.0 / 60.0  # one timestep for physics and animation
+FAMILIES = ("directional", "line", "volumetric", "projector", "particle")
 
 
 @dataclasses.dataclass
@@ -83,6 +109,10 @@ class FlagshipScene:
     frame_loop: object
     spawner: Spawner
     device: torch.device
+    # The extra families' packed lights and host-side constants, by name
+    # (None without `full_family`): "directional", "line", "volumetric",
+    # "projector" hold the SoAs, "particle_light" the source.
+    extra_lights: Optional[dict] = None
 
 
 def _unported(what: str, item: str):
@@ -101,17 +131,21 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
                    field: str = "analytic",
                    device="cuda") -> FlagshipScene:
     """The flagship frame on `device` (the card unless the caller asks for
-    another); the arguments mean what they mean in the JAX package.
-    Values outside the ported slice raise NotImplementedError naming their
-    ROADMAP item."""
+    another); the arguments mean what they mean in the JAX package:
+    `full_family` is False, True (every extra light family) or an iterable
+    of names from FAMILIES. Values outside the ported slice raise
+    NotImplementedError naming their ROADMAP item."""
     if preset not in ("fast", "parity"):
         raise ValueError(f"unknown preset {preset!r}")
     if field not in ("analytic", "voxel"):
         raise ValueError(f"unknown field {field!r}")
     if raster_preset not in (None, "fast", "parity"):
         raise ValueError(f"unknown raster_preset {raster_preset!r}")
-    if full_family:
-        raise _unported("the extra light families", "M9")
+    if not isinstance(full_family, bool):
+        bad = set(full_family) - set(FAMILIES)
+        if bad:
+            raise ValueError(f"unknown light families {sorted(bad)}; "
+                             f"valid: {sorted(FAMILIES)}")
     if mesh is not None:
         raise _unported("the multi-device frame", "M15")
     if spawn_sub_rings != 1:
@@ -187,6 +221,10 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
     sphere_lights = pack_sphere_lights(
         [l for l in env.lights if isinstance(l, SphereLightSource)],
         capacity=max(n_lights, 1), device=device)
+    fam_set = (set(FAMILIES) if full_family is True
+               else set(full_family) if full_family else set())
+    extra = (_author_extra_lights(fam_set, cx, cy, ring, device)
+             if fam_set else None)
 
     p_config = ParticleSystemConfig(
         capacity=capacity, updates_per_second=0.0,
@@ -250,12 +288,92 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
         su=system.system_uniforms(DT), rd=system.render_data,
         grav_u=grav.uniforms(0.0, device=device),
         spawn_u=spawner.uniforms(0.0, device=device), spawner=spawner,
-        raster_config=raster_config)
+        raster_config=raster_config, extra=extra)
     return FlagshipScene(
         config=config, environment=env, sdf_config=sdf_config,
         volume=volume, gbuffer=gbuffer, sphere_lights=sphere_lights,
         system=system, raster_config=raster_config, frame=frame.frame,
-        frame_loop=frame.frame_loop, spawner=spawner, device=device)
+        frame_loop=frame.frame_loop, spawner=spawner, device=device,
+        extra_lights=extra)
+
+
+def _author_extra_lights(fam_set, cx, cy, ring, device):
+    """The full "Lumined scene" light set (scenes.py:282-372), packed: a
+    directional sun, a line light, a shadowed volumetric ellipsoid, a
+    projector with a procedural window-pane texture, and particle lights.
+    Beside each SoA sit the host-side constants the frame reads: the AO
+    gates (AO costs a field evaluation per light unless skipped
+    statically), and the windowed lights' centers (world xy, numpy) and
+    support radii (world units)."""
+    extra = {}
+    if "directional" in fam_set:
+        sun = DirectionalLightSource(
+            direction=(0.35, 0.55, -0.76), color=(0.35, 0.33, 0.28, 1.0),
+            shadow_trace_length=256.0, shadow_softness=12.0,
+            shadow_ramp_rate=0.5)
+        extra["directional"] = pack_directional_lights([sun], device=device)
+        extra["directional_ao"] = sun.ambient_occlusion_radius > 0.0
+    if "line" in fam_set:
+        line = LineLightSource(
+            start=(cx - ring * 0.9, cy - ring * 0.75, 44.0),
+            end=(cx + ring * 0.9, cy - ring * 0.75, 44.0), radius=6.0,
+            color_start=(0.9, 0.2, 0.2, 0.9), color_end=(0.2, 0.3, 0.9, 0.9))
+        extra["line"] = pack_line_lights([line], device=device)
+        extra["line_ao"] = line.ambient_occlusion_radius > 0.0
+    if "volumetric" in fam_set:
+        # For an ellipsoid end_position is the radius vector
+        # (LightSource.cs:381-383). The 24-unit ramp keeps the silhouette
+        # soft enough for the half-resolution evaluation.
+        volum = VolumetricLightSource(
+            shape=SHAPE_ELLIPSOID,
+            start_position=(cx - ring * 0.6, cy + ring * 0.55, 30.0),
+            end_position=(110.0, 80.0, 26.0), volumetricity=0.75,
+            distance_attenuation=0.8, ramp_length=24.0,
+            color=(0.5, 0.8, 0.6, 0.8), cast_shadows=True)
+        packed = pack_volumetric_lights([volum], device=device)
+        extra["volumetric"] = packed
+        extra["volumetric_centers"] = packed.start[:, :2].cpu().numpy()
+        extra["volumetric_support"] = float(
+            volumetric_support_px(packed).max())
+    if "projector" in fam_set:
+        ty, txx = np.meshgrid(np.linspace(0, 1, 64), np.linspace(0, 1, 64),
+                              indexing="ij")
+        pane = (np.sin(txx * np.pi * 4) * np.sin(ty * np.pi * 4)) ** 2
+        ptex = np.stack([pane * 0.9, pane * 0.8, pane * 0.5,
+                         np.ones_like(pane)], axis=-1).astype(np.float32)
+        proj = ProjectorLightSource(
+            texture=ptex, position=(cx + ring * 0.35, cy + ring * 0.4, 0.0),
+            scale=(260.0, 200.0), opacity=0.8)
+        extra["projector"] = pack_projector_lights([proj], device=device)
+        # The projected quad's center, for the windowed evaluation.
+        extra["projector_centers"] = np.asarray(
+            [[proj.position[0] + proj.scale[0] * 0.5,
+              proj.position[1] + proj.scale[1] * 0.5]], np.float32)
+        extra["projector_support"] = float(np.max(
+            projector_support_px([proj])))
+    if "particle" in fam_set:
+        # A shadowless template, the common reference usage: 32 extra
+        # shadow traces would dominate the frame.
+        extra["particle_light"] = ParticleLightSource(
+            template=SphereLightSource(
+                position=(0.0, 0.0, 0.0), radius=3.0, ramp_length=90.0,
+                color=(1.0, 1.0, 1.0, 0.035), cast_shadows=False),
+            max_lights=32)
+    return extra
+
+
+def _take_light(lights, i: int):
+    """Light i of a packed SoA as a one-light SoA (tuples of per-level
+    tensors, the projector's mips, are sliced level by level)."""
+    def cut(v):
+        if torch.is_tensor(v):
+            return v[i:i + 1]
+        if isinstance(v, tuple):
+            return tuple(cut(e) for e in v)
+        return v
+
+    return lights.replace(**{f.name: cut(getattr(lights, f.name))
+                             for f in dataclasses.fields(lights)})
 
 
 def _load_static_voxels(env, sdf_config, width, height,
@@ -337,7 +455,8 @@ class _FlagshipFrame:
     """The frame's constants and its stages, one method each."""
 
     def __init__(self, *, device, cx, cy, ring, config, animate_field,
-                 substeps, su, rd, grav_u, spawn_u, spawner, raster_config):
+                 substeps, su, rd, grav_u, spawn_u, spawner, raster_config,
+                 extra=None):
         f32 = torch.float32
         self.device = device
         self.quality = config.quality
@@ -349,6 +468,7 @@ class _FlagshipFrame:
         self.spawn_u = spawn_u
         self.spawner = spawner
         self.raster_config = raster_config
+        self.extra = extra
         self.light_radius_bezier = pack_bezier(
             [[10.0], [16.0], [11.0], [10.0]], min_value=0.0, max_value=2.0,
             device=device)
@@ -379,13 +499,150 @@ class _FlagshipFrame:
         props[:, 0] = radius_t
         return lights.replace(position=self.center + rot, properties=props)
 
-    def lighting(self, field, gbuffer, lights, env_u):
+    def fused_scan(self, field, gbuffer, lights, env_u):
+        """One radial scan for every family that casts scan shadows: the
+        directional sun's far pseudo-center and the line light's three
+        anchors ride the sphere lights' walk as extra lanes of the L axis
+        (the sequential column walk costs per pass, not per light). Lifts
+        per family: 1.6 for spheres (SphereLightCore.fxh:151), 1.5 for
+        directional and line lights (DirectionalLight.fx:13,
+        LineLightCore.fxh:10). The trace plane is pinned to the radial
+        lights' height: the sun's pseudo-center sits thousands of units
+        out, and over-nomination is safe for it (its 3D refine rejects
+        blockers the climbing ray clears).
+
+        Returns (sphere, directional, line) visibilities, the first at the
+        G-buffer's resolution, the others at the scan's; None for a
+        family that is absent, all None when neither extra family
+        scans."""
+        extra = self.extra or {}
+        fuse_dir, fuse_line = "directional" in extra, "line" in extra
+        if not (fuse_dir or fuse_line):
+            return None, None, None
+        f32 = torch.float32
+        dev = self.device
+
+        def full(n, v):
+            return torch.full((n,), v, dtype=f32, device=dev)
+
+        # Lanes: (centers, radii, ramps, lifts, trace budgets). Spheres
+        # trace to the light: a cap beyond any screen diagonal is a no-op
+        # in the readout.
+        ns = lights.position.shape[0]
+        lanes = [(lights.position, lights.properties[:, 0],
+                  lights.properties[:, 1], full(ns, 1.6), full(ns, 1e8))]
+        nd = 0
+        if fuse_dir:
+            dcen, drad, dramp, dtrace, _ = directional_scan_args(
+                gbuffer, extra["directional"], env_u)
+            nd = dcen.shape[0]
+            lanes.append((dcen, drad, dramp, full(nd, 1.5), dtrace))
+        if fuse_line:
+            anchors, rad3, ramp3 = line_scan_anchors(extra["line"])
+            n3 = rad3.shape[0]
+            lanes.append((anchors, rad3, ramp3, full(n3, 1.5),
+                          full(n3, 1e8)))
+        pos, rad, ramp, lift, mtd = (torch.cat(c, 0) for c in zip(*lanes))
+        vis_all = scan_cone_visibility(
+            field, gbuffer, pos, rad, ramp, self.quality,
+            self_occlusion_lift=lift, max_trace_distance=mtd,
+            # The active-masked trace plane (pad slots sit at z = 0).
+            trace_z=torch.sum(lights.position[:, 2] * lights.active)
+            / torch.clamp(torch.sum(lights.active), min=1.0) * 0.4,
+            upsample=False)
+        return (resize_visibility(vis_all[:ns], gbuffer.shape),
+                vis_all[ns:ns + nd] if fuse_dir else None,
+                vis_all[ns + nd:] if fuse_line else None)
+
+    def extra_families(self, field, gbuffer, env_u, state, dir_vis,
+                       line_vis):
+        """The directional, line, volumetric and particle lights' sum
+        (H, W, 3) at the G-buffer's resolution. They evaluate at
+        `quality.extra_family_scale` (0.5: a half-resolution flat-ground
+        buffer, their sum upsampled 2x bilinear, in float32 where the JAX
+        frame rounds to bfloat16; otherwise on the G-buffer itself). The
+        volumetric light runs on a window derived from its support
+        radius, with its own windowed scan."""
+        extra, quality = self.extra, self.quality
+        rf = torch.profiler.record_function
+        h, w = gbuffer.shape
+        half = quality.extra_family_scale == 0.5 and h % 2 == 0 \
+            and w % 2 == 0
+        gb_ex = gbuf.flat_ground(
+            h // 2, w // 2, env_u, render_scale=0.5 * gbuffer.render_scale) \
+            if half else gbuffer
+        ex = torch.zeros(gb_ex.shape + (3,), dtype=torch.float32,
+                         device=self.device)
+        if "directional" in extra:
+            with rf("illuminant/lighting/directional"):
+                ex = ex + accumulate_directional_lights(
+                    field, gb_ex, extra["directional"], env_u, quality,
+                    shadow_mode="scan",
+                    scan_visibility_precomputed=resize_visibility(
+                        dir_vis, gb_ex.shape),
+                    with_ao=extra["directional_ao"])[..., :3]
+        if "line" in extra:
+            with rf("illuminant/lighting/line"):
+                ex = ex + accumulate_line_lights(
+                    field, gb_ex, extra["line"], env_u, quality,
+                    shadow_mode="scan",
+                    scan_visibility_precomputed=resize_visibility(
+                        line_vis, gb_ex.shape),
+                    with_ao=extra["line_ao"])[..., :3]
+        if "volumetric" in extra:
+            vl = extra["volumetric"]
+            rs = np.float32(gb_ex.render_scale)
+            with rf("illuminant/lighting/volumetric"):
+                ex = accumulate_windowed(
+                    ex, gb_ex, extra["volumetric_centers"] * rs,
+                    window_for_support(extra["volumetric_support"]
+                                       * gb_ex.render_scale, *gb_ex.shape),
+                    lambda i, gbw: accumulate_volumetric_lights(
+                        field, gbw, _take_light(vl, i), env_u, quality,
+                        shadowed=True, shadow_detail="scan"))
+        if "particle_light" in extra:
+            with rf("illuminant/lighting/particle_lights"):
+                ex = ex + accumulate_particle_lights(
+                    field, gb_ex, state, extra["particle_light"], env_u,
+                    quality, shadow_mode="scan")[..., :3]
+        if half:
+            ex = upsample2x_bilinear(ex.movedim(-1, 0)).movedim(0, -1)
+        return ex
+
+    def lighting(self, field, gbuffer, lights, env_u, state):
+        """The lightmap (H, W, 3): ambient, the sphere lights, and with
+        `full_family` the extra families. `state` is the incoming particle
+        state, before this frame's spawn: the particle lights read the
+        previous frame's particles (the reference's usePreviousData,
+        LightingRenderer.cs:1138-43)."""
+        rf = torch.profiler.record_function
         h, w = gbuffer.shape
         ambient = env_u.ambient[:3].expand(h, w, 3)
-        return ambient + accumulate_sphere_lights(
+        with rf("illuminant/lighting/fused_scan"):
+            sphere_vis, dir_vis, line_vis = self.fused_scan(
+                field, gbuffer, lights, env_u)
+        lightmap = ambient + accumulate_sphere_lights(
             field, gbuffer, lights, env_u, self.quality,
-            with_specular=False, shadow_mode="scan",
-            with_ao=False, with_alpha=False)
+            with_specular=False, shadow_mode="scan", with_ao=False,
+            with_alpha=False, scan_visibility_precomputed=sphere_vis)
+        if not self.extra:
+            return lightmap
+        lightmap = lightmap + self.extra_families(
+            field, gbuffer, env_u, state, dir_vis, line_vis)
+        if "projector" in self.extra:
+            # At full resolution on the lightmap (projected texture
+            # detail), on a window around the projected quad.
+            pj = self.extra["projector"]
+            rs = np.float32(gbuffer.render_scale)
+            with rf("illuminant/lighting/projector"):
+                lightmap = accumulate_windowed(
+                    lightmap, gbuffer, self.extra["projector_centers"] * rs,
+                    window_for_support(self.extra["projector_support"]
+                                       * gbuffer.render_scale, h, w),
+                    lambda i, gbw: accumulate_projector_lights(
+                        field, gbw, _take_light(pj, i), env_u,
+                        self.quality))
+        return lightmap
 
     def particles(self, state, field, t, spawn_count, generator,
                   spawn_uniforms):
@@ -446,7 +703,7 @@ class _FlagshipFrame:
         with rf("illuminant/frame/animate_lights"):
             lights_t = self.animate_lights(lights, i, t)
         with rf("illuminant/frame/lighting"):
-            lightmap = self.lighting(field, gbuffer, lights_t, env_u)
+            lightmap = self.lighting(field, gbuffer, lights_t, env_u, state)
         with rf("illuminant/frame/particles"):
             state = self.particles(state, field, t, spawn_count, generator,
                                    spawn_uniforms)

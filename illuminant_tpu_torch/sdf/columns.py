@@ -147,8 +147,9 @@ def resample_map_to_grid(field: ColumnField, map2d, nh: int, nw: int,
                          nscale):
     """Bilinear-resample a column map onto an (nh, nw) pixel-center grid
     (centers at (i + 0.5) / nscale world units), with
-    `sampling.grid_stack`'s texel conventions. The JAX package's windowed
-    `world_offset` comes with the windowed light families (ROADMAP M9)."""
+    `sampling.grid_stack`'s texel conventions. The JAX package's
+    `world_offset` is left out: a windowed scan keeps the exact refine and
+    never resamples the maps (lighting/scan_shadows.py)."""
     c = field.config
     H, W = map2d.shape
     dev = map2d.device

@@ -38,11 +38,13 @@ def test_quality_rejects_unknown_refine_mode():
         QualitySettings(scan_refine_mode="carry")
 
 
-# Both fields and both presets are ported. A raster preset other than the
-# frame's own and a collision substep count outside 1-3 are not.
+# Both fields, both presets and the extra light families are ported. A
+# raster preset other than the frame's own, a collision substep count
+# outside 1-3 and the march are not, also with the families on.
 @pytest.mark.parametrize("kwargs", [
     dict(raster_preset="parity"),
-    dict(preset="parity", raster_preset="fast"), dict(full_family=True),
+    dict(preset="parity", raster_preset="fast"),
+    dict(full_family=True, shadow_mode="march"),
     dict(mesh=object()), dict(shadow_mode="march"),
     dict(collision_substeps=0), dict(spawn_sub_rings=2),
     dict(collision_substeps=4),
@@ -55,12 +57,62 @@ def test_unported_arguments_raise(kwargs):
         build_flagship(**kw)
 
 
-def _entry_points():
+@pytest.mark.parametrize("families", [{"nope"}, ("line", "sun"), "line"])
+def test_unknown_light_family_raises(families):
+    """Family names outside FAMILIES raise ValueError before anything is
+    built, as in the JAX package (a bare string is a set of letters)."""
+    with pytest.raises(ValueError, match="unknown light families"):
+        build_flagship(height=32, width=48, capacity=64, spawn_max=16,
+                       n_lights=2, full_family=families)
+
+
+def test_tiled_particle_lights_are_unported():
+    """`ParticleLightSource(method="tiled")` names its ROADMAP item
+    instead of falling back to the strided subset."""
+    import torch
+
     from illuminant_tpu_torch.lighting import environment as env
+    from illuminant_tpu_torch.lighting.gbuffer import flat_ground
+    from illuminant_tpu_torch.lighting.particle_light import (
+        ParticleLightSource, accumulate_particle_lights)
+    from illuminant_tpu_torch.particles.state import ParticleState
+
+    env_u = env.EnvironmentUniforms.make(device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+        accumulate_particle_lights(
+            None, flat_ground(8, 8, env_u),
+            ParticleState.empty(16, device=torch.device("cpu")),
+            ParticleLightSource(method="tiled"), env_u, QualitySettings())
+
+
+def test_flagship_holds_the_packed_extra_lights():
+    """`FlagshipScene.extra_lights`: None without the families, else the
+    packed SoAs by name, only those asked for."""
+    kw = dict(height=32, width=48, capacity=64, spawn_max=16, n_lights=2,
+              device="cpu")
+    assert build_flagship(**kw).extra_lights is None
+    extra = build_flagship(full_family=True, **kw).extra_lights
+    assert {"directional", "line", "volumetric", "projector",
+            "particle_light"} <= set(extra)
+    assert extra["projector"].texture.shape == (1, 64, 64, 4)
+    assert len(extra["projector"].mips) == 5
+    assert extra["directional_ao"] is False and extra["line_ao"] is False
+    only = build_flagship(full_family=("line",), **kw).extra_lights
+    assert set(only) == {"line", "line_ao"}
+
+
+def _entry_points():
+    from illuminant_tpu_torch.lighting import directional, line
+    from illuminant_tpu_torch.lighting import environment as env
+    from illuminant_tpu_torch.lighting import projector, volumetric
     from illuminant_tpu_torch.particles.system import ParticleSystem
     from illuminant_tpu_torch.sdf.analytic import pack_scene
 
     return {
+        "pack_directional_lights": directional.pack_directional_lights,
+        "pack_line_lights": line.pack_line_lights,
+        "pack_volumetric_lights": volumetric.pack_volumetric_lights,
+        "pack_projector_lights": projector.pack_projector_lights,
         "build_flagship": build_flagship,
         "ParticleSystem": ParticleSystem.__init__,
         "pack_scene": pack_scene,
