@@ -33,17 +33,38 @@ voxel frame at both presets (the fused query 2 and 5 launches a frame),
 presets and on the voxel field (the fused query 4 launches a frame: the
 two of the collision, the volumetric window's exact refine and the
 projector's AO sample) to the port's plain CPU path on a small input.
+
+Two more full-width frames go through the library's public renderer,
+`LightingRenderer` (`update_fields`, `render_lighting`, `resolve`), 2
+warm-up and 8 timed frames each, every frame moving a light or an
+obstruction on the host first:
+  * `slice_renderer` (renderer-25d): a 2.5D G-buffer of three height
+    volumes and a billboard, 8 shadow-casting ring lights (specular, AO,
+    a ramp texture) and 8 replicated shadowless ones under scan shadows, a
+    subtractive sphere light and a max directional light (three light
+    passes), the tonemapped, sRGB, dithered resolve. Gates: a volume's top
+    is lit differently from the ground, the pixel behind a volume is
+    darker than its mirror pixel, the subtractive light lowers its region,
+    no pixel lies under the max light's floor;
+  * `slice_renderer_march` (renderer-voxel-march): a (16, 270, 480) voxel
+    field of 6 static and 2 moving dynamic obstructions under
+    `update_fields(budget=2)`, 8 lights through the exact cone march.
+    Gates: the budgeted field lags the full one while the boxes move and
+    equals `generate_volume` of the whole set bit for bit once they stop.
+Neither launches a column kernel (the renderer holds no ColumnField).
+`reference_renderer` holds both at 96x160 on the card to the CPU path.
 Every phase prints one line; the last
 three lines are the kernels' record as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
 before those lines are printed. With no CUDA card the script exits 2.
 
-`--warmup N` runs N untimed frames before the timed ones of every slice
-(default 4). The particle ring fills after capacity / spawn_max = 256
-frames, so `--warmup 260` times each frame at its steady population of
-about 1M live particles; the default times it at 16k-82k.
+`--warmup N` runs N untimed frames before the 4 timed ones of every
+flagship slice (default 4). The particle ring fills after capacity /
+spawn_max = 256 frames, so `--warmup 260` times each frame at its steady
+population of about 1M live particles; the default times it at 20k-33k.
 
-`--profile DIR` additionally traces two frames of each slice with
+`--profile DIR` additionally traces two frames of each slice and of each
+renderer frame with
 torch.profiler once every slice is timed (on a scene built anew and run
 through the same warm-up and timed frames, so no other slice's memory is
 held), writes the per-kernel and per-stage tables under DIR/<slice>/, and
@@ -83,7 +104,9 @@ SLICES = {
 # tests/test_torch_analytic_flagship.py, for the reference checks.
 SMALL = dict(height=96, width=160, n_lights=4, capacity=1 << 10,
              spawn_max=128, sdf_resolution_scale=0.5)
-TIMED_FRAMES = 8
+# Timed frames of each flagship slice (the renderer frames keep 8): four
+# keep the whole run, which has grown by two renderer frames, near 90 s.
+TIMED_FRAMES = 4
 # The H100 SXM's published peaks: device memory and
 # float32 outside the tensor cores. A kernel's bound is the larger of its
 # bytes (each input read once, each output written once) and its
@@ -577,6 +600,420 @@ def phase_families():
                              "change the frame")
 
 
+# --- the LightingRenderer frames ------------------------------------------
+
+RENDERER_TIMED_FRAMES = 8
+RENDERER_WARMUP_FRAMES = 2
+RENDERER_SMALL = dict(height=96, width=160)
+_RING_COLOURS = [
+    (1.0, 0.5, 0.3, 1.0), (0.3, 1.0, 0.5, 1.0), (0.4, 0.5, 1.0, 1.0),
+    (1.0, 0.9, 0.4, 1.0), (0.9, 0.3, 0.9, 1.0), (0.3, 0.9, 0.9, 1.0),
+    (1.0, 0.7, 0.7, 1.0), (0.7, 1.0, 0.7, 1.0)]
+
+
+def port_api():
+    """The port's classes that the renderer scenes are built from, by the
+    names both packages give them. A test passes the JAX package's
+    classes instead and gets the same scene there."""
+    from types import SimpleNamespace
+
+    from illuminant_tpu_torch.core.config import HDRConfig, RendererConfig
+    from illuminant_tpu_torch.lighting import environment as env
+    from illuminant_tpu_torch.lighting.billboard import Billboard
+    from illuminant_tpu_torch.lighting.directional import (
+        DirectionalLightSource)
+    from illuminant_tpu_torch.lighting.renderer import LightingRenderer
+    from illuminant_tpu_torch.ops import sdf_primitives
+    from illuminant_tpu_torch.sdf.height_volume import HeightVolume
+    from illuminant_tpu_torch.sdf.volume import SdfVolumeConfig
+
+    return SimpleNamespace(
+        HDRConfig=HDRConfig, RendererConfig=RendererConfig,
+        LightingEnvironment=env.LightingEnvironment,
+        LightObstruction=env.LightObstruction,
+        SphereLightSource=env.SphereLightSource,
+        ReplicatedLight=env.ReplicatedLight,
+        LightSourceReplicator=env.LightSourceReplicator,
+        DirectionalLightSource=DirectionalLightSource, Billboard=Billboard,
+        HeightVolume=HeightVolume, SdfVolumeConfig=SdfVolumeConfig,
+        LightingRenderer=LightingRenderer, TYPE_BOX=sdf_primitives.TYPE_BOX)
+
+
+def _ring(api, width, height, n_lights, z, radius, **kw):
+    cx, cy, ring = width * 0.5, height * 0.5, height * 0.37
+    return [api.SphereLightSource(
+        position=(cx + ring * math.cos(2 * math.pi * i / n_lights),
+                  cy + ring * math.sin(2 * math.pi * i / n_lights), z),
+        radius=radius, ramp_length=0.5 * height,
+        color=_RING_COLOURS[i % len(_RING_COLOURS)], **kw)
+        for i in range(n_lights)]
+
+
+def ramp_texture():
+    """A (4, 16, 3) ramp: brighter with the opacity along u, a hue that
+    turns with the angle along v."""
+    u = np.linspace(0.0, 1.0, 16, dtype=np.float32)[None, :, None]
+    v = np.linspace(0.0, 1.0, 4, dtype=np.float32)[:, None, None]
+    hue = np.asarray([1.0, 0.6, 0.3], np.float32) * (1.0 - v) \
+        + np.asarray([0.4, 0.7, 1.0], np.float32) * v
+    return (u ** 1.5 * hue).astype(np.float32)
+
+
+def renderer_25d_scene(api, width, height, n_lights=8, n_replicas=8,
+                       z_unit=None, **renderer_kw):
+    """The `renderer-25d` frame (demo.py's config3_multilight_25d, BASELINE
+    config 3, with every option of the light pass on): positions in
+    fractions of the frame, heights in `z_unit` (1 at 1080 rows, smaller
+    on a small frame so that the volumes stay inside it). -> (renderer,
+    hdr, move) where move(i) puts the moving light and obstruction where
+    frame i has them. See PERF.md section 4 for the layout."""
+    w, h = float(width), float(height)
+    zu = min(1.0, h / 270.0) if z_unit is None else z_unit
+    env = api.LightingEnvironment(
+        ground_z=0.0, maximum_z=96.0, z_to_y_multiplier=1.0,
+        ambient=(0.02, 0.02, 0.03, 1.0))
+    ring = _ring(api, w, h, n_lights, 40.0 * zu, 9.0 * zu)
+    ring[0].specular_color, ring[0].specular_power = (0.6, 0.6, 0.5), 12.0
+    ring[3 % n_lights].specular_color = (0.3, 0.4, 0.6)
+    ring[3 % n_lights].specular_power = 4.0
+    ring[1].ambient_occlusion_radius = 12.0 * zu
+    ring[2].ramp_texture = ramp_texture()
+    ring[2].ramp_offset, ring[2].ramp_rate = 0.25, 0.5
+    env.lights += ring
+    rep = api.LightSourceReplicator(template=api.SphereLightSource(
+        radius=3.0 * zu, ramp_length=0.08 * h, color=(1.0, 0.8, 0.5, 0.6),
+        cast_shadows=False))
+    for i in range(n_replicas):
+        rep.add(api.ReplicatedLight(
+            position=(w * (0.08 + 0.84 * (i + 0.5) / n_replicas), 0.93 * h,
+                      10.0 * zu),
+            radius=4.0 * zu if i % 3 == 0 else None,
+            color=(0.5, 0.8, 1.0, 0.7) if i % 4 == 1 else None,
+            opacity=0.5 if i % 2 else None))
+    env.lights.append(rep)
+    env.lights.append(api.SphereLightSource(
+        position=(0.55 * w, 0.8 * h, 30.0 * zu), radius=6.0 * zu,
+        ramp_length=0.15 * h, color=(0.8, 0.9, 1.0, 0.6), cast_shadows=False,
+        blend_mode="subtractive"))
+    env.lights.append(api.DirectionalLightSource(
+        direction=(-0.5, -0.4, -0.75), color=(0.10, 0.13, 0.2, 0.6),
+        cast_shadows=False, blend_mode="max"))
+
+    def quad(cx, cy, hx, hy):
+        return [(cx - hx, cy - hy), (cx + hx, cy - hy), (cx + hx, cy + hy),
+                (cx - hx, cy + hy)]
+
+    hx, hy = 0.8 * w, 0.3 * h  # the hexagon's centre; concave on its right
+    env.height_volumes += [
+        api.HeightVolume(polygon=quad(0.5 * w, 0.5 * h, 0.1 * h, 0.1 * h),
+                         z_base=0.0, height=40.0 * zu),
+        api.HeightVolume(polygon=quad(0.2 * w, 0.72 * h, 0.05 * h, 0.07 * h),
+                         z_base=0.0, height=22.0 * zu),
+        api.HeightVolume(polygon=[
+            (hx - 0.07 * h, hy - 0.04 * h), (hx + 0.02 * h, hy - 0.08 * h),
+            (hx + 0.09 * h, hy - 0.02 * h), (hx + 0.03 * h, hy + 0.01 * h),
+            (hx + 0.07 * h, hy + 0.08 * h), (hx - 0.06 * h, hy + 0.06 * h)],
+            z_base=0.0, height=30.0 * zu)]
+    a = math.radians(15.0)
+    moving = api.LightObstruction.box((0.4 * w, 0.85 * h, 10.0 * zu),
+                                      (0.03 * h, 0.02 * h, 10.0 * zu))
+    env.obstructions += [
+        api.LightObstruction.cylinder((0.35 * w, 0.2 * h, 24.0 * zu),
+                                      (0.03 * h, 0.03 * h, 24.0 * zu)),
+        api.LightObstruction.ellipsoid((0.12 * w, 0.3 * h, 18.0 * zu),
+                                       (0.05 * h, 0.03 * h, 18.0 * zu)),
+        api.LightObstruction(api.TYPE_BOX, (0.6 * w, 0.15 * h, 20.0 * zu),
+                             (0.04 * h, 0.025 * h, 20.0 * zu),
+                             rotation=(0.0, 0.0, math.sin(a), math.cos(a))),
+        moving]
+    # A round silhouette standing at the right edge, bent like a cylinder.
+    yy, xx = np.mgrid[0:16, 0:16]
+    disc = np.zeros((16, 16, 4), np.float32)
+    disc[..., 3] = ((xx - 7.5) ** 2 + (yy - 7.5) ** 2 <= 56.0)
+    env.billboards.append(api.Billboard(
+        screen_bounds=(0.9 * w - 0.04 * h, 0.12 * h, 0.9 * w + 0.04 * h,
+                       0.28 * h), texture=disc, cylinder_factor=0.5))
+
+    renderer = api.LightingRenderer(
+        api.RendererConfig(width=width, height=height,
+                           two_point_five_d=True), env, None, **renderer_kw)
+    hdr = api.HDRConfig(mode=2, exposure=1.3, white_point=4.0,
+                        srgb_output=True, dithering=True)
+    base = ring[5 % n_lights].position
+
+    def move(i):
+        ph = 0.7 * i
+        ring[5 % n_lights].position = (
+            base[0] + 0.03 * h * math.sin(ph),
+            base[1] + 0.03 * h * math.cos(ph), base[2])
+        moving.center = ((0.4 + 0.05 * math.sin(0.5 * i)) * w, 0.85 * h,
+                         10.0 * zu)
+
+    return renderer, hdr, move
+
+
+def renderer_march_scene(api, width, height, n_lights=8,
+                         resolution_scale=0.25, **renderer_kw):
+    """The `renderer-voxel-march` frame (demo.py's single_light_box and
+    dynamic_obstructions, BASELINE config 1, at the flagship's voxel field):
+    6 static obstructions, 2 dynamic boxes, `n_lights` shadow-casting
+    sphere lights, a budgeted voxel field. -> (renderer, hdr, move)."""
+    w, h = float(width), float(height)
+    env = api.LightingEnvironment(ground_z=0.0, maximum_z=64.0,
+                                  ambient=(0.04, 0.04, 0.05, 1.0))
+    env.lights += _ring(api, w, h, n_lights, 40.0, 10.0)
+    O = api.LightObstruction
+    u = h / 270.0  # obstruction footprints in units of 1/270 of the height
+    env.obstructions += [
+        O.box((0.5 * w, 0.5 * h, 20.0), (14.0 * u, 14.0 * u, 20.0)),
+        O.box((0.18 * w, 0.25 * h, 12.0), (20.0 * u, 8.0 * u, 12.0)),
+        O.cylinder((0.8 * w, 0.7 * h, 24.0), (10.0 * u, 10.0 * u, 24.0)),
+        O.cylinder((0.3 * w, 0.8 * h, 10.0), (7.0 * u, 7.0 * u, 10.0)),
+        O.ellipsoid((0.7 * w, 0.2 * h, 16.0), (18.0 * u, 10.0 * u, 16.0)),
+        O.ellipsoid((0.1 * w, 0.6 * h, 14.0), (8.0 * u, 12.0 * u, 14.0))]
+    dyn = [O.box((0.4 * w, 0.3 * h, 16.0), (12.0 * u, 12.0 * u, 16.0),
+                 is_dynamic=True),
+           O.box((0.62 * w, 0.75 * h, 8.0), (9.0 * u, 16.0 * u, 8.0),
+                 is_dynamic=True)]
+    env.obstructions += dyn
+    renderer = api.LightingRenderer(
+        api.RendererConfig(width=width, height=height), env,
+        api.SdfVolumeConfig(
+            virtual_width=width, virtual_height=height, virtual_depth=64,
+            slice_count=16, resolution_scale=resolution_scale),
+        **renderer_kw)
+    hdr = api.HDRConfig(mode=2, exposure=1.2, white_point=3.0)
+
+    def move(i):
+        dyn[0].center = ((0.4 + 0.04 * math.sin(0.6 * i)) * w,
+                         (0.3 + 0.05 * math.cos(0.6 * i)) * h, 16.0)
+        dyn[1].center = ((0.62 + 0.05 * math.cos(0.4 * i)) * w, 0.75 * h,
+                         8.0)
+
+    return renderer, hdr, move
+
+
+# phase name -> (scene function, shadow mode, update_fields budget)
+RENDERER_FRAMES = {
+    "slice_renderer": (renderer_25d_scene, "scan", None),
+    "slice_renderer_march": (renderer_march_scene, "march", 2),
+}
+
+
+def renderer_frame(renderer, hdr, move, i, shadow_mode, budget):
+    """Frame i of a renderer scene as a user drives it: move the moving
+    parts on the host, update the fields, light, resolve, quantize ->
+    (uint8 image, lightmap)."""
+    from illuminant_tpu_torch.raster.resolve import to_uint8
+
+    move(i)
+    renderer.update_fields(budget=budget)
+    lightmap = renderer.render_lighting(shadow_mode=shadow_mode)
+    return to_uint8(renderer.resolve(lightmap, hdr)), lightmap
+
+
+class HostReads:
+    """Counts the device-to-host scalar reads (`aten::_local_scalar_dense`:
+    a march's "any ray live?", an `int()` of a tensor) made inside it."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+        outer.n = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func is torch.ops.aten._local_scalar_dense.default:
+                    outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _build_renderer(name, device, height, width, **kw):
+    """The renderer scene of phase `name` on `device` with its initial
+    fields built (every slice of the voxel field valid)."""
+    build, shadow_mode, budget = RENDERER_FRAMES[name]
+    renderer, hdr, move = build(port_api(), width, height, device=device,
+                                **kw)
+    renderer.update_fields(budget=10 ** 6)
+    return renderer, hdr, move, shadow_mode, budget
+
+
+def _px(renderer, fx, fy):
+    h, w = renderer.config.lightmap_shape
+    return int(fy * h), int(fx * w)
+
+
+def gates_25d(renderer, lightmap):
+    """What the 2.5D frame must show, read from the last frame's lightmap
+    (numpy) and two more renders of the same fields."""
+    env = renderer.environment
+    lum = lightmap[..., :3].sum(axis=-1)
+    gb = renderer.gbuffer
+    top, ground = _px(renderer, 0.5, 0.47), _px(renderer, 0.5, 0.68)
+    z = gb.z.cpu().numpy()
+    if not (z[top] > z[ground] == 0.0 and abs(lum[top] - lum[ground]) > 0.02):
+        raise AssertionError(
+            f"renderer-25d: the top of the centre volume (z {z[top]}, light "
+            f"{lum[top]}) is lit like the ground beside it ({lum[ground]})")
+    # Left of the left volume every ring light is hidden; its mirror pixel
+    # on the right has none of the scene's geometry near it.
+    behind, mirror = _px(renderer, 0.14, 0.72), _px(renderer, 0.86, 0.72)
+    if not lum[behind] < 0.8 * lum[mirror]:
+        raise AssertionError(
+            f"renderer-25d: the pixel behind the left volume ({lum[behind]}) "
+            f"is not darker than its mirror pixel ({lum[mirror]})")
+    lights = list(env.lights)
+    sub = [l for l in lights if getattr(l, "blend_mode", "") == "subtractive"]
+    mx = [l for l in lights if getattr(l, "blend_mode", "") == "max"]
+    try:
+        env.lights[:] = [l for l in lights if l not in sub]
+        without = renderer.render_lighting(
+            shadow_mode="scan")[..., :3].sum(dim=-1).cpu().numpy()
+        env.lights[:] = mx
+        ambient, env.ambient = env.ambient, (0.0, 0.0, 0.0, 0.0)
+        floor = renderer.render_lighting(shadow_mode="scan").cpu().numpy()
+        env.ambient = ambient
+    finally:
+        env.lights[:] = lights
+    at = _px(renderer, 0.55, 0.8)
+    if not lum[at] < without[at] - 0.05:
+        raise AssertionError(
+            f"renderer-25d: the subtractive light does not lower its region "
+            f"({lum[at]} with it, {without[at]} without)")
+    if not (floor[..., :3].max() > 0.0
+            and (lightmap >= floor - 1e-6).all()):
+        raise AssertionError("renderer-25d: a pixel lies under the max "
+                             "light's floor")
+    return dict(top_vs_ground=f"{lum[top]:.4f}/{lum[ground]:.4f}",
+                behind_vs_mirror=f"{lum[behind]:.4f}/{lum[mirror]:.4f}",
+                subtractive=f"{lum[at]:.4f}/{without[at]:.4f}",
+                max_floor=f"{floor[..., :3].max():.4f}")
+
+
+def gates_march(renderer, budget):
+    """The budgeted field: while the dynamic boxes moved it lags the full
+    field of the whole obstruction set; once they stand still, enough
+    budgeted updates make it that field bit for bit."""
+    from illuminant_tpu_torch.sdf import volume as vol
+
+    full = vol.generate_volume(
+        renderer.sdf_config, renderer.environment.pack_obstructions(
+            capacity=renderer.obstruction_capacity, device=renderer.device))
+    stale = int((renderer.volume.data != full.data).sum())
+    if not (stale > 0 and renderer._invalid_dynamic):
+        raise AssertionError("renderer-voxel-march: the budgeted field does "
+                             "not lag the moving boxes")
+    calls = 0
+    while renderer._invalid_slices:
+        renderer.update_fields(budget=budget)
+        calls += 1
+        if calls > 16:
+            raise AssertionError("renderer-voxel-march: the budgeted field "
+                                 "does not converge")
+    if not (torch.equal(renderer.volume.data, full.data)
+            and float(renderer.volume.max_valid_z) == float(full.max_valid_z)):
+        raise AssertionError("renderer-voxel-march: the converged field is "
+                             "not generate_volume of the obstruction set")
+    return dict(stale_voxels_while_moving=stale, calls_to_converge=calls)
+
+
+def phase_slice_renderer(name):
+    """One full-width LightingRenderer frame: warm-up, the timed frames
+    (each fenced by a synchronize), the device-to-host reads of one more
+    frame, then the frame's gates."""
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    renderer, hdr, move, shadow_mode, budget = _build_renderer(
+        name, "cuda", FULL["height"], FULL["width"])
+    torch.cuda.reset_peak_memory_stats()
+    n = 0
+    for _ in range(RENDERER_WARMUP_FRAMES):
+        renderer_frame(renderer, hdr, move, n, shadow_mode, budget)
+        n += 1
+    torch.cuda.synchronize()
+    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(RENDERER_TIMED_FRAMES):
+        image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
+                                         budget)
+        torch.cuda.synchronize()
+        n += 1
+    ms_per_frame = 1e3 * (time.perf_counter() - t0) / RENDERER_TIMED_FRAMES
+    launches = ck.LAUNCHES + ck.QUERY_LAUNCHES + ck.PACK_LAUNCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with HostReads() as reads:
+        image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
+                                         budget)
+    img = image.cpu().numpy()
+    lm = lightmap.cpu().numpy()
+    if img.shape != (FULL["height"], FULL["width"], 4) or \
+            img.dtype != np.uint8:
+        raise AssertionError(f"{name}: image {img.shape}/{img.dtype}")
+    if not (np.isfinite(lm).all() and img[..., :3].astype(np.float64).var()
+            > 0.0):
+        raise AssertionError(f"{name}: the frame is flat or not finite")
+    if launches:
+        raise AssertionError(f"{name}: a column kernel was launched "
+                             f"{launches} times; the renderer holds no "
+                             "ColumnField")
+    gates = (gates_25d(renderer, lm) if name == "slice_renderer"
+             else gates_march(renderer, budget))
+    say(name, shadow_mode=shadow_mode, budget=budget,
+        warmup=RENDERER_WARMUP_FRAMES, frames=RENDERER_TIMED_FRAMES,
+        ms_per_frame=f"{ms_per_frame:.3f}", peak_mem_gb=f"{peak_gb:.3f}",
+        image_mean=f"{img[..., :3].mean():.3f}",
+        image=f"{img.shape}/{img.dtype}", host_reads_per_frame=reads.n,
+        column_kernel_launches=launches, **gates)
+    return ms_per_frame
+
+
+def _small_renderer_frames(name, device):
+    """Three frames of the small renderer scene on `device` -> the last
+    (uint8 image, lightmap, field data or None) as numpy."""
+    voxel = RENDERER_FRAMES[name][2] is not None
+    renderer, hdr, move, shadow_mode, budget = _build_renderer(
+        name, device, **RENDERER_SMALL,
+        **({"resolution_scale": 0.5} if voxel else {}))
+    for i in range(3):
+        image, lightmap = renderer_frame(renderer, hdr, move, i, shadow_mode,
+                                         budget)
+    data = None if renderer.volume is None else \
+        renderer.volume.data.cpu().numpy()
+    return image.cpu().numpy().astype(np.int32), lightmap.cpu().numpy(), data
+
+
+def phase_reference_renderer():
+    """Both renderer frames at 96 x 160 on the card against the port's
+    plain CPU path (which the CPU tests hold to the JAX package): uint8
+    image mean |d| <= 1 LSB and <= 1% of values off by more than 8, the
+    lightmap's mean |d| <= 1e-3, the budgeted field within 1e-4."""
+    for name in RENDERER_FRAMES:
+        cpu = _small_renderer_frames(name, "cpu")
+        cuda = _small_renderer_frames(name, "cuda")
+        d = np.abs(cuda[0] - cpu[0])
+        dl = np.abs(cuda[1] - cpu[1])
+        field = None if cpu[2] is None else float(
+            np.abs(cuda[2] - cpu[2]).max())
+        say("reference_renderer", frame=name,
+            size=f"{RENDERER_SMALL['height']}x{RENDERER_SMALL['width']}",
+            mean_abs_lsb=f"{d.mean():.4f}",
+            share_over_8=f"{(d > 8).mean():.5f}",
+            lightmap_mean_abs=f"{dl.mean():.6f}",
+            lightmap_max_abs=f"{dl.max():.5f}", field_max_abs=field)
+        if not (d.mean() <= 1.0 and (d > 8).mean() <= 0.01
+                and dl.mean() <= 1e-3 and (field is None or field <= 1e-4)):
+            raise AssertionError(f"reference_renderer ({name}): the card's "
+                                 "frame disagrees with the CPU path")
+
+
 def _busy_us(events) -> tuple:
     """(union of the device events' intervals, sum of their durations),
     in microseconds. The union counts overlapping work once; the stage
@@ -602,8 +1039,6 @@ def phase_profile(name, warmup: int, frame_ms, out_dir):
     per-kernel and per-stage tables under out_dir/name, the device's busy
     time per frame, and its idle share of the unprofiled frame time
     `frame_ms` measured in the same run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from illuminant_tpu_torch.scenes import build_flagship
 
     dev = torch.device("cuda")
@@ -613,11 +1048,41 @@ def phase_profile(name, warmup: int, frame_ms, out_dir):
     _, state, avg = _run_frames(scene, i0, 0, gen, scene.system.state,
                                 torch.tensor(0.5, device=dev))
     torch.cuda.synchronize()
+    _traced(name, out_dir, frame_ms,
+            lambda: _run_frames(scene, 2, i0, gen, state, avg))
+
+
+def phase_profile_renderer(name, frame_ms, out_dir):
+    """Two traced frames of renderer frame `name` on a scene built anew
+    and run through the same warm-up and timed frames: the tables, the
+    busy time and the idle share as in `phase_profile`; the stage ranges
+    are illuminant/renderer/update_fields, /gbuffer, /field_regen,
+    /light_pass/<mode> and /resolve."""
+    renderer, hdr, move, shadow_mode, budget = _build_renderer(
+        name, "cuda", FULL["height"], FULL["width"])
+    i0 = RENDERER_WARMUP_FRAMES + RENDERER_TIMED_FRAMES + 1
+    for i in range(i0):
+        renderer_frame(renderer, hdr, move, i, shadow_mode, budget)
+    torch.cuda.synchronize()
+
+    def two_frames():
+        for i in (i0, i0 + 1):
+            renderer_frame(renderer, hdr, move, i, shadow_mode, budget)
+            torch.cuda.synchronize()
+
+    _traced(name, out_dir, frame_ms, two_frames)
+
+
+def _traced(name, out_dir, frame_ms, two_frames):
+    """Run `two_frames` under torch.profiler; write the per-kernel and
+    per-stage tables under out_dir/name and print the [profile*] line."""
+    from torch.profiler import ProfilerActivity, profile
+
     out_dir = os.path.join(out_dir, name)
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _run_frames(scene, 2, i0, gen, state, avg)
+        two_frames()
         torch.cuda.synchronize()
     ka = prof.key_averages()
     with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
@@ -684,14 +1149,21 @@ def main(argv=None) -> int:
             del field
         scene = state = None
         torch.cuda.empty_cache()
+    for name in RENDERER_FRAMES:
+        frame_ms[name] = phase_slice_renderer(name)
+        torch.cuda.empty_cache()
     # Profiled after every slice is timed: a profiler session slows the
     # launches that follow it in the process.
     for name in SLICES if args.profile else ():
         phase_profile(name, args.warmup, frame_ms[name], args.profile)
         torch.cuda.empty_cache()
+    for name in RENDERER_FRAMES if args.profile else ():
+        phase_profile_renderer(name, frame_ms[name], args.profile)
+        torch.cuda.empty_cache()
     phase_reference()
     phase_reference_analytic()
     phase_reference_family()
+    phase_reference_renderer()
     # Each kernel at the heavier of the frame's calls: the query with the
     # unit gradient, the sampler with the derivative rows; the other calls
     # are in the [kernel] lines above. "ms" is one call of the wrapper the

@@ -6,11 +6,14 @@ turns any such dataclass into a dict of numpy arrays keyed by field name
 element by element, Python values pass through); it walks
 `dataclasses.fields` and calls `np.asarray`, so it needs no jax.
 `to_torch` builds the port's counterpart from such a dict on a device.
-It covers AnalyticScene, SdfVolume (with its config), ColumnField,
-ParticleState, SphereLights, DirectionalLights, LineLights,
+It covers AnalyticScene (with its packed height-volume polygons),
+HeightVolumes, SdfVolume (with its config and whatever `max_valid_z` a
+partial regeneration left), SdfObstructions, ColumnField, ParticleState,
+SphereLights (with ramp textures), DirectionalLights, LineLights,
 VolumetricLights, ProjectorLights (with its tuple of mip levels),
-EnvironmentUniforms, GBuffer (also a windowed view, with its
-`pixel_origin`), SpawnUniforms, GravityUniforms and SystemUniforms.
+EnvironmentUniforms, GBuffer (a windowed view with its `pixel_origin`, or
+one written by height volumes and billboards), SpawnUniforms,
+GravityUniforms and SystemUniforms.
 """
 
 from __future__ import annotations
@@ -32,16 +35,19 @@ from ..particles.state import ParticleState, SystemUniforms
 from ..particles.transforms import GravityUniforms
 from ..sdf.analytic import AnalyticScene
 from ..sdf.columns import ColumnField
-from ..sdf.volume import SdfVolume, SdfVolumeConfig
+from ..sdf.height_volume import HeightVolumes
+from ..sdf.volume import SdfObstructions, SdfVolume, SdfVolumeConfig
 
-# Fields that hold a nested dataclass, by owner type.
+# Fields that hold a nested dataclass (or None), by owner type.
 _NESTED = {
     SdfVolume: {"config": SdfVolumeConfig},
     ColumnField: {"volume": SdfVolume},
+    AnalyticScene: {"polygons": HeightVolumes},
 }
 
-SUPPORTED = (AnalyticScene, SdfVolume, SdfVolumeConfig, ColumnField,
-             ParticleState, SphereLights, DirectionalLights, LineLights,
+SUPPORTED = (AnalyticScene, HeightVolumes, SdfVolume, SdfVolumeConfig,
+             SdfObstructions, ColumnField, ParticleState, SphereLights,
+             DirectionalLights, LineLights,
              VolumetricLights, ProjectorLights, EnvironmentUniforms, GBuffer,
              SpawnUniforms, GravityUniforms, SystemUniforms)
 
@@ -90,6 +96,7 @@ def to_torch(cls, fields: Dict[str, Any], device=None):
             continue
         v = fields[name]
         nested = _NESTED.get(cls, {}).get(name)
-        kwargs[name] = (to_torch(nested, v, device) if nested is not None
+        kwargs[name] = (to_torch(nested, v, device)
+                        if nested is not None and v is not None
                         else _tensors(v, device))
     return cls(**kwargs)

@@ -3,11 +3,12 @@
 Counterpart of illuminant_tpu/lighting/cone_trace.py: sphere-trace from the
 shaded point toward the light, shrinking visibility by the ratio of the
 scene distance to the local cone radius, with a step budget and early-out
-thresholds (fxh:141-191). Here it is the oracle the scan shadows are held
-to; the frame's `shadow_mode="march"` waits for its Hopper kernel
-(ROADMAP K12). The JAX `while_loop` over the whole ray tensor becomes a
-Python loop of at most `max_step_count` steps that stops once no ray is
-live: one device-to-host read per step.
+thresholds (fxh:141-191). It is the oracle the scan shadows are held to,
+and the `shadow_mode="march"` of the light accumulators and of
+`LightingRenderer.render_lighting` (its default). The JAX `while_loop`
+over the whole ray tensor becomes a Python loop of at most
+`max_step_count` steps that stops once no ray is live: one device-to-host
+read per step (its Hopper kernel is ROADMAP K12).
 
 Constants (ConeTrace.fxh:1-29):
 """

@@ -1,16 +1,19 @@
 """Scene environment: uniforms and light-source containers.
 
-Counterpart of illuminant_tpu/lighting/environment.py for sphere lights and
-obstructions. The host side mirrors LightingEnvironment
-(LightingEnvironment.cs:13-49); the device side packs the lights into
-fixed-capacity SoA tensors (one batched axis instead of the reference's
-128-instance draws, LightingRenderer.cs:1149-1166).
+Counterpart of illuminant_tpu/lighting/environment.py. The host side
+mirrors LightingEnvironment (LightingEnvironment.cs:13-49): a mutable
+container of lights, obstructions, height volumes and billboards, whose
+obstructions carry the dirty flags the renderer's auto-invalidation
+consumes. The device side packs the lights into fixed-capacity SoA tensors
+(one batched axis instead of the reference's 128-instance draws,
+LightingRenderer.cs:1149-1166).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import itertools
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +58,9 @@ class SphereLights:
     folded into alpha; properties = (radius, ramp_length, ramp_mode,
     cast_shadows); more = (ao_radius, distance_falloff, y_falloff_factor,
     ao_opacity); specular_color_power (L, 4); active (L,) 0/1.
-    Ramp textures (the WithRamp epilogue) are not ported (ROADMAP M4)."""
+    `ramp_texture` (L, RH, RW, 3) and `ramp_offset_rate` (L, 3) = (offset,
+    rate, has-ramp flag) feed the WithRamp epilogue (SphereLightCore.fxh:
+    99-119); both are None when no light has a ramp texture."""
 
     position: torch.Tensor
     color: torch.Tensor
@@ -63,10 +68,17 @@ class SphereLights:
     more: torch.Tensor
     specular_color_power: torch.Tensor
     active: torch.Tensor
+    ramp_texture: Optional[torch.Tensor] = None
+    ramp_offset_rate: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return self.position.shape[0]
+
+    @staticmethod
+    def empty(capacity: int, device="cuda") -> "SphereLights":
+        """`capacity` inactive lanes."""
+        return pack_sphere_lights([], capacity=capacity, device=device)
 
 
 @dataclasses.dataclass
@@ -86,6 +98,14 @@ class SphereLightSource:
     shadow_distance_falloff: Optional[float] = None
     specular_color: tuple = (0.0, 0.0, 0.0)
     specular_power: float = 2.0
+    # Ramp texture (LightSource.cs TextureRef, offset / rate :58-103):
+    # an (RH, RW, 3) array; RH = 1 is the 1D distance ramp.
+    ramp_texture: Optional[object] = None
+    ramp_offset: float = 0.0
+    ramp_rate: float = 1.0
+    # LightSource.BlendMode (LightSource.cs:65): "additive", "subtractive"
+    # (darkness lights) or "max"; the renderer batches lights by it.
+    blend_mode: str = "additive"
 
 
 def pack_sphere_lights(lights: List[SphereLightSource],
@@ -103,6 +123,15 @@ def pack_sphere_lights(lights: List[SphereLightSource],
     out_more[:, 3] = 1.0
     out_spec = np.zeros((cap, 4), np.float32)
     out_active = np.zeros((cap,), np.float32)
+    ramps = [np.asarray(l.ramp_texture) for l in lights
+             if l.ramp_texture is not None]
+    out_ramp = out_ramp_or = None
+    if ramps:
+        rh = max(r.shape[0] for r in ramps)
+        rw = max(r.shape[1] for r in ramps)
+        out_ramp = np.ones((cap, rh, rw, 3), np.float32)
+        out_ramp_or = np.tile(np.asarray([0.0, 1.0, 0.0], np.float32),
+                              (cap, 1))
     for i, l in enumerate(lights):
         out_pos[i] = l.position
         col = np.asarray(l.color, np.float32).copy()
@@ -117,26 +146,55 @@ def pack_sphere_lights(lights: List[SphereLightSource],
         out_spec[i, :3] = l.specular_color
         out_spec[i, 3] = l.specular_power
         out_active[i] = 1.0
+        if out_ramp is not None and l.ramp_texture is not None:
+            tex = np.asarray(l.ramp_texture, np.float32)[..., :3]
+            out_ramp[i, :tex.shape[0], :tex.shape[1]] = tex
+            out_ramp_or[i] = [l.ramp_offset, l.ramp_rate, 1.0]
 
     def t(a):
-        return torch.as_tensor(a, device=device)
+        return None if a is None else torch.as_tensor(a, device=device)
 
     return SphereLights(position=t(out_pos), color=t(out_col),
                         properties=t(out_props), more=t(out_more),
                         specular_color_power=t(out_spec),
-                        active=t(out_active))
+                        active=t(out_active), ramp_texture=t(out_ramp),
+                        ramp_offset_rate=t(out_ramp_or))
 
 
 @dataclasses.dataclass
 class LightObstruction:
-    """Host-side SDF obstruction (LightObstruction.cs:10-148). The JAX
-    package's renderer-invalidation bookkeeping is not ported."""
+    """Host-side SDF obstruction (LightObstruction.cs:10-148).
+
+    Assigning center / size / rotation / type clears `is_valid`, and
+    flipping `is_dynamic` sets `has_dynamicity_changed`: the renderer's
+    auto-invalidation consumes both, like the reference's setters
+    (LightObstruction.cs:22-120) feeding AutoInvalidateDistanceField
+    (LightingRenderer.cs:1977-2015). `serial` is unique in the process."""
 
     type: int = sdf_primitives.TYPE_BOX
     center: tuple = (0.0, 0.0, 0.0)
     size: tuple = (1.0, 1.0, 1.0)
     rotation: tuple = (0.0, 0.0, 0.0, 1.0)
     is_dynamic: bool = False
+
+    def __setattr__(self, name, value):
+        if name in ("center", "size", "rotation", "type") and \
+                "center" in self.__dict__:
+            object.__setattr__(self, "is_valid", False)
+        if name == "is_dynamic" and "is_dynamic" in self.__dict__ and \
+                self.__dict__["is_dynamic"] != value:
+            object.__setattr__(self, "has_dynamicity_changed", True)
+        object.__setattr__(self, name, value)
+
+    _serial_counter = itertools.count()
+
+    def __post_init__(self):
+        object.__setattr__(self, "is_valid", False)  # new: needs a raster
+        object.__setattr__(self, "has_dynamicity_changed", False)
+        # The renderer's add / remove snapshot compares serials: id() is
+        # recycled by the allocator, so a remove and an add at one address
+        # would compare equal and skip the invalidation.
+        object.__setattr__(self, "serial", next(self._serial_counter))
 
     @staticmethod
     def box(center, size, is_dynamic=False):
@@ -160,6 +218,8 @@ class LightingEnvironment:
 
     lights: list = dataclasses.field(default_factory=list)
     obstructions: list = dataclasses.field(default_factory=list)
+    height_volumes: list = dataclasses.field(default_factory=list)
+    billboards: list = dataclasses.field(default_factory=list)
     ground_z: float = 0.0
     maximum_z: float = 128.0
     z_to_y_multiplier: float = 0.0
@@ -186,3 +246,50 @@ class LightingEnvironment:
             sizes=[o.size for o in obs],
             rotations=[o.rotation for o in obs], capacity=capacity,
             device=device)
+
+
+@dataclasses.dataclass
+class ReplicatedLight:
+    """Per-instance overrides (LightSource.cs:615-620)."""
+
+    position: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    radius: Optional[float] = None
+    ramp_length: Optional[float] = None
+    opacity: Optional[float] = None
+    color: Optional[tuple] = None
+    specular_color: Optional[tuple] = None
+    specular_power: Optional[float] = None
+
+
+@dataclasses.dataclass
+class LightSourceReplicator:
+    """Mass instancing of a sphere-light template (LightSource.cs:601-613):
+    the replicated set expands into the same batched SphereLights lanes
+    the accumulator already takes."""
+
+    template: SphereLightSource = dataclasses.field(
+        default_factory=SphereLightSource)
+    lights: list = dataclasses.field(default_factory=list)
+
+    def clear(self):
+        self.lights.clear()
+
+    def add(self, light: ReplicatedLight):
+        self.lights.append(light)
+
+    def expand(self) -> list:
+        """-> list of SphereLightSource with the overrides applied."""
+        t = self.template
+
+        def pick(value, default):
+            return default if value is None else value
+
+        return [dataclasses.replace(
+            t, position=r.position, radius=pick(r.radius, t.radius),
+            ramp_length=pick(r.ramp_length, t.ramp_length),
+            opacity=pick(r.opacity, t.opacity),
+            color=t.color if r.color is None else tuple(r.color),
+            specular_color=(t.specular_color if r.specular_color is None
+                            else tuple(r.specular_color)),
+            specular_power=pick(r.specular_power, t.specular_power))
+            for r in self.lights]

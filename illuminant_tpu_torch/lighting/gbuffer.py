@@ -59,6 +59,14 @@ class GBuffer:
         gy, gx = self._pixel_grid()
         return torch.stack([gx, gy + self.relative_y, self.z], dim=-1)
 
+    def camera_position(self, env: EnvironmentUniforms):
+        """Approximate per-pixel camera position (H, W, 3)
+        (LightCommon.fxh:98-99): straight above each pixel at
+        maximum_z + 0.01."""
+        gy, gx = self._pixel_grid()
+        cz = torch.broadcast_to(env.maximum_z + 0.01, gx.shape)
+        return torch.stack([gx, gy, cz], dim=-1)
+
     def window(self, oy: int, ox: int, win_h: int, win_w: int) -> "GBuffer":
         """The (win_h, win_w) view at pixel origin (oy, ox), Python ints
         the caller has clamped into bounds (windowed.window_origin)."""
@@ -94,3 +102,10 @@ def flat_ground(height: int, width: int, env: EnvironmentUniforms,
         fullbright=torch.zeros((h, w), dtype=torch.float32, device=dev),
         render_scale=render_scale,
     )
+
+
+def no_gbuffer(height: int, width: int, env: EnvironmentUniforms,
+               render_scale: float = 1.0) -> GBuffer:
+    """The EnableGBuffer=false path (LightCommon.fxh:132-141): every pixel
+    is the ground plane with a +z normal and shadows enabled."""
+    return flat_ground(height, width, env, render_scale, enable_shadows=True)

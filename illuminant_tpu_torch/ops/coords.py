@@ -1,9 +1,26 @@
 """Small geometry helpers (counterpart of illuminant_tpu/ops/coords.py,
-only what the particle path and the particle lights use)."""
+only what the particle path, the particle lights and the G-buffer
+billboards use)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def decode_normal_spherical(enc):
+    """(..., 2) spherical encoding in [0, 1] -> (..., 3) normals
+    (EnvironmentCommon.fxh:34-52); the all-zero encoding decodes to the
+    zero vector ("no normal")."""
+    ang = enc * 2.0 - 1.0
+    s = torch.sin(ang[..., 0] * math.pi)
+    c = torch.cos(ang[..., 0] * math.pi)
+    z = ang[..., 1]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    n = torch.stack([c * r, s * r, z], dim=-1)
+    is_zero = torch.all(enc == 0.0, dim=-1, keepdim=True)
+    return torch.where(is_zero, 0.0, n)
 
 
 def mul_point_rows(v4, matrix):

@@ -6,8 +6,11 @@ Counterpart of illuminant_tpu/sdf/analytic.py:
     evaluated in closed form at every query point: `distance_p` unrolls
     over the live primitives (pad slots, which sit at 1e9, are never
     evaluated) and switches to one batched evaluation per group above
-    `_UNROLL_LIMIT` primitives. `normal_p` is the autograd gradient,
-    `normal_fast_p` the closed-form normal of the nearest primitive.
+    `_UNROLL_LIMIT` primitives. Obstruction-flagged height volumes ride
+    along as `polygons` and join the min as extruded polygon distances.
+    `normal_p` is the autograd gradient, `normal_fast_p` the closed-form
+    normal of the nearest primitive (the autograd one when the scene has
+    polygons).
   * The uniform query interface over `AnalyticScene`, `ColumnField` and
     `SdfVolume`: `scene_sample`, `scene_normal`, `scene_sample_p`,
     `scene_sample_grad_p`, `scene_normal_p`. Separable grid queries (the
@@ -16,14 +19,14 @@ Counterpart of illuminant_tpu/sdf/analytic.py:
     on a ColumnField go to the fused column query (`columns.query`), one
     launch each on the card.
 Not ported: the TPU dispatch gates `set_interp_dispatch` / `_use_interp`
-(the port has no MXU interpolation path to gate), height-volume polygons
-(ROADMAP M12) and `scene_column_images`, which only the opt-in
-`carried_all` refine reads (ROADMAP M3).
+(the port has no MXU interpolation path to gate) and
+`scene_column_images`, which only the opt-in `carried_all` refine reads
+(ROADMAP M3).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +35,8 @@ from ..core.pytree import tensor_dataclass
 from ..ops import sdf_primitives as sp
 from . import sampling
 from .columns import ColumnField, query as column_query, sample_columns
+from .height_volume import (HeightVolumes, extruded_polygon_distance_p,
+                            pack_height_volumes)
 from .volume import SdfVolume
 
 _FAR = 1e9
@@ -40,11 +45,13 @@ _FAR = 1e9
 @tensor_dataclass
 class AnalyticScene:
     """Type-grouped obstruction SoA: per group (n, 3) centers and sizes and
-    (n, 4) rotations, with static (type, rotated, live count) per group."""
+    (n, 4) rotations, with static (type, rotated, live count) per group;
+    `polygons`: the packed obstruction-flagged height volumes, or None."""
 
     centers: Tuple[torch.Tensor, ...]
     sizes: Tuple[torch.Tensor, ...]
     rotations: Tuple[torch.Tensor, ...]
+    polygons: Optional[HeightVolumes] = None
     group_types: Tuple[int, ...] = ()
     group_rotated: Tuple[bool, ...] = ()
     maximum_distance: float = 128.0
@@ -83,8 +90,8 @@ class AnalyticScene:
     def distance_p(self, x, y, z):
         """Planar scene distance: x, y, z broadcastable tensors -> the
         distance of their broadcast shape, the min over all live
-        primitives and `maximum_distance` (the reference's MAX blend over
-        encoded distances, fxh:264-270)."""
+        primitives, the extruded polygons and `maximum_distance` (the
+        reference's MAX blend over encoded distances, fxh:264-270)."""
         if sum(self._counts()) > self._UNROLL_LIMIT:
             return self._distance_vectorized(x, y, z)
         d = torch.full(_broadcast_shape(x, y, z), self.maximum_distance,
@@ -92,7 +99,17 @@ class AnalyticScene:
         for type_id, px, py, pz, sx, sy, sz, _ in self._primitives(x, y, z):
             d = torch.minimum(
                 d, sp.PLANAR_EVALUATORS[type_id](px, py, pz, sx, sy, sz))
-        return d
+        return self._with_polygons(d, x, y, z)
+
+    def _with_polygons(self, d, x, y, z):
+        if self.polygons is None:
+            return d
+
+        def f32(v):
+            return torch.as_tensor(v, dtype=torch.float32, device=d.device)
+
+        return torch.minimum(d, extruded_polygon_distance_p(
+            f32(x), f32(y), f32(z), self.polygons))
 
     def _distance_vectorized(self, x, y, z):
         """One (..., n) evaluation per group, every slot of the group
@@ -106,7 +123,7 @@ class AnalyticScene:
                 p = sp.rotate_by_quaternion(p, self.rotations[gi])
             dg = _EVALUATORS[type_id](p, self.sizes[gi])
             d = torch.minimum(d, torch.amin(dg, dim=-1))
-        return d
+        return self._with_polygons(d, x, y, z)
 
     def normal_p(self, x, y, z):
         """Planar field gradient by autograd -> unit (nx, ny, nz), zero
@@ -133,7 +150,10 @@ class AnalyticScene:
         """Closed-form normal of the nearest primitive (strictly nearer
         than `maximum_distance` and than every earlier primitive; (0, 0, 0)
         beyond it). Above `_UNROLL_LIMIT` primitives: central differences
-        of the batched distance, step 0.05."""
+        of the batched distance, step 0.05. A scene with polygons has no
+        closed form and takes the autograd gradient."""
+        if self.polygons is not None:
+            return self.normal_p(x, y, z)
         if sum(self._counts()) > self._UNROLL_LIMIT:
             eps = 0.05
             dist = self._distance_vectorized
@@ -188,10 +208,13 @@ def _is_identity_rotation(q) -> bool:
 
 def pack_scene(obstructions: List, maximum_distance: float = 128.0,
                group_capacity_round: int = 2,
+               height_volumes: Optional[List] = None,
                device="cuda") -> AnalyticScene:
     """Group host obstructions (.type/.center/.size/.rotation) by type,
     each group padded to a multiple of `group_capacity_round` with far
-    unit boxes (illuminant_tpu/sdf/analytic.py:pack_scene)."""
+    unit boxes (illuminant_tpu/sdf/analytic.py:pack_scene).
+    `height_volumes`: a list of sdf.height_volume.HeightVolume; those
+    flagged `is_obstruction` join the field as extruded polygons."""
     by_type: Dict[int, list] = {}
     for o in obstructions:
         if o.type == sp.TYPE_NONE:
@@ -224,9 +247,13 @@ def pack_scene(obstructions: List, maximum_distance: float = 128.0,
         centers.append(torch.as_tensor(c, device=device))
         sizes.append(torch.as_tensor(s, device=device))
         rotations.append(torch.as_tensor(r, device=device))
+    obstructing = [v for v in height_volumes or () if v.is_obstruction]
+    polygons = (pack_height_volumes(obstructing, device=device)
+                if obstructing else None)
     return AnalyticScene(
         centers=tuple(centers), sizes=tuple(sizes),
-        rotations=tuple(rotations), group_types=tuple(group_types),
+        rotations=tuple(rotations), polygons=polygons,
+        group_types=tuple(group_types),
         group_rotated=tuple(group_rotated),
         maximum_distance=maximum_distance, group_counts=tuple(group_counts))
 

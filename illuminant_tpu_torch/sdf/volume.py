@@ -6,8 +6,14 @@ z = s * virtual_depth / slice_count + z_offset; texel (y, x) holds world
 xy = ((x + 0.5) / scale_x, (y + 0.5) / scale_y)
 (DistanceFieldCommon.fxh:303-353). The static/dynamic split of
 DynamicDistanceField (DistanceField.cs:248-321) is two volumes combined by
-an elementwise min. `save`/`load` use the JAX package's .npz layout, so a
-field saved by either package loads in the other.
+an elementwise min. Incremental regeneration writes a budgeted number of
+slices a frame (MaximumFieldUpdatesPerFrame, LightingRenderer.
+Configuration.cs:87-91): `update_slices` with host-tracked validity (the
+renderer's path) or `regenerate_invalid_budgeted` with a device-side mask.
+Both return a new volume and leave the one they were given untouched, so
+a caller's handle to an earlier field stays what it was. `save`/`load` use
+the JAX package's .npz layout, so a field saved by either package loads in
+the other.
 """
 
 from __future__ import annotations
@@ -35,6 +41,12 @@ class SdfObstructions:
     centers: torch.Tensor
     sizes: torch.Tensor
     rotations: torch.Tensor
+
+    @staticmethod
+    def empty(capacity: int, device="cuda") -> "SdfObstructions":
+        """`capacity` inactive pads."""
+        return SdfObstructions.from_lists([], [], [], capacity=capacity,
+                                          device=device)
 
     @staticmethod
     def from_lists(types, centers, sizes, rotations=None, capacity=None,
@@ -113,34 +125,46 @@ class SdfVolume:
     config: SdfVolumeConfig = dataclasses.field(
         default_factory=SdfVolumeConfig)
 
+    @staticmethod
+    def empty(config: SdfVolumeConfig, device="cuda") -> "SdfVolume":
+        """No slice generated yet: every distance at
+        `max_encoded_distance`, max_valid_z 0."""
+        return SdfVolume(
+            data=torch.full(config.shape, config.max_encoded_distance,
+                            dtype=torch.float32, device=device),
+            max_valid_z=torch.tensor(0.0, dtype=torch.float32,
+                                     device=device),
+            config=config)
 
-def _voxel_world_coords(config: SdfVolumeConfig, slice_start: int,
-                        slice_stop: int, device=None):
-    """World-space sample positions (s, H, W, 3) of slices [start, stop)."""
+
+def _slices_at(config: SdfVolumeConfig, obstructions: SdfObstructions,
+               slice_index: torch.Tensor) -> torch.Tensor:
+    """The slices at `slice_index` ((s,) float32 slice numbers on the
+    obstructions' device): every voxel evaluates every obstruction,
+    min-reduced, then clamped to the band the reference's encoded Rgba64
+    texture can represent, [-(63/255) m, (192/255) m]
+    (DistanceFieldCommon.fxh:264-270) — deliberately asymmetric."""
     f32 = torch.float32
+    device = obstructions.centers.device
     xs = (torch.arange(config.slice_width, dtype=f32, device=device)
           + 0.5) / config.scale_x
     ys = (torch.arange(config.slice_height, dtype=f32, device=device)
           + 0.5) / config.scale_y
-    zs = (torch.arange(slice_start, slice_stop, dtype=f32, device=device)
-          * config.slice_z_size + config.z_offset)
+    zs = slice_index * config.slice_z_size + config.z_offset
     z, y, x = torch.meshgrid(zs, ys, xs, indexing="ij")
-    return torch.stack([x, y, z], dim=-1)
+    d = sdf_primitives.scene_distance(
+        torch.stack([x, y, z], dim=-1), obstructions.types,
+        obstructions.centers, obstructions.sizes, obstructions.rotations)
+    m = config.max_encoded_distance
+    return torch.clamp(d, -(63.0 / 255.0) * m, (192.0 / 255.0) * m)
 
 
 def generate_slab(config: SdfVolumeConfig, obstructions: SdfObstructions,
                   slice_start: int, slice_count: int) -> torch.Tensor:
-    """`slice_count` slices from `slice_start`: every voxel evaluates every
-    obstruction, min-reduced, then clamped to the band the reference's
-    encoded Rgba64 texture can represent, [-(63/255) m, (192/255) m]
-    (DistanceFieldCommon.fxh:264-270) — deliberately asymmetric."""
-    pos = _voxel_world_coords(config, slice_start, slice_start + slice_count,
-                              device=obstructions.centers.device)
-    d = sdf_primitives.scene_distance(
-        pos, obstructions.types, obstructions.centers, obstructions.sizes,
-        obstructions.rotations)
-    m = config.max_encoded_distance
-    return torch.clamp(d, -(63.0 / 255.0) * m, (192.0 / 255.0) * m)
+    """`slice_count` slices from `slice_start` -> (slice_count, H, W)."""
+    return _slices_at(config, obstructions, torch.arange(
+        slice_start, slice_start + slice_count, dtype=torch.float32,
+        device=obstructions.centers.device))
 
 
 def generate_volume(config: SdfVolumeConfig,
@@ -153,6 +177,83 @@ def generate_volume(config: SdfVolumeConfig,
                                  dtype=torch.float32, device=data.device),
         config=config,
     )
+
+
+def update_slices(volume: SdfVolume, slice_start: int,
+                  slab: torch.Tensor) -> SdfVolume:
+    """A copy of `volume` with the regenerated `slab` (s, H, W) written at
+    slice `slice_start`. The slab must fit: any start outside
+    [0, S - s] raises (the JAX package's dynamic_update_slice clamps a
+    traced start, which writes every slice a plane off). A tensor start is
+    read to the host for that check."""
+    start = int(slice_start)
+    stop = start + slab.shape[0]
+    if start < 0 or stop > volume.data.shape[0]:
+        raise ValueError(f"slab [{start}, {stop}) out of range for "
+                         f"{volume.data.shape[0]} slices")
+    data = volume.data.clone()
+    data[start:stop] = slab
+    return volume.replace(data=data)
+
+
+def _generate_slices_at(config: SdfVolumeConfig,
+                        obstructions: SdfObstructions,
+                        slice_index: torch.Tensor) -> torch.Tensor:
+    """One slice (1, H, W) at a 0-d tensor index that stays on the device:
+    the building block of the budgeted regeneration."""
+    return _slices_at(config, obstructions,
+                      slice_index.to(torch.float32).reshape(1))
+
+
+def invalid_slices_for_bounds(config: SdfVolumeConfig,
+                              obstructions: SdfObstructions,
+                              band: float = 0.0) -> torch.Tensor:
+    """Device-side slice invalidation (DistanceField.InvalidSlices,
+    DistanceField.cs:13-16; marked by obstruction bounds in
+    LightingRenderer.DistanceField.cs:415-462) -> (S,) bool.
+
+    A slice is invalid when its world-z plane lies within an active
+    obstruction's conservative radius (|size| covers every primitive under
+    rotation) grown by `band`: how far out a moved surface must stay
+    accurate. Pass the largest distance the frame consumes (a cone radius,
+    a collision band), not max_encoded_distance. OR the masks of several
+    frames to accumulate pending invalidations."""
+    zs = (torch.arange(config.slice_count, dtype=torch.float32,
+                       device=obstructions.centers.device)
+          * config.slice_z_size + config.z_offset)
+    active = obstructions.types != sdf_primitives.TYPE_NONE
+    half = torch.sqrt(torch.sum(obstructions.sizes ** 2, dim=-1)) + band
+    lo = obstructions.centers[:, 2] - half
+    hi = obstructions.centers[:, 2] + half
+    hit = ((zs[:, None] >= lo[None, :]) & (zs[:, None] <= hi[None, :])
+           & active[None, :])
+    return torch.any(hit, dim=1)
+
+
+def regenerate_invalid_budgeted(volume: SdfVolume,
+                                obstructions: SdfObstructions,
+                                invalid: torch.Tensor, budget: int):
+    """MaximumFieldUpdatesPerFrame (LightingRenderer.Configuration.cs:
+    87-91; the slice queue of LightingRenderer.DistanceField.cs:415-462):
+    regenerate up to `budget` invalid slices, lowest index first; the rest
+    stay stale until a later call. -> (volume', invalid') with the
+    regenerated slices cleared from the (S,) bool mask.
+
+    The cost is budget * H * W * N evaluations whatever the mask holds, and
+    no step reads the mask back to the host: the slice to write is a
+    tensor index, and with nothing pending the slice at index 0 is
+    rewritten with its own values."""
+    lanes = torch.arange(volume.config.slice_count, device=invalid.device)
+    data = volume.data.clone()
+    for _ in range(budget):
+        idx = torch.argmax(invalid.to(torch.int32))  # first pending, else 0
+        present = torch.any(invalid)
+        at = idx.reshape(1)
+        slab = _generate_slices_at(volume.config, obstructions, idx)
+        data.index_copy_(0, at, torch.where(present, slab,
+                                            data.index_select(0, at)))
+        invalid = invalid & (lanes != idx)
+    return volume.replace(data=data), invalid
 
 
 def combine_static_dynamic(static_volume: SdfVolume,

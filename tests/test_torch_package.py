@@ -105,10 +105,18 @@ def _entry_points():
     from illuminant_tpu_torch.lighting import directional, line
     from illuminant_tpu_torch.lighting import environment as env
     from illuminant_tpu_torch.lighting import projector, volumetric
+    from illuminant_tpu_torch.lighting.renderer import LightingRenderer
     from illuminant_tpu_torch.particles.system import ParticleSystem
     from illuminant_tpu_torch.sdf.analytic import pack_scene
+    from illuminant_tpu_torch.sdf.height_volume import pack_height_volumes
+    from illuminant_tpu_torch.sdf.volume import SdfObstructions, SdfVolume
 
     return {
+        "LightingRenderer": LightingRenderer.__init__,
+        "pack_height_volumes": pack_height_volumes,
+        "SdfVolume.empty": SdfVolume.empty,
+        "SdfObstructions.empty": SdfObstructions.empty,
+        "SphereLights.empty": env.SphereLights.empty,
         "pack_directional_lights": directional.pack_directional_lights,
         "pack_line_lights": line.pack_line_lights,
         "pack_volumetric_lights": volumetric.pack_volumetric_lights,
@@ -133,3 +141,43 @@ def test_entry_points_default_to_the_card(name):
     default = inspect.signature(_entry_points()[name]).parameters[
         "device"].default
     assert default == "cuda", (name, default)
+
+
+def test_renderer_builds_on_its_device():
+    """Everything a LightingRenderer builds lies on the device it was
+    given: the field partitions, the G-buffer, the lightmap, the image
+    (the new `pack_*` arguments `height_volumes=` and ramp textures too)."""
+    import numpy as np
+    import torch
+
+    from illuminant_tpu_torch.core.config import HDRConfig, RendererConfig
+    from illuminant_tpu_torch.lighting import environment as env
+    from illuminant_tpu_torch.lighting.renderer import LightingRenderer
+    from illuminant_tpu_torch.sdf.analytic import pack_scene
+    from illuminant_tpu_torch.sdf.height_volume import HeightVolume
+    from illuminant_tpu_torch.sdf.volume import SdfVolumeConfig
+
+    scene = env.LightingEnvironment(z_to_y_multiplier=1.0)
+    scene.lights.append(env.SphereLightSource(
+        position=(10.0, 10.0, 8.0), radius=2.0, ramp_length=20.0,
+        ramp_texture=np.ones((1, 4, 3), np.float32)))
+    scene.height_volumes.append(HeightVolume(
+        polygon=[(4.0, 4.0), (12.0, 4.0), (12.0, 12.0)], height=4.0))
+    scene.obstructions.append(env.LightObstruction.box((20.0, 8.0, 4.0),
+                                                       (2.0, 2.0, 4.0)))
+    r = LightingRenderer(
+        RendererConfig(width=32, height=16, two_point_five_d=True), scene,
+        SdfVolumeConfig(virtual_width=32, virtual_height=16,
+                        virtual_depth=16, slice_count=4,
+                        resolution_scale=0.5), device="cpu")
+    cpu = torch.device("cpu")
+    assert r.device == cpu and r.volume.data.device == cpu
+    r.update_fields(budget=4)
+    assert r.gbuffer.z.device == cpu and r.volume.max_valid_z.device == cpu
+    image = r.resolve(r.render_lighting(), HDRConfig(mode=2))
+    assert image.device == cpu and image.shape == (16, 32, 4)
+    field = pack_scene(scene.obstructions,
+                       height_volumes=scene.height_volumes, device="cpu")
+    assert field.polygons.vertices.device == cpu
+    assert env.pack_sphere_lights(scene.lights, device="cpu"
+                                  ).ramp_texture.device == cpu
