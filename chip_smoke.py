@@ -53,6 +53,21 @@ obstruction on the host first:
     equals `generate_volume` of the whole set bit for bit once they stop.
 Neither launches a column kernel (the renderer holds no ColumnField).
 `reference_renderer` holds both at 96x160 on the card to the CPU path.
+
+The particle engine's public API runs as a user drives it:
+  * `slice_particles` (particles-voxel-1080p): BASELINE config 4
+    (demo.py:344-410) at 1080 x 1920 on the voxel slice's ColumnField: a
+    `ParticleSystem` of 1M slots (a spawner of 4096 a tick, the swirl
+    VectorField, an attractor, Noise, a Sensor, collision at 3 substeps)
+    takes `update(1/60)`, `render` (untextured quads), `resolve` and
+    `to_uint8` each of 8 timed frames. Gates: the fused query and its pack
+    launch 5 times a tick and the sampler never, a tick reads nothing back
+    from the device, the Sensor equals a direct count, the ring holds
+    1,048,576 live particles once it has filled (`--warmup 260`);
+  * `reference_particles`: config 2 (plain integrate), config 4 on its
+    analytic field, config 4 with every other modifier on a ColumnField,
+    and the pattern -> feedback pair, each 10 ticks at 96 x 160 on the
+    card against the CPU path from the same host spawn draws.
 Every phase prints one line; the last
 three lines are the kernels' record as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -1014,6 +1029,474 @@ def phase_reference_renderer():
                                  "frame disagrees with the CPU path")
 
 
+# --- the particle engine's public API -------------------------------------
+
+# BASELINE config 4 (demo.py:344-410) at the flagship's width: the cell
+# particles-voxel-1080p. Ticks come from `update(1/60)` at 60 updates a
+# second, one a frame; the ring fills after capacity / spawn_max = 256.
+PARTICLE_FULL = dict(height=1080, width=1920, capacity=1 << 20,
+                     spawn_max=4096)
+PARTICLE_TIMED_FRAMES = 8
+# The small systems of `reference_particles` and of
+# tests/test_torch_particle_system.py.
+PARTICLE_SMALL = dict(height=96, width=160, capacity=1 << 10, spawn_max=64)
+PARTICLE_TICKS = 10
+DT = 1.0 / 60.0
+
+
+def particle_api(device):
+    """The port's classes that the particle systems are built from, by the
+    names both packages give them, and `kw`, the device keywords of the
+    port's allocating calls. A test passes the JAX package's classes (and
+    no keywords) and gets the same systems there."""
+    from types import SimpleNamespace
+
+    from illuminant_tpu_torch.lighting.environment import LightObstruction
+    from illuminant_tpu_torch.ops import sdf_primitives
+    from illuminant_tpu_torch.ops.bezier import pack_bezier
+    from illuminant_tpu_torch.particles import formula, spawner, transforms
+    from illuminant_tpu_torch.particles import system
+    from illuminant_tpu_torch.particles.render_data import RenderDataUniforms
+    from illuminant_tpu_torch.sdf.analytic import pack_scene
+
+    return SimpleNamespace(
+        ParticleSystem=system.ParticleSystem,
+        ParticleSystemConfig=system.ParticleSystemConfig,
+        Spawner=spawner.Spawner, FeedbackSpawner=spawner.FeedbackSpawner,
+        PatternSpawner=spawner.PatternSpawner, formula=formula,
+        tx=transforms, RenderDataUniforms=RenderDataUniforms,
+        pack_bezier=pack_bezier, LightObstruction=LightObstruction,
+        pack_scene=pack_scene, TYPE_BOX=sdf_primitives.TYPE_BOX,
+        kw=dict(device=device))
+
+
+def _frame_scale(height, width):
+    """(s, cx, cy): demo.py's 512 x 512 layouts scaled by s = height / 512
+    about the frame centre."""
+    return height / 512.0, width * 0.5, height * 0.5
+
+
+def swirl_field(n=64):
+    """Config 4's procedural swirl (demo.py:364-371): unit tangents about
+    the field's centre in channels x, y."""
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32)
+    c = n * 0.5
+    fx, fy = -(yy - c), xx - c
+    norm = np.sqrt(fx * fx + fy * fy) + 1e-3
+    field = np.zeros((n, n, 4), np.float32)
+    field[..., 0], field[..., 1] = fx / norm, fy / norm
+    return field
+
+
+def config4_obstructions(api, height, width):
+    """Config 4's box and ellipsoid (demo.py:373-376), xy scaled."""
+    s, cx, cy = _frame_scale(height, width)
+    return [api.LightObstruction.box((cx, cy, 24.0), (26.0 * s, 26.0 * s,
+                                                      24.0)),
+            api.LightObstruction.ellipsoid(
+                (cx - 106.0 * s, cy + 74.0 * s, 20.0),
+                (30.0 * s, 18.0 * s, 20.0))]
+
+
+def config2_system(api, height, width, capacity, spawn_max):
+    """BASELINE config 2 (demo.py:114-174): two attractors over a ring
+    spawner, the plain integrate (no field); rates fill the ring in
+    capacity / spawn_max ticks."""
+    f = api.formula
+    s, cx, cy = _frame_scale(height, width)
+    cfg = api.ParticleSystemConfig(
+        capacity=capacity, updates_per_second=0.0,
+        life_decay_per_second=0.25, friction=0.15,
+        maximum_velocity=400.0 * s)
+    spawner = api.Spawner(
+        min_rate=spawn_max / DT, max_rate=spawn_max / DT,
+        life=f.Formula1(constant=4.0, random_scale=1.0, offset=-0.5),
+        position=f.Formula3(constant=(cx, cy, 0.0),
+                            offset=(60.0 * s, 60.0 * s, 0.0),
+                            random_scale=(20.0 * s, 20.0 * s, 0.0),
+                            type=f.FORMULA_SPHERICAL),
+        velocity=f.Formula3(random_scale=(60.0 * s, 60.0 * s, 0.0),
+                            type=f.FORMULA_SPHERICAL),
+        color=f.Formula4(constant=(0.1, 0.25, 0.9, 0.6),
+                         random_scale=(0.5, 0.3, 0.1, 0.2)),
+        spawn_max=spawn_max, axis_mask=(1.0, 1.0, 0.0))
+    grav = api.tx.Gravity(attractors=[
+        api.tx.Attractor(position=(cx - 106.0 * s, cy - 106.0 * s, 0.0),
+                         radius=400.0 * s, strength=220.0 * s,
+                         falloff_type=api.tx.FALLOFF_LINEAR),
+        api.tx.Attractor(position=(cx + 124.0 * s, cy + 74.0 * s, 0.0),
+                         radius=300.0 * s, strength=260.0 * s,
+                         falloff_type=api.tx.FALLOFF_EXPONENTIAL),
+    ], maximum_acceleration=2000.0 * s)
+    rd = api.RenderDataUniforms.defaults(**api.kw).replace(
+        color_from_life=api.pack_bezier(
+            [[0.0, 0.0, 0.0, 0.0], [1.0, 0.8, 0.5, 1.0]], 0.0, 2.0,
+            **api.kw))
+    return api.ParticleSystem(cfg, [spawner, grav], render_data=rd,
+                              **api.kw)
+
+
+def config4_system(api, field, height, width, capacity, spawn_max,
+                   extra=()):
+    """BASELINE config 4 (demo.py:344-410) on `field`: a stochastic-free
+    ring spawner filling the ring in capacity / spawn_max ticks, the swirl
+    VectorField, a central attractor, the composite scene's Noise
+    (demo.py:272), a Sensor over the centre quarter of the frame, then
+    `extra` transforms; SDF collision at 3 substeps. -> (system, sensor)."""
+    f = api.formula
+    s, cx, cy = _frame_scale(height, width)
+    cfg = api.ParticleSystemConfig(
+        capacity=capacity, updates_per_second=60.0,
+        life_decay_per_second=0.4, friction=0.1,
+        maximum_velocity=220.0 * s, collision_distance=1.0,
+        bounce_velocity_multiplier=0.65, collision_substeps=3)
+    spawner = api.Spawner(
+        min_rate=spawn_max / DT, max_rate=spawn_max / DT,
+        life=f.Formula1(constant=2.5, random_scale=1.0, offset=-0.5),
+        position=f.Formula3(constant=(cx, cy, 10.0),
+                            offset=(170.0 * s, 170.0 * s, 4.0),
+                            random_scale=(30.0 * s, 30.0 * s, 2.0),
+                            type=f.FORMULA_SPHERICAL),
+        velocity=f.Formula3(random_scale=(30.0 * s, 30.0 * s, 0.0),
+                            type=f.FORMULA_SPHERICAL),
+        color=f.Formula4(constant=(0.3, 0.8, 1.0, 0.5),
+                         random_scale=(0.4, 0.2, 0.0, 0.3)),
+        spawn_max=spawn_max)
+    vf = api.tx.VectorField(
+        field=swirl_field(), field_scale=(64.0 / height,) * 2,
+        velocity_scale=(160.0 * s, 160.0 * s, 0.0, 0.0),
+        cycles_per_second=3.0)
+    grav = api.tx.Gravity(attractors=[api.tx.Attractor(
+        position=(cx, cy, 10.0), radius=600.0 * s, strength=60.0 * s,
+        falloff_type=api.tx.FALLOFF_LINEAR)])
+    noise = api.tx.Noise(velocity_scale=(18.0 * s, 18.0 * s, 3.0, 0.0),
+                         cycles_per_second=4.0,
+                         _rng=np.random.default_rng(1))
+    sensor = api.tx.Sensor(area=api.tx.TransformArea(
+        type=api.TYPE_BOX, center=(cx, cy, 0.0),
+        size=(width * 0.25, height * 0.25, 1e4)))
+    system = api.ParticleSystem(cfg, [spawner, vf, grav, noise, sensor,
+                                      *extra], volume=field, **api.kw)
+    return system, sensor
+
+
+def column_transforms(api, height, width):
+    """Every other modifier, for the ColumnField system: spatial noise,
+    an FMA drag inside a box, a MatrixMultiply and a GeometricTransform
+    turning velocities."""
+    s, cx, cy = _frame_scale(height, width)
+    c, n = math.cos(0.02), math.sin(0.02)
+    turn = np.asarray([[c, n, 0, 0], [-n, c, 0, 0], [0, 0, 1, 0],
+                       [0, 0, 0, 1]], np.float32)
+    return [
+        api.tx.spatial_noise(velocity_scale=(12.0 * s, 12.0 * s, 0.0, 0.0),
+                             space_scale=(24.0 * s, 24.0 * s),
+                             cycles_per_second=2.0, interval_seconds=0.1,
+                             _rng=np.random.default_rng(2)),
+        api.tx.FMA(velocity_multiply=(0.5, 0.5, 1.0), cycles_per_second=2.0,
+                   area=api.tx.TransformArea(
+                       type=api.TYPE_BOX, center=(cx + 60.0 * s, cy, 0.0),
+                       size=(50.0 * s, 50.0 * s, 100.0), falloff=8.0)),
+        api.tx.MatrixMultiply(velocity_matrix=turn, cycles_per_second=None),
+        api.tx.GeometricTransform(velocity_rotation=(0.0, 0.0, -0.03),
+                                  velocity_scale=1.01,
+                                  cycles_per_second=None),
+    ]
+
+
+def pattern_feedback_systems(api, height, width, capacity):
+    """demo.py:507-568 at the frame: a PatternSpawner stamps a ring
+    texture; a FeedbackSpawner re-emits sparks from its live particles.
+    Both spawners keep the default spawn_max of 8192, over the capacity
+    of a small system. -> (source, feedback)."""
+    f = api.formula
+    s, cx, cy = _frame_scale(height, width)
+    n = max(int(height * 0.25), 8)
+    ys, xs = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n),
+                         indexing="ij")
+    rr = np.sqrt(ys ** 2 + xs ** 2)
+    pat = np.zeros((n, n, 4), np.float32)
+    pat[(rr > 0.55) & (rr < 0.9)] = [0.9, 0.6, 1.4, 1.0]
+    src = api.ParticleSystem(
+        api.ParticleSystemConfig(capacity=capacity, updates_per_second=0.0,
+                                 life_decay_per_second=0.4),
+        [api.PatternSpawner(image=pat, pixel_scale=2.0,
+                            position=f.Formula3(constant=(cx - n, cy - n,
+                                                          0.0)),
+                            min_rate=5000.0, max_rate=5000.0,
+                            life=f.Formula1(constant=3.0))], **api.kw)
+    feedback = api.FeedbackSpawner(
+        source=src, min_rate=3000.0, max_rate=3000.0,
+        velocity=f.Formula3(random_scale=(30.0 * s, 30.0 * s, 0.0),
+                            type=f.FORMULA_SPHERICAL))
+    grav = api.tx.Gravity(attractors=[api.tx.Attractor(
+        position=(cx, cy + 100.0 * s, 0.0), radius=300.0 * s,
+        strength=60.0 * s, falloff_type=api.tx.FALLOFF_LINEAR)])
+    fb = api.ParticleSystem(
+        api.ParticleSystemConfig(capacity=capacity, updates_per_second=0.0,
+                                 life_decay_per_second=1.2),
+        [feedback, grav], **api.kw)
+    return src, fb
+
+
+def small_column_field(api, height, width, device):
+    """The port's ColumnField of config 4's obstructions on a
+    (height, width) frame: 16 slices at half resolution."""
+    from illuminant_tpu_torch.lighting.environment import LightingEnvironment
+    from illuminant_tpu_torch.sdf.columns import build_column_maps
+    from illuminant_tpu_torch.sdf.volume import (SdfVolumeConfig,
+                                                 generate_volume)
+
+    env = LightingEnvironment()
+    env.obstructions += config4_obstructions(api, height, width)
+    cfg = SdfVolumeConfig(virtual_width=width, virtual_height=height,
+                          virtual_depth=64, slice_count=16,
+                          resolution_scale=0.5)
+    return build_column_maps(generate_volume(
+        cfg, env.pack_obstructions(device=device)))
+
+
+def spawn_draws(systems, ticks, seed=0):
+    """Per tick, per system, one triple of (spawn_max, 4) uniforms per
+    spawner, made on the host from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return [[[tuple(rng.random((s.spawn_max, 4), dtype=np.float32)
+                    for _ in range(3)) for s in system.spawners]
+             for system in systems] for _ in range(ticks)]
+
+
+def small_particle_systems(name, device):
+    """The systems of `reference_particles` case `name` on `device`, in
+    tick order."""
+    api = particle_api(device)
+    h, w, cap, smax = (PARTICLE_SMALL[k] for k in
+                       ("height", "width", "capacity", "spawn_max"))
+    if name == "config2":
+        return [config2_system(api, h, w, cap, smax)]
+    if name == "config4_analytic":
+        field = api.pack_scene(config4_obstructions(api, h, w), **api.kw)
+        return [config4_system(api, field, h, w, cap, smax)[0]]
+    if name == "column_field":
+        field = small_column_field(api, h, w, device)
+        return [config4_system(api, field, h, w, cap, smax,
+                               extra=column_transforms(api, h, w))[0]]
+    return list(pattern_feedback_systems(api, h, w, cap))
+
+
+def run_small_particles(name, device, draws, random_fields=None):
+    """PARTICLE_TICKS ticks of case `name` on `device` with the given
+    draws -> (systems, the sum of their rendered images as numpy, the
+    fused-query launches). `random_fields`: the Noise fields to use, one a
+    system (a device's generator draws its own)."""
+    from illuminant_tpu_torch.ops.noise import RandomField
+    from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    systems = small_particle_systems(name, device)
+    for system, field in zip(systems, random_fields or ()):
+        system.random_field = RandomField(data=field.to(device))
+    ck.QUERY_LAUNCHES = 0
+    for tick in draws:
+        for system, d in zip(systems, tick):
+            system.tick(DT, spawn_uniforms=d)
+    launches = ck.QUERY_LAUNCHES
+    cfg = TiledRasterConfig(height=PARTICLE_SMALL["height"],
+                            width=PARTICLE_SMALL["width"])
+    img = sum(s.render(cfg)[0] for s in systems)
+    return systems, img.cpu().numpy(), launches
+
+
+PARTICLE_CASES = ("config2", "config4_analytic", "column_field",
+                  "pattern_feedback")
+
+
+def phase_reference_particles():
+    """The small systems on the card against the port's CPU path (which
+    the CPU tests hold to the JAX package), 10 ticks from the same host
+    draws and the CPU systems' Noise fields: equal live masks, 99% of
+    live particles within 1e-3 and all within 0.05 (a particle within the
+    float rounding of a collision threshold may resolve the other way on
+    the card), images within 1% of
+    their mean. The ColumnField case launches the fused query 5 times a
+    tick."""
+    for name in PARTICLE_CASES:
+        probe = small_particle_systems(name, "cpu")
+        draws = spawn_draws(probe, PARTICLE_TICKS)
+        cpu, img_c, _ = run_small_particles(name, "cpu", draws)
+        cuda, img_g, launches = run_small_particles(
+            name, "cuda", draws, [s.random_field.data for s in cpu])
+        same_live, within, within_1e3 = True, 1.0, 1.0
+        for a, b in zip(cpu, cuda):
+            pa, pb = a.state.position.numpy(), b.state.position.cpu().numpy()
+            live = pa[:, 3] > 0
+            same_live &= bool(np.array_equal(live, pb[:, 3] > 0))
+            err = np.abs(pa[live] - pb[live]).max(axis=1)
+            within = min(within, float((err <= 0.05).mean()))
+            within_1e3 = min(within_1e3, float((err <= 1e-3).mean()))
+        img_err = float(np.abs(img_g - img_c).mean()
+                        / max(np.abs(img_c).mean(), 1e-12))
+        live = sum(s.live_count for s in cpu)
+        say("reference_particles", case=name,
+            size=f"{PARTICLE_SMALL['height']}x{PARTICLE_SMALL['width']}",
+            ticks=PARTICLE_TICKS, live=live, same_live=same_live,
+            particles_within_0p05=within, particles_within_1e3=within_1e3,
+            image_mean_rel_err=f"{img_err:.2e}",
+            column_query_launches=launches)
+        expected = 5 * PARTICLE_TICKS if name == "column_field" else 0
+        if not (live > 0 and same_live and within == 1.0
+                and within_1e3 >= 0.99 and img_err <= 0.01):
+            raise AssertionError(f"reference_particles ({name}): the card's "
+                                 "systems disagree with the CPU path")
+        if launches != expected:
+            raise AssertionError(f"reference_particles ({name}): the fused "
+                                 f"query launched {launches} times in "
+                                 f"{PARTICLE_TICKS} ticks, expected "
+                                 f"{expected}")
+
+
+def _sensor_direct_count(sensor, state):
+    """The live particles (life > 1) whose box distance to the sensor's
+    area is below 0.99 (weight > 0.01 at falloff 1), counted on the host
+    in float64, and how many lie within 1e-3 of that edge."""
+    a = sensor.area
+    p = state.position.cpu().numpy().astype(np.float64)
+    q = np.abs(p[:, :3] - np.asarray(a.center)) - np.asarray(a.size)
+    d = (np.linalg.norm(np.maximum(q, 0.0), axis=1)
+         + np.minimum(q.max(axis=1), 0.0))
+    live = p[:, 3] > 1.0
+    return (int((live & (d < 0.99)).sum()),
+            int((live & (np.abs(d - 0.99) < 1e-3)).sum()))
+
+
+def particle_frame(system, raster, hdr):
+    """One frame of the particle cell: a tick through `update`, the
+    additive render, the resolve, the uint8 image."""
+    from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
+
+    system.update(DT)
+    img, _ = system.render(raster)
+    return to_uint8(resolve(img, hdr))
+
+
+def _particle_cell(field, warmup):
+    """The particles-voxel-1080p system after `warmup` frames, its raster
+    config and its resolve."""
+    from illuminant_tpu_torch.core.config import HDRConfig
+    from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
+
+    api = particle_api(torch.device("cuda"))
+    system, sensor = config4_system(api, field, **PARTICLE_FULL)
+    raster = TiledRasterConfig(height=PARTICLE_FULL["height"],
+                               width=PARTICLE_FULL["width"])
+    hdr = HDRConfig(mode=2, exposure=2.2, white_point=3.0, srgb_output=True)
+    for _ in range(warmup):
+        particle_frame(system, raster, hdr)
+    torch.cuda.synchronize()
+    return system, sensor, raster, hdr
+
+
+def phase_slice_particles(field, warmup: int):
+    """The particle cell at full width: `warmup` frames, then the timed
+    frames, each fenced by a synchronize, with CUDA events splitting the
+    tick from the render; then one more tick under the host-read counter,
+    and the gates. Returns (launches, ms_per_frame)."""
+    from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+    from illuminant_tpu_torch.sdf.analytic import scene_sample_p
+
+    torch.cuda.reset_peak_memory_stats()
+    system, sensor, raster, hdr = _particle_cell(field, warmup)
+    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    tick_ms, render_ms = [], []
+    t0 = time.perf_counter()
+    for _ in range(PARTICLE_TIMED_FRAMES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        system.update(DT)
+        ev[1].record()
+        img, _ = system.render(raster)
+        image = to_uint8(resolve(img, hdr))
+        ev[2].record()
+        torch.cuda.synchronize()
+        tick_ms.append(ev[0].elapsed_time(ev[1]))
+        render_ms.append(ev[1].elapsed_time(ev[2]))
+    ms_per_frame = 1e3 * (time.perf_counter() - t0) / PARTICLE_TIMED_FRAMES
+    launches = dict(column_query=ck.QUERY_LAUNCHES,
+                    column_maps_pack=ck.PACK_LAUNCHES,
+                    column_maps_sample=ck.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with HostReads() as reads:
+        system.update(DT)
+    torch.cuda.synchronize()
+    state = system.state
+    live = system.live_count
+    inside = sensor.measure(state)
+    direct, edge = _sensor_direct_count(sensor, state)
+    pos = state.position
+    alive = pos[:, 3] > 0
+    d = scene_sample_p(field, pos[:, 0], pos[:, 1], pos[:, 2])
+    deep = float(((d < -system.config.collision_distance) & alive).sum()
+                 / max(live, 1))
+    img_np = image.cpu().numpy()
+    say("slice_particles", cell="particles-voxel-1080p", warmup=warmup,
+        frames=PARTICLE_TIMED_FRAMES, ms_per_frame=f"{ms_per_frame:.3f}",
+        tick_ms=f"{sum(tick_ms) / len(tick_ms):.3f}",
+        render_ms=f"{sum(render_ms) / len(render_ms):.3f}",
+        live_particles=live, peak_mem_gb=f"{peak_gb:.3f}",
+        image=f"{img_np.shape}/{img_np.dtype}",
+        image_mean=f"{img_np[..., :3].mean():.3f}",
+        column_query_per_tick=launches["column_query"]
+        / PARTICLE_TIMED_FRAMES,
+        column_maps_pack_per_tick=launches["column_maps_pack"]
+        / PARTICLE_TIMED_FRAMES,
+        column_maps_sample_launches=launches["column_maps_sample"],
+        host_reads_per_tick=reads.n, sensor=inside, sensor_direct=direct,
+        sensor_edge=edge, deeper_than_collision_distance=f"{deep:.5f}")
+    if img_np.shape != (PARTICLE_FULL["height"], PARTICLE_FULL["width"], 4) \
+            or img_np.dtype != np.uint8:
+        raise AssertionError(f"slice_particles: image {img_np.shape}")
+    if not (bool(torch.isfinite(img).all())
+            and img_np[..., :3].astype(np.float64).var() > 0.0):
+        raise AssertionError("slice_particles: the frame is flat or not "
+                             "finite")
+    if not live > 0:
+        raise AssertionError("slice_particles: no live particles")
+    full = PARTICLE_FULL["capacity"]
+    if warmup >= full // PARTICLE_FULL["spawn_max"] and live != full:
+        raise AssertionError(f"slice_particles: {live} live particles after "
+                             f"the ring filled, expected {full}")
+    expected = dict(column_query=5 * PARTICLE_TIMED_FRAMES,
+                    column_maps_pack=5 * PARTICLE_TIMED_FRAMES,
+                    column_maps_sample=0)
+    if launches != expected:
+        raise AssertionError(f"slice_particles: column kernels launched "
+                             f"{launches} times in {PARTICLE_TIMED_FRAMES} "
+                             f"ticks, expected {expected}")
+    if abs(inside - direct) > edge:
+        raise AssertionError(f"slice_particles: the sensor counted {inside}, "
+                             f"a direct count {direct} (+-{edge})")
+    if reads.n:
+        raise AssertionError(f"slice_particles: a tick read the device "
+                             f"{reads.n} times")
+    return launches, ms_per_frame
+
+
+def phase_profile_particles(field, warmup, frame_ms, out_dir):
+    """Two traced frames of the particle cell, on a system built anew and
+    run through the same warm-up and timed frames: the tables, the busy
+    time, the idle share and the host reads per frame (each frame one
+    tick) as in `phase_profile`."""
+    system, _, raster, hdr = _particle_cell(
+        field, warmup + PARTICLE_TIMED_FRAMES + 1)
+
+    def two_frames():
+        for _ in range(2):
+            particle_frame(system, raster, hdr)
+            torch.cuda.synchronize()
+
+    _traced("slice_particles", out_dir, frame_ms, two_frames)
+
+
 def _busy_us(events) -> tuple:
     """(union of the device events' intervals, sum of their durations),
     in microseconds. The union counts overlapping work once; the stage
@@ -1146,12 +1629,14 @@ def main(argv=None) -> int:
             name, scene, args.warmup, TIMED_FRAMES)
         if name == "slice":
             kernel.update(phase_frame_points(field, state))
-            del field
         scene = state = None
         torch.cuda.empty_cache()
     for name in RENDERER_FRAMES:
         frame_ms[name] = phase_slice_renderer(name)
         torch.cuda.empty_cache()
+    particle_launches, frame_ms["slice_particles"] = phase_slice_particles(
+        field, args.warmup)
+    torch.cuda.empty_cache()
     # Profiled after every slice is timed: a profiler session slows the
     # launches that follow it in the process.
     for name in SLICES if args.profile else ():
@@ -1160,14 +1645,21 @@ def main(argv=None) -> int:
     for name in RENDERER_FRAMES if args.profile else ():
         phase_profile_renderer(name, frame_ms[name], args.profile)
         torch.cuda.empty_cache()
+    if args.profile:
+        phase_profile_particles(field, args.warmup,
+                                frame_ms["slice_particles"], args.profile)
+    del field
     phase_reference()
     phase_reference_analytic()
     phase_reference_family()
     phase_reference_renderer()
+    phase_reference_particles()
     # Each kernel at the heavier of the frame's calls: the query with the
     # unit gradient, the sampler with the derivative rows; the other calls
     # are in the [kernel] lines above. "ms" is one call of the wrapper the
     # frame calls (the query and the sampler include their pack).
+    # "launches" counts the voxel flagship's timed frames,
+    # "launches_particles" the particle cell's timed ticks.
     rows = [("column_query", "illuminant_tpu/sdf/columns_pallas.py:78",
              kernel["query", True]),
             ("column_maps_sample", "illuminant_tpu/sdf/columns_pallas.py:78",
@@ -1180,6 +1672,7 @@ def main(argv=None) -> int:
         "source": "illuminant_tpu_torch/csrc/column_maps.cu",
         "replaces": replaces,
         "launches": launches["slice"][name],
+        "launches_particles": particle_launches[name],
         "max_abs_err": r["err"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],

@@ -12,8 +12,12 @@ partial regeneration left), SdfObstructions, ColumnField, ParticleState,
 SphereLights (with ramp textures), DirectionalLights, LineLights,
 VolumetricLights, ProjectorLights (with its tuple of mip levels),
 EnvironmentUniforms, GBuffer (a windowed view with its `pixel_origin`, or
-one written by height volumes and billboards), SpawnUniforms,
-GravityUniforms and SystemUniforms.
+one written by height volumes and billboards), SystemUniforms, the
+particle engine's uniforms (SpawnUniforms, FeedbackUniforms,
+GravityUniforms, FMAUniforms, MatrixMultiplyUniforms, NoiseUniforms,
+VectorFieldUniforms, AreaUniforms; RenderDataUniforms with its beziers and
+life ramp) and RandomField. Static fields (`use_velocity_rotation`,
+`is_constant`) stay Python values.
 """
 
 from __future__ import annotations
@@ -30,9 +34,14 @@ from ..lighting.gbuffer import GBuffer
 from ..lighting.line import LineLights
 from ..lighting.projector import ProjectorLights
 from ..lighting.volumetric import VolumetricLights
-from ..particles.spawner import SpawnUniforms
+from ..ops.bezier import ClampedBezier
+from ..ops.noise import RandomField
+from ..particles.render_data import RenderDataUniforms
+from ..particles.spawner import FeedbackUniforms, SpawnUniforms
 from ..particles.state import ParticleState, SystemUniforms
-from ..particles.transforms import GravityUniforms
+from ..particles.transforms import (AreaUniforms, FMAUniforms,
+                                    GravityUniforms, MatrixMultiplyUniforms,
+                                    NoiseUniforms, VectorFieldUniforms)
 from ..sdf.analytic import AnalyticScene
 from ..sdf.columns import ColumnField
 from ..sdf.height_volume import HeightVolumes
@@ -43,13 +52,23 @@ _NESTED = {
     SdfVolume: {"config": SdfVolumeConfig},
     ColumnField: {"volume": SdfVolume},
     AnalyticScene: {"polygons": HeightVolumes},
+    FeedbackUniforms: {"base": SpawnUniforms},
+    RenderDataUniforms: {name: ClampedBezier for name in (
+        "color_from_life", "color_from_velocity", "size_from_life",
+        "size_from_velocity")},
+    **{cls: {"area": AreaUniforms} for cls in (
+        FMAUniforms, MatrixMultiplyUniforms, NoiseUniforms,
+        VectorFieldUniforms)},
 }
 
 SUPPORTED = (AnalyticScene, HeightVolumes, SdfVolume, SdfVolumeConfig,
              SdfObstructions, ColumnField, ParticleState, SphereLights,
              DirectionalLights, LineLights,
              VolumetricLights, ProjectorLights, EnvironmentUniforms, GBuffer,
-             SpawnUniforms, GravityUniforms, SystemUniforms)
+             SystemUniforms, SpawnUniforms, FeedbackUniforms, GravityUniforms,
+             FMAUniforms, MatrixMultiplyUniforms, NoiseUniforms,
+             VectorFieldUniforms, AreaUniforms, RenderDataUniforms,
+             ClampedBezier, RandomField)
 
 
 def _as_numpy(v):

@@ -91,6 +91,11 @@ class Formula3:
     offset: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     type: int = FORMULA_LINEAR
 
+    @staticmethod
+    def unit_normal(scale=1.0):
+        """Formula.cs UnitNormal preset: random unit vector * scale."""
+        return Formula3(random_scale=(scale,) * 3, type=FORMULA_SPHERICAL)
+
 
 @dataclasses.dataclass
 class Formula4:

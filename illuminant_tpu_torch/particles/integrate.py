@@ -1,11 +1,13 @@
-"""SDF-collision particle integrator.
+"""Particle integrators: plain Euler and SDF collision.
 
-Counterpart of illuminant_tpu/particles/integrate.py:
-integrate_with_distance_field (UpdateParticleSystemWithDistanceField.fx:
-29-147) against any field: friction and maximum velocity, life decay, the
-initial distance sample, up to `substeps` sphere-trace steps with
-backtracking, the collision normal, and the bounce / escape / redirect
-outcomes, all branchless per particle over planar (N,) components.
+Counterpart of illuminant_tpu/particles/integrate.py. `integrate` is the
+plain Euler step (UpdateParticleSystem.fx PS_Update :9-38), the route of a
+system without a field. `integrate_with_distance_field`
+(UpdateParticleSystemWithDistanceField.fx:29-147) runs against any
+field: friction and maximum velocity, life decay, the initial distance
+sample, up to `substeps` sphere-trace steps with backtracking, the
+collision normal, and the bounce / escape / redirect outcomes, all
+branchless per particle over planar (N,) components.
   * One substep on a ColumnField: the step sample returns the unit
     gradient too, in one launch of the fused column query (two launches
     per call with the initial distance; at three substeps five: the
@@ -23,7 +25,8 @@ from ..core.pytree import named_scope
 from ..sdf.analytic import (scene_normal_p, scene_sample_grad_p,
                             scene_sample_p)
 from .render_data import RenderDataUniforms, compute_render_data
-from .state import ParticleState, SystemUniforms
+from .state import (ParticleState, SystemUniforms,
+                    friction_and_maximum_length)
 
 # UpdateParticleSystemWithDistanceField.fx:12-25.
 MAX_STEP_COUNT = 3
@@ -37,15 +40,13 @@ def _len3(x, y, z, eps=1e-12):
     return torch.sqrt(x * x + y * y + z * z + eps)
 
 
-def _friction_max_p(vx, vy, vz, su: SystemUniforms, v_len):
-    """applyFrictionAndMaximum (UpdateCommon.fxh:20-35), planar; returns
-    the scaled velocity and its new length."""
-    l = v_len
-    max_v = su.maximum_velocity
-    clamped = torch.minimum(l, max_v)
-    friction = clamped * su.friction
-    new_l = torch.minimum(torch.clamp(clamped - friction * su.dt, min=0.0),
-                          max_v)
+def _friction_max_p(vx, vy, vz, su: SystemUniforms, v_len=None):
+    """applyFrictionAndMaximum (UpdateCommon.fxh:20-35), planar, with the
+    speed arithmetic of state.apply_friction_and_maximum; returns the
+    scaled velocity and its new length. Without `v_len` the length is
+    computed as the JAX package's plain integrate does (eps 1e-20)."""
+    l = _len3(vx, vy, vz, 1e-20) if v_len is None else v_len
+    new_l = friction_and_maximum_length(l, su)
     small = l <= 0.001
     m = torch.where(small, 0.0, new_l / l)
     return vx * m, vy * m, vz * m, torch.where(small, 0.0, new_l)
@@ -62,6 +63,42 @@ def _slot_hash_direction(n: int, device):
     fby = (h2 >> 16).to(torch.float32) / 32768.0 - 1.0
     fb_len = _len3(fbx, fby, torch.zeros_like(fbx), 1e-6)
     return fbx / fb_len, fby / fb_len
+
+
+def _render(state, new_pos, new_vel, rd):
+    index = torch.arange(state.capacity, dtype=torch.int32,
+                         device=new_pos.device)
+    render_color, render_data = compute_render_data(
+        new_pos, new_vel, state.color, index, rd)
+    return state.replace(position=new_pos, velocity=new_vel,
+                         render_color=render_color, render_data=render_data)
+
+
+@named_scope("illuminant/particle_integrate")
+def integrate(state: ParticleState, su: SystemUniforms,
+              rd: RenderDataUniforms) -> ParticleState:
+    """Plain Euler (UpdateParticleSystem.fx PS_Update): friction and
+    maximum velocity, life decay, position += v dt; a particle that dies
+    this step is zeroed. Returns a new state."""
+    pos = state.position
+    vel = state.velocity
+    dt = su.dt
+    vx, vy, vz, _ = _friction_max_p(vel[:, 0], vel[:, 1], vel[:, 2], su)
+    new_life = pos[:, 3] - su.life_decay * dt
+    was_alive = pos[:, 3] > 0.0
+    keep = (new_life > 0.0) & was_alive
+
+    def sel(new, old):
+        return torch.where(keep, new, torch.where(was_alive, 0.0, old))
+
+    new_pos = torch.stack([sel(pos[:, 0] + vx * dt, pos[:, 0]),
+                           sel(pos[:, 1] + vy * dt, pos[:, 1]),
+                           sel(pos[:, 2] + vz * dt, pos[:, 2]),
+                           sel(new_life, pos[:, 3])], dim=-1)
+    new_vel = torch.stack([sel(vx, vel[:, 0]), sel(vy, vel[:, 1]),
+                           sel(vz, vel[:, 2]), sel(vel[:, 3], vel[:, 3])],
+                          dim=-1)
+    return _render(state, new_pos, new_vel, rd)
 
 
 @named_scope("illuminant/particle_integrate")
@@ -226,9 +263,4 @@ def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
     new_vel = torch.stack([sel(out_vx, vel[:, 0]), sel(out_vy, vel[:, 1]),
                            sel(out_vz, vel[:, 2]), sel(out_w, vel[:, 3])],
                           dim=-1)
-    index = torch.arange(state.capacity, dtype=torch.int32,
-                         device=pos.device)
-    render_color, render_data = compute_render_data(
-        new_pos, new_vel, state.color, index, rd)
-    return state.replace(position=new_pos, velocity=new_vel,
-                         render_color=render_color, render_data=render_data)
+    return _render(state, new_pos, new_vel, rd)

@@ -1,11 +1,14 @@
-"""Particle spawning (counterpart of illuminant_tpu/particles/spawner.py:
-`Spawner`, `SpawnUniforms` and `spawn` with one ring).
+"""Particle spawning (counterpart of illuminant_tpu/particles/spawner.py).
 
-Host side: the stochastic rate with error carry (ParticleSpawner.cs:
-152-196). Device side: Spawn_Stage1/2 (SpawnerCommon.fxh:119-190) —
-per-slot randomness -> position / velocity / life / color formulas -> post
-matrices -> attribute discard, written at the ring cursor. A spawn writes
-at most `spawn_max` slots per tick, masked by the actual count.
+Host side: the stochastic rate with error carry, CountScale and the
+MaximumTotal clamp (ParticleSpawner.cs:126-196), with the same seeded
+numpy stream as the JAX package, so both count draw for draw. Device side:
+Spawn_Stage1/2 (SpawnerCommon.fxh:119-190) — per-slot randomness ->
+position / velocity / life / color formulas -> post matrices -> attribute
+discard, written at the ring cursor; `spawn_feedback` (SpawnParticles.fx
+PS_SpawnFeedback :55-118) takes its inputs from another system's
+particles. A spawn writes at most `spawn_max` slots per tick, masked by
+the actual count. The ring's `sub_rings` partition is ROADMAP M15.
 
 Randomness: the JAX package draws three (spawn_max, 4) uniform arrays
 from a threefry key (spawner.py:108-111), which PyTorch cannot reproduce.
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.pytree import named_scope, tensor_dataclass
+from ..core.upload import cached_upload
 from ..ops.bezier import BezierM, evaluate_bezier_matrix
 from ..ops.coords import mul_point_rows
 from .formula import (FORMULA_SPHERICAL, Formula1, Formula3, Formula4,
@@ -44,6 +48,9 @@ class SpawnUniforms:
     attribute_discard_threshold: torch.Tensor  # ()
     polygon_rate: torch.Tensor  # (); <= 0.05 disables the polygon walk
     polygon_loop: torch.Tensor  # ()
+    # Per-position-constant color multipliers (PatternSpawner's pixel
+    # colors); None for plain spawners.
+    position_colors: Optional[torch.Tensor] = None  # (P, 4)
 
 
 def _draws(spawn_max: int, device, generator, uniforms):
@@ -64,29 +71,69 @@ def _draws(spawn_max: int, device, generator, uniforms):
             for _ in range(3)]
 
 
+def _count(count, device):
+    """A host int stays an int (no upload); a tensor count moves to the
+    state's device as int32."""
+    if isinstance(count, torch.Tensor):
+        return count.to(device=device, dtype=torch.int32)
+    return int(count)
+
+
+def _window_write(state: ParticleState, rel, mask, rows, n: int,
+                  spawn_max: int):
+    """Write rows[j] into slot (cursor + j) mod n where mask[j], in place.
+    Within the capacity the slots are distinct: a plain indexed write.
+    Past it the window overlaps itself and the newest row of each slot
+    wins (the reference's ring overwrites in order), picked by a max over
+    row numbers, so the write stays deterministic."""
+    idx = torch.remainder(state.write_cursor.long() + rel.long(), n)
+    arrays = (state.position, state.velocity, state.color)
+    if spawn_max <= n:
+        keep = mask[:, None]
+        for arr, new_rows in zip(arrays, rows):
+            arr[idx] = torch.where(keep, new_rows, arr[idx])
+        return
+    winner = torch.full((n,), -1, dtype=torch.int64, device=idx.device)
+    winner.scatter_reduce_(0, idx, torch.where(mask, rel.long(), -1),
+                           reduce="amax")
+    hit = (winner >= 0)[:, None]
+    src = torch.clamp(winner, min=0)
+    for arr, new_rows in zip(arrays, rows):
+        arr.copy_(torch.where(hit, new_rows[src], arr))
+
+
+def _advance(state: ParticleState, count, n: int) -> ParticleState:
+    return state.replace(
+        write_cursor=torch.remainder(state.write_cursor + count, n)
+        .to(torch.int32),
+        total_spawned=(state.total_spawned + count).to(torch.int32))
+
+
 @named_scope("illuminant/particle_spawn")
 def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
           generator: Optional[torch.Generator] = None,
-          uniforms: Optional[Sequence] = None) -> ParticleState:
+          uniforms: Optional[Sequence] = None,
+          sub_rings: int = 1) -> ParticleState:
     """Write up to `spawn_max` new particles at the ring cursor, the first
-    `count` of them (an int or 0-d tensor), as one contiguous window
-    modulo the capacity.
+    `count` of them (a host int, or a 0-d tensor), as one window modulo
+    the capacity; a window longer than the capacity keeps each slot's
+    newest row.
 
     Randomness comes from `generator` (draws on the state's device) or
     from `uniforms`, three (spawn_max, 4) arrays in [0, 1) standing in for
     the JAX package's random1..3.
 
     Updates state.position / velocity / color IN PLACE (the counterpart of
-    the JAX frame donating the state buffers) and returns the state with
+    the JAX step donating the state buffers) and returns the state with
     the cursor and total advanced."""
-    n = state.capacity
-    if spawn_max > n:
+    if sub_rings != 1:
         raise NotImplementedError(
-            "spawn_max above the capacity (the self-overlapping ring "
-            "window) is not ported yet (ROADMAP M5)")
+            f"spawn(sub_rings={sub_rings}): the partitioned ring is not "
+            "ported yet (ROADMAP M15)")
+    n = state.capacity
     dev = state.position.device
     f32 = torch.float32
-    count = torch.as_tensor(count, dtype=torch.int32, device=dev)
+    count = _count(count, dev)
     rel = torch.arange(spawn_max, dtype=torch.int32, device=dev)
     mask = rel < count
 
@@ -144,34 +191,23 @@ def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
     new_velocity = mul_point_rows(temp_velocity, u.velocity_matrix)
 
     attr_constant = torch.broadcast_to(u.config[5], temp_position.shape)
+    if u.position_colors is not None:
+        # The pattern pixel's color multiplies the color constant
+        # (PatternSpawner.fx:70-74); the random terms stay untinted.
+        attr_constant = attr_constant * u.position_colors[idx1.long()]
     new_attributes = evaluate_formula(
         zero, attr_constant, u.config[6], u.config[7], random3,
         u.formula_types[2], u.axis_mask)
 
     mask = mask & (new_attributes[:, 3] >= u.attribute_discard_threshold)
-
-    # The window [cursor, cursor + spawn_max) is contiguous modulo the
-    # capacity and spawn_max <= capacity, so its slots are distinct: a
-    # plain indexed write; masked rows keep their old values.
-    idx = torch.remainder(state.write_cursor.long() + rel.long(), n)
-    keep = mask[:, None]
-    for arr, new_rows in ((state.position, new_position),
-                          (state.velocity, new_velocity),
-                          (state.color, new_attributes)):
-        arr[idx] = torch.where(keep, new_rows, arr[idx])
-
-    return state.replace(
-        write_cursor=torch.remainder(state.write_cursor + count, n)
-        .to(torch.int32),
-        total_spawned=(state.total_spawned + count).to(torch.int32),
-    )
+    _window_write(state, rel, mask, (new_position, new_velocity,
+                                     new_attributes), n, spawn_max)
+    return _advance(state, count, n)
 
 
 @dataclasses.dataclass
 class Spawner:
-    """Host spawner (SpawnerBase + Spawner, ParticleSpawner.cs). Additional
-    positions, polygon paths and the feedback / pattern spawners are
-    ROADMAP M13."""
+    """Host spawner (SpawnerBase + Spawner, ParticleSpawner.cs)."""
 
     min_rate: float = 0.0  # particles per second
     max_rate: float = 0.0
@@ -181,6 +217,7 @@ class Spawner:
     velocity: Formula3 = dataclasses.field(default_factory=Formula3)
     color: Formula4 = dataclasses.field(default_factory=Formula4)
     category: Formula1 = dataclasses.field(default_factory=Formula1)
+    additional_positions: list = dataclasses.field(default_factory=list)
     axis_mask: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     align_velocity_and_position: bool = False
     maximum_total: Optional[int] = None
@@ -189,18 +226,56 @@ class Spawner:
     alpha_discard_threshold: float = 0.0
     spawn_max: int = 8192  # per-tick cap
     seed: int = 0
+    # Polygon-path spawning (Spawner, ParticleSpawner.cs:262-419).
+    polygon_rate: float = 0.0
+    polygon_loop: bool = False
+    velocity_along_polygon: Optional[Formula1] = None
+    # RatePerPosition (ParticleSpawner.cs:286): the rate is per emission
+    # stream and multiplies by count_scale().
+    rate_per_position: bool = True
+    is_spawner = True
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
         self.rate_error = 0.0
         self.total_spawned = 0
 
-    def begin_tick(self, now: float, dt: float) -> int:
+    def reset(self):
+        """Zero the accumulators and re-seed the rate stream, so that a
+        reset system reproduces its run."""
+        self.rate_error = 0.0
+        self.total_spawned = 0
+        self._rng = np.random.default_rng(self.seed)
+        if hasattr(self, "read_cursor"):
+            self.read_cursor = 0
+
+    def carry_runtime_from(self, other: "Spawner"):
+        """Adopt another spawner's rate error, RNG stream, spawn total and
+        feedback cursor (a live property patch keeps emitting smoothly)."""
+        self._rng = other._rng
+        self.rate_error = other.rate_error
+        self.total_spawned = other.total_spawned
+        if hasattr(other, "read_cursor") and hasattr(self, "read_cursor"):
+            self.read_cursor = other.read_cursor
+
+    def count_scale(self) -> int:
+        """CountScale (ParticleSpawner.cs:126-131, 301-305): one emission
+        stream per additional position, +1 when the polygon loops."""
+        if not self.rate_per_position:
+            return 1
+        return max(len(self.additional_positions)
+                   + (1 if self.polygon_loop else 0), 1)
+
+    def begin_tick(self, now: float, dt: float,
+                   granularity: int = 1) -> int:
         """BeginTick (ParticleSpawner.cs:152-196): the stochastic count
-        with error carry; the excess over spawn_max re-enters the carry."""
+        with error carry, scaled by count_scale (MaximumTotal too); the
+        excess over spawn_max re-enters the carry. `granularity` > 1
+        rounds the count down to a multiple and carries the remainder."""
         min_rate = min(self.min_rate, self.max_rate)
+        scale = self.count_scale()
         current = (self._rng.uniform() * (self.max_rate - min_rate)
-                   + min_rate) * dt
+                   + min_rate) * scale * dt
         current += self.rate_error
         self.rate_error = 0.0
         if current < 1.0:
@@ -209,21 +284,48 @@ class Spawner:
         else:
             count = int(current)
             self.rate_error = current - count
+        finishing = False
         if self.maximum_total is not None:
-            remaining = self.maximum_total - self.total_spawned
+            remaining = self.maximum_total * scale - self.total_spawned
             if count >= remaining:
                 count = max(remaining, 0)
                 self.rate_error = 0.0
+                finishing = True
         if count > self.spawn_max:
             self.rate_error += count - self.spawn_max
             count = self.spawn_max
+            finishing = False
+        if granularity > 1:
+            rem = count % granularity
+            count -= rem
+            if finishing:
+                # The last sub-granularity remainder can never spawn.
+                self.total_spawned += rem
+            else:
+                self.rate_error += rem
         self.total_spawned += count
         return count
 
+    def estimate_maximum_life(self, now: float) -> float:
+        """EstimateMaximumLifeForNewParticle (ParticleSpawner.cs:132-140)."""
+        c, o, s = self.life.constant, self.life.offset, self.life.random_scale
+        return max(c + o * s, c - o * s)
+
+    def _post_matrix(self, name, m, now, device):
+        """A static matrix, or an animated Parameter<DynamicMatrix> (a
+        BezierM) evaluated at the current time."""
+        if m is None:
+            return cached_upload(self, name, np.eye(4), device)
+        if isinstance(m, BezierM):
+            return evaluate_bezier_matrix(m, now).to(device)
+        return cached_upload(self, name, m, device)
+
     def uniforms(self, now: float, device=None) -> SpawnUniforms:
-        pc = np.asarray([(*self.position.constant, self.life.constant)],
-                        np.float32)
+        pos_constants = [(*self.position.constant, self.life.constant)]
+        for p in self.additional_positions:
+            pos_constants.append((*p, self.life.constant))
         config = np.zeros((9, 4), np.float32)
+        # Pack order (ParticleSpawner.cs:220-227).
         config[0] = (*self.position.random_scale, self.life.random_scale)
         config[1] = (*self.position.offset, self.life.offset)
         config[2] = (*self.velocity.constant, self.category.constant)
@@ -232,34 +334,250 @@ class Spawner:
         config[5] = self.color.constant
         config[6] = self.color.random_scale
         config[7] = self.color.offset
+        if self.velocity_along_polygon is not None:
+            vap = self.velocity_along_polygon
+            config[8, :3] = [vap.constant, vap.random_scale, vap.offset]
 
-        def f32(v):
-            return torch.as_tensor(np.asarray(v, np.float32), device=device)
+        def up(name, value):
+            return cached_upload(self, name, value, device)
 
-        def post_matrix(m):
-            # A BezierM is an animated Parameter<DynamicMatrix>, evaluated
-            # at the current time.
-            if m is None:
-                return f32(np.eye(4))
-            if isinstance(m, BezierM):
-                return evaluate_bezier_matrix(m, now).to(device)
-            return f32(m)
-
+        # Only honoured when both formulas are spherical (Formula.cs:114).
         align = (self.align_velocity_and_position
                  and self.position.type == FORMULA_SPHERICAL
                  and self.velocity.type == FORMULA_SPHERICAL)
         return SpawnUniforms(
-            position_constants=f32(pc),
-            position_constant_count=f32(1.0),
-            config=f32(config),
-            formula_types=f32([self.position.type, self.velocity.type,
-                               0.0, 0.0]),
-            position_matrix=post_matrix(self.position_post_matrix),
-            velocity_matrix=post_matrix(self.velocity_post_matrix),
-            axis_mask=f32(self.axis_mask),
-            align_velocity_and_position=f32(1.0 if align else 0.0),
-            attribute_discard_threshold=f32(
-                self.alpha_discard_threshold / 255.0),
-            polygon_rate=f32(0.0),
-            polygon_loop=f32(0.0),
-        )
+            position_constants=up("position_constants", pos_constants),
+            position_constant_count=up("position_constant_count",
+                                       float(len(pos_constants))),
+            config=up("config", config),
+            formula_types=up("formula_types", [self.position.type,
+                                               self.velocity.type, 0.0, 0.0]),
+            position_matrix=self._post_matrix(
+                "position_matrix", self.position_post_matrix, now, device),
+            velocity_matrix=self._post_matrix(
+                "velocity_matrix", self.velocity_post_matrix, now, device),
+            axis_mask=up("axis_mask", self.axis_mask),
+            align_velocity_and_position=up("align", 1.0 if align else 0.0),
+            attribute_discard_threshold=up(
+                "discard", self.alpha_discard_threshold / 255.0),
+            polygon_rate=up("polygon_rate", self.polygon_rate),
+            polygon_loop=up("polygon_loop",
+                            1.0 if self.polygon_loop else 0.0))
+
+
+# --------------------------------------------------------------------------
+# Feedback spawning (SpecialSpawners.cs:265-442, SpawnParticles.fx
+# PS_SpawnFeedback :55-118): consume another system's live particles as
+# spawn inputs.
+
+
+@tensor_dataclass
+class FeedbackUniforms:
+    base: SpawnUniforms
+    source_index: torch.Tensor  # () window start (FeedbackSourceIndex)
+    instance_multiplier: torch.Tensor  # ()
+    source_velocity_factor: torch.Tensor  # ()
+    source_life_range: torch.Tensor  # (2,)
+    align_position_constant: torch.Tensor  # ()
+    multiply_attribute_constant: torch.Tensor  # ()
+    multiply_life: torch.Tensor  # ()
+
+
+@named_scope("illuminant/particle_spawn")
+def spawn_feedback(state: ParticleState, source: ParticleState,
+                   u: FeedbackUniforms, count, spawn_max: int,
+                   generator: Optional[torch.Generator] = None,
+                   uniforms: Optional[Sequence] = None) -> ParticleState:
+    """PS_SpawnFeedback as a masked batch over spawn_max slots: new
+    particle j reads source slot (source_index + j / instance_multiplier)
+    and spawns if that particle's life lies in the source range. `source`
+    may be `state` itself (self-feedback): the source rows are gathered
+    before the window is written. Randomness and the in-place write as in
+    `spawn`."""
+    n = state.capacity
+    b = u.base
+    dev = state.position.device
+    count = _count(count, dev)
+    rel = torch.arange(spawn_max, dtype=torch.int32, device=dev)
+    mask = rel < count
+
+    # Source slot per new particle (fx:69-71).
+    src_idx = torch.remainder(
+        (rel.to(torch.float32) / torch.clamp(u.instance_multiplier, min=1.0)
+         + u.source_index).to(torch.int32), source.capacity).long()
+    src_pos = source.position[src_idx]
+    src_vel = source.velocity[src_idx]
+    src_attr = source.color[src_idx]
+    life_ok = ((src_pos[:, 3] > u.source_life_range[0])
+               & (src_pos[:, 3] < u.source_life_range[1]))
+    mask = mask & life_ok
+
+    random1, random2, random3 = _draws(spawn_max, dev, generator, uniforms)
+    random2 = torch.where(b.align_velocity_and_position > 0.5,
+                          torch.cat([random1[:, :2], random2[:, 2:]], dim=-1),
+                          random2)
+
+    position_constant = torch.broadcast_to(b.position_constants[0],
+                                           (spawn_max, 4))
+    position_constant = torch.where(
+        u.align_position_constant > 0.5,
+        torch.cat([position_constant[:, :3] + src_pos[:, :3],
+                   position_constant[:, 3:4]], dim=-1),
+        position_constant)
+    zero = torch.zeros_like(position_constant)
+    temp_position = evaluate_formula(
+        zero, position_constant, b.config[0], b.config[1], random1,
+        b.formula_types[0], b.axis_mask)
+    new_position = mul_point_rows(temp_position, b.position_matrix)
+    new_position = torch.where(
+        u.multiply_life > 0.5,
+        torch.cat([new_position[:, :3],
+                   new_position[:, 3:4] * src_pos[:, 3:4]], dim=-1),
+        new_position)
+
+    temp_velocity = evaluate_formula(
+        temp_position, torch.broadcast_to(b.config[2], (spawn_max, 4)),
+        b.config[3], b.config[4], random2, b.formula_types[1], b.axis_mask)
+    temp_velocity = temp_velocity + src_vel * u.source_velocity_factor
+    new_velocity = mul_point_rows(temp_velocity, b.velocity_matrix)
+
+    attribute_constant = torch.broadcast_to(b.config[5], (spawn_max, 4))
+    attribute_constant = torch.where(u.multiply_attribute_constant > 0.5,
+                                     attribute_constant * src_attr,
+                                     attribute_constant)
+    new_attributes = evaluate_formula(
+        temp_position, attribute_constant, b.config[6], b.config[7],
+        random3, b.formula_types[2], b.axis_mask)
+    mask = mask & (new_attributes[:, 3] >= b.attribute_discard_threshold)
+
+    _window_write(state, rel, mask, (new_position, new_velocity,
+                                     new_attributes), n, spawn_max)
+    return _advance(state, count, n)
+
+
+@dataclasses.dataclass
+class FeedbackSpawner(Spawner):
+    """Host feedback spawner (SpecialSpawners.cs:265-442). `source` is the
+    ParticleSystem consumed (None or the owning system: self-feedback);
+    the read window slides by the consumed count over the source's
+    capacity."""
+
+    source: object = None  # ParticleSystem
+    instance_multiplier: int = 1
+    source_velocity_factor: float = 0.0
+    source_life_min: float = 0.0
+    source_life_max: float = 1e9
+    align_position_constant: bool = True
+    multiply_attribute_constant: bool = True
+    multiply_life: bool = False
+    spawn_from_entire_window: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.read_cursor = 0
+        self.is_feedback = True
+
+    def begin_tick(self, now: float, dt: float,
+                   granularity: int = 1) -> int:
+        """SpecialSpawners.cs:353-370: counts round down to a multiple of
+        InstanceMultiplier; the remainder carries into the rate error."""
+        count = super().begin_tick(now, dt, granularity)
+        im = max(self.instance_multiplier, 1)
+        if im > 1 and not self.spawn_from_entire_window:
+            rounded = (count // im) * im
+            if rounded < count:
+                self.rate_error += count - rounded
+                self.total_spawned -= count - rounded
+                count = rounded
+        return count
+
+    def feedback_uniforms(self, now: float, device=None) -> FeedbackUniforms:
+        def up(name, value):
+            return cached_upload(self, name, value, device)
+
+        return FeedbackUniforms(
+            base=self.uniforms(now, device),
+            source_index=up("source_index", float(self.read_cursor)),
+            instance_multiplier=up("instance_multiplier",
+                                   float(self.instance_multiplier)),
+            source_velocity_factor=up("source_velocity_factor",
+                                      self.source_velocity_factor),
+            source_life_range=up("source_life_range",
+                                 [self.source_life_min,
+                                  self.source_life_max]),
+            align_position_constant=up(
+                "align_position_constant",
+                1.0 if self.align_position_constant else 0.0),
+            multiply_attribute_constant=up(
+                "multiply_attribute_constant",
+                1.0 if self.multiply_attribute_constant else 0.0),
+            multiply_life=up("multiply_life",
+                             1.0 if self.multiply_life else 0.0))
+
+    def advance_window(self, consumed: int, fallback_capacity=None):
+        """Slide the read window by the consumed instance groups (at least
+        one); `fallback_capacity` serves self-feedback spelled
+        source=None. A tick that consumed nothing leaves it."""
+        if consumed <= 0:
+            return
+        if self.source is not None:
+            cap = self.source.config.capacity
+        elif fallback_capacity:
+            cap = fallback_capacity
+        else:
+            return
+        if self.spawn_from_entire_window:
+            self.read_cursor = int(self._rng.integers(0, max(cap, 1)))
+        else:
+            self.read_cursor = (
+                self.read_cursor
+                + max(consumed // max(self.instance_multiplier, 1), 1)) % cap
+
+
+@dataclasses.dataclass
+class PatternSpawner(Spawner):
+    """Spawns particles from image pixels (SpecialSpawners.cs:15-263):
+    pixel coordinates (times `pixel_scale`, every `divisor`-th pixel,
+    alpha above `alpha_threshold`) become position constants and pixel
+    colors multiply the color constant. `image` is (H, W, 4) in [0, 1].
+    min/max_rate are absolute particles per second, as in the JAX
+    package."""
+
+    image: object = None  # np.ndarray (H, W, 4)
+    divisor: int = 1
+    alpha_threshold: float = 0.05
+    pixel_scale: float = 1.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        img = np.asarray(self.image if self.image is not None
+                         else np.ones((1, 1, 4), np.float32), np.float32)
+        h, w = img.shape[:2]
+        ys, xs = np.mgrid[0:h:self.divisor, 0:w:self.divisor]
+        cols = img[::self.divisor, ::self.divisor].reshape(-1, 4)
+        keep = cols[:, 3] > self.alpha_threshold
+        self._pattern_positions = np.stack([
+            xs.reshape(-1)[keep] * self.pixel_scale,
+            ys.reshape(-1)[keep] * self.pixel_scale,
+            np.zeros(keep.sum(), np.float32),
+            np.zeros(keep.sum(), np.float32)], axis=-1).astype(np.float32)
+        self._pattern_colors = cols[keep]
+
+    @property
+    def pattern_size(self) -> int:
+        return len(self._pattern_positions)
+
+    def uniforms(self, now: float, device=None) -> SpawnUniforms:
+        u = super().uniforms(now, device)
+        if self.pattern_size == 0:
+            return u
+        base = np.asarray([(*self.position.constant, self.life.constant)],
+                          np.float32)
+        pc = self._pattern_positions + base
+        return u.replace(
+            position_constants=cached_upload(self, "pattern_positions", pc,
+                                             device),
+            position_constant_count=cached_upload(
+                self, "pattern_count", float(len(pc)), device),
+            position_colors=cached_upload(self, "pattern_colors",
+                                          self._pattern_colors, device))

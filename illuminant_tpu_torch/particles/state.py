@@ -102,6 +102,26 @@ class SystemUniforms:
         return self.global_settings[3]
 
 
+def friction_and_maximum_length(length, uniforms: SystemUniforms):
+    """The speed after applyFrictionAndMaximum (UpdateCommon.fxh:20-35):
+    |v| clamped to the maximum, slowed by friction over dt, in [0, max]."""
+    max_v = uniforms.maximum_velocity
+    clamped = torch.minimum(length, max_v)
+    friction = clamped * uniforms.friction
+    return torch.minimum(
+        torch.clamp(clamped - friction * uniforms.dt, min=0.0), max_v)
+
+
+def apply_friction_and_maximum(velocity, uniforms: SystemUniforms):
+    """applyFrictionAndMaximum (UpdateCommon.fxh:20-35) on (..., 3): the
+    unit direction times the new speed, 0 where |v| <= 0.001."""
+    length = torch.sqrt(torch.clamp(torch.sum(velocity * velocity, dim=-1),
+                                    min=1e-20))
+    new_l = friction_and_maximum_length(length, uniforms)
+    result = velocity / length[..., None] * new_l[..., None]
+    return torch.where(length[..., None] <= 0.001, 0.0, result)
+
+
 def check_category_filter(category, filter_min_max):
     """checkCategoryFilter (ParticleCommon.fxh:198-200)."""
     return (category >= filter_min_max[0]) & (category <= filter_min_max[1])

@@ -42,6 +42,9 @@ class TiledRasterConfig:
     apron: int = 4
     kernel: str = KERNEL_GAUSS
     channels: int = 4
+    # Stipple phase offset, read by raster/render.py (per system, so that
+    # stippled systems interleave).
+    stipple_offset: float = 0.0
 
     @property
     def grid(self) -> Tuple[int, int]:

@@ -13,6 +13,13 @@ from illuminant_tpu_torch.scenes import build_flagship
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# Modules the particle engine's API added; the walk below must reach them.
+NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
+    "core.upload", "ops.noise", "particles.system", "particles.spawner",
+    "particles.transforms", "particles.integrate", "particles.render_data",
+    "raster.particles", "raster.render", "utils.perf")]
+
+
 def test_import_leaves_jax_out():
     """Every module of the port imported in a fresh interpreter: jax is
     not in sys.modules afterwards."""
@@ -21,6 +28,8 @@ def test_import_leaves_jax_out():
         "import illuminant_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"missing = [m for m in {NEW_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith(('jax.', 'jaxlib',\n"
         "                                            'illuminant_tpu.')))\n"
@@ -106,6 +115,7 @@ def _entry_points():
     from illuminant_tpu_torch.lighting import environment as env
     from illuminant_tpu_torch.lighting import projector, volumetric
     from illuminant_tpu_torch.lighting.renderer import LightingRenderer
+    from illuminant_tpu_torch.ops.noise import RandomField
     from illuminant_tpu_torch.particles.system import ParticleSystem
     from illuminant_tpu_torch.sdf.analytic import pack_scene
     from illuminant_tpu_torch.sdf.height_volume import pack_height_volumes
@@ -123,6 +133,7 @@ def _entry_points():
         "pack_projector_lights": projector.pack_projector_lights,
         "build_flagship": build_flagship,
         "ParticleSystem": ParticleSystem.__init__,
+        "RandomField.create": RandomField.create,
         "pack_scene": pack_scene,
         "EnvironmentUniforms.make": env.EnvironmentUniforms.make,
         "pack_sphere_lights": env.pack_sphere_lights,

@@ -1,5 +1,6 @@
 """Particle raster, histogram and tonemap of the port against the JAX
-package and the exact scatter oracle."""
+package and the port's exact scatter oracle (itself held to the JAX
+package's)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,8 +12,10 @@ from illuminant_tpu.particles.state import ParticleState as JState
 from illuminant_tpu.raster import tiled as jtiled
 from illuminant_tpu.raster.particles import rasterize_additive
 from illuminant_tpu.utils import histogram as jhist
+from illuminant_tpu_torch.core import interop
 from illuminant_tpu_torch.ops import tonemap as tm
-from illuminant_tpu_torch.raster import tiled
+from illuminant_tpu_torch.particles.state import ParticleState
+from illuminant_tpu_torch.raster import particles, tiled
 from illuminant_tpu_torch.utils import histogram as hist
 
 torch.set_num_threads(1)
@@ -88,8 +91,10 @@ def test_direct_splat_is_the_separable_profile(kernel):
 
 
 def test_quad_matches_exact_scatter_oracle():
-    """The quad kernel against raster/particles.py:rasterize_additive with
-    rounding off (per-texel box coverage, a 9-texel fan so no size clamps)."""
+    """The quad kernel against the port's raster/particles.py:
+    rasterize_additive with rounding off (per-texel box coverage, a
+    9-texel fan so no size clamps); that oracle against the JAX
+    package's."""
     h, w, n = 64, 96, 400
     x, y, color, size, live = _particles(n, h, w, seed=2)
     pos = np.zeros((n, 4), np.float32)
@@ -97,19 +102,25 @@ def test_quad_matches_exact_scatter_oracle():
     pos[:, 3] = np.where(live, 1.0, 0.0)
     rdata = np.zeros((n, 4), np.float32)
     rdata[:, 0] = size
-    z = jnp.zeros((n, 4), jnp.float32)
-    state = JState(position=jnp.asarray(pos), velocity=z, color=z,
-                   render_color=jnp.asarray(color),
-                   render_data=jnp.asarray(rdata),
-                   write_cursor=jnp.asarray(0, jnp.int32),
-                   total_spawned=jnp.asarray(0, jnp.int32))
-    oracle = np.asarray(rasterize_additive(state, h, w, footprint=9,
-                                           rounded=False), np.float64)
+    z = np.zeros((n, 4), np.float32)
+    fields = dict(position=pos, velocity=z, color=z, render_color=color,
+                  render_data=rdata, write_cursor=np.asarray(0, np.int32),
+                  total_spawned=np.asarray(0, np.int32))
+    oracle = particles.rasterize_additive(
+        interop.to_torch(ParticleState, fields), h, w, footprint=9,
+        rounded=False).numpy().astype(np.float64)
+    reference = rasterize_additive(
+        JState(**{k: jnp.asarray(v) for k, v in fields.items()}), h, w,
+        footprint=9, rounded=False)
+    # The same coverage scattered by index_add_ and by XLA: float32
+    # summation order.
+    np.testing.assert_allclose(oracle, np.asarray(reference), rtol=1e-5,
+                               atol=1e-5)
     cfg = tiled.TiledRasterConfig(height=h, width=w, kernel="quad",
                                   channels=4)
     out, _ = tiled.rasterize_tiled(cfg, *(torch.as_tensor(a)
                                           for a in (x, y, color, size, live)))
-    # Same box coverage; the oracle scatters in float32 in another order.
+    # Same box coverage; the oracle scatters in another order.
     np.testing.assert_allclose(out.numpy(), oracle, rtol=1e-5, atol=1e-4)
 
 
