@@ -68,15 +68,41 @@ The particle engine's public API runs as a user drives it:
     analytic field, config 4 with every other modifier on a ColumnField,
     and the pattern -> feedback pair, each 10 ticks at 96 x 160 on the
     card against the CPU path from the same host spawn draws.
+
+The particle render's sprite and alpha routes (`csrc/tile_raster.cu`: the
+tile compositor K11a and the additive sprite splat K11b):
+  * `[kernel]` rows for both at the sprite cell's shapes (1080 x 1920,
+    apron 9, the leaf table, 131,072 particles as the cell holds them
+    once full), each against its plain version (the composite bit for
+    bit), timed beside its bound; the composite also untextured (quad);
+  * `slice_alpha_sprites` (particles-alpha-sprites-1080p): config 4 on
+    the voxel slice's ColumnField cut to 1<<17 slots and 512 spawns a
+    tick, sizes 18 -> 8 px over life; each of 8 timed frames (after 2
+    warm-up frames, or --warmup N) runs `update(1/60)`, `render` with
+    demo.py's leaf texture, `additive_blend=False`, back-to-front
+    `z_formula` and a lit floor, `resolve` and `to_uint8`. Gates: the
+    composite launches once a render, a tick and a render read the device
+    0 times, accumulated alpha <= 1, the image finite and not flat, the
+    last frame's composite equal to its plain version;
+    `slice_additive_sprites` draws the same system additively (K11b once
+    a render);
+  * `reference_sprites`: every route (alpha quad / gauss / round, dither,
+    opacity and background, textured additive and alpha, power disc,
+    relative size, a velocity-driven sprite sheet, both warps) at 90 x
+    150 (partial tiles at the edges) on the card against the CPU path:
+    the composite routes bit for bit, the splat routes within K11b's
+    bound.
 Every phase prints one line; the last
 three lines are the kernels' record as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
 before those lines are printed. With no CUDA card the script exits 2.
 
-`--warmup N` runs N untimed frames before the 4 timed ones of every
-flagship slice (default 4). The particle ring fills after capacity /
-spawn_max = 256 frames, so `--warmup 260` times each frame at its steady
-population of about 1M live particles; the default times it at 20k-33k.
+`--warmup N` runs N untimed frames before the timed ones of every
+flagship, particle and sprite cell (default 4; 2 for the sprite cells).
+The particle rings fill after capacity / spawn_max = 256 frames, so
+`--warmup 260` times each frame at its steady population (about 1M live
+particles; 131,072 in the sprite cells); the default times it at 20k-33k
+(1,024-5,120 in the sprite cells).
 
 `--profile DIR` additionally traces two frames of each slice and of each
 renderer frame with
@@ -90,6 +116,7 @@ unprofiled frame.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -166,14 +193,25 @@ def device_ms(fn, reps: int) -> float:
 
 
 def phase_build():
+    """Build every kernel library from the checkout's sources, one nvcc
+    for each source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from illuminant_tpu_torch.raster import tile_kernel
     from illuminant_tpu_torch.sdf import columns_kernel
 
-    t0 = time.perf_counter()
-    columns_kernel.build()
-    secs = time.perf_counter() - t0
-    log = (columns_kernel.BUILD_LOG or "").strip().replace("\n", " | ")
-    say("build", kernel="column_maps", seconds=f"{secs:.2f}",
-        ptxas=json.dumps(log[-400:]))
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+
+    mods = {"column_maps": columns_kernel, "tile_raster": tile_kernel}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        secs = dict(zip(mods, pool.map(timed, mods.values())))
+    for name, mod in mods.items():
+        log = (mod.BUILD_LOG or "").strip().replace("\n", " | ")
+        say("build", kernel=name, seconds=f"{secs[name]:.2f}",
+            ptxas=json.dumps(log[-400:]))
 
 
 def _slice_field(device):
@@ -1497,6 +1535,534 @@ def phase_profile_particles(field, warmup, frame_ms, out_dir):
     _traced("slice_particles", out_dir, frame_ms, two_frames)
 
 
+# --- the particle render's sprite and alpha routes --------------------------
+
+# The cell particles-alpha-sprites-1080p: BASELINE config 4 (demo.py:
+# 344-410) at 1080 x 1920 on the voxel slice's ColumnField, cut to 1<<17
+# slots and 512 spawns a tick (the ring fills after 256 ticks), drawn as
+# demo.py:650-702 draws its leaves: textured, depth-ordered alpha over a lit
+# floor. `slice_additive_sprites` draws the same system additively (the
+# textured additive route of demo.py:614-647).
+SPRITE_FULL = dict(height=1080, width=1920, capacity=1 << 17, spawn_max=512)
+SPRITE_TIMED_FRAMES = 8
+SPRITE_WARMUP_FRAMES = 2
+# Not a whole number of 32-px tiles: the last row and column of tiles are
+# partial, so the kernels' edge guard runs.
+SPRITE_SMALL = dict(height=90, width=150)
+
+
+def leaf_texture(n=24):
+    """demo.py:661-664's leaf: a soft rounded diamond."""
+    ys, xs = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n),
+                         indexing="ij")
+    return (np.clip(1.0 - (np.abs(xs) ** 1.5 + np.abs(ys * 1.6) ** 1.5),
+                    0, 1) ** 0.8).astype(np.float32)
+
+
+# One object: an appearance keys its sprite table on the texture's id.
+LEAF = leaf_texture()
+
+
+def lit_floor(height, width, device):
+    """demo.py:694-697's lit floor (H, W, 4), its 256 x 256 layout scaled
+    by s = height / 256 about the frame's centre."""
+    s = height / 256.0
+    yy, xx = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    lum = 0.2 + 0.5 * np.exp(-((xx - width * 0.5) ** 2
+                               + (yy - 110.0 * s) ** 2) / (7000.0 * s * s))
+    bg = np.stack([lum] * 3 + [np.ones_like(lum)], -1).astype(np.float32)
+    return torch.as_tensor(bg, device=device)
+
+
+def sprite_appearance(**kw):
+    """demo.py:665-666's appearance of the leaves (the port's class)."""
+    from illuminant_tpu_torch.raster.render import ParticleAppearance
+
+    return ParticleAppearance(**{**dict(texture=LEAF, angle_bins=8, rank=4,
+                                        size_bins=4, size_min=8.0,
+                                        size_max=18.0), **kw})
+
+
+class KernelInputs:
+    """Inside it, the arguments and result of the last call of the
+    tile-kernel wrapper `name` (`composite_over_tiles`,
+    `sprite_accumulate`) are kept as .args and .out; the wrapper still
+    runs and counts as before."""
+
+    def __init__(self, name):
+        self.name, self.args, self.out = name, None, None
+
+    def __enter__(self):
+        from illuminant_tpu_torch.raster import tile_kernel
+
+        self._mod, self._orig = tile_kernel, getattr(tile_kernel, self.name)
+
+        def spy(*args):
+            self.args, self.out = args, self._orig(*args)
+            return self.out
+
+        setattr(tile_kernel, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._mod, self.name, self._orig)
+
+
+def eager_ms(fn, reps: int) -> float:
+    """Device time of one fn() call run eagerly: CUDA events around `reps`
+    calls after one warm-up call. For plain versions, whose host reads
+    keep them out of a CUDA graph; the host's pacing is in it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _plain(name):
+    from illuminant_tpu_torch.raster import tile_kernel as tk
+
+    return {"composite_over_tiles": tk.composite_over_tiles_reference,
+            "sprite_accumulate": tk.sprite_accumulate_reference}[name]
+
+
+def kernel_work(name, args):
+    """(bytes, operations) the call `args` of kernel `name` needs: each
+    input read once and the image written once; the operations of the
+    (particle, pixel) pairs that its data makes nonzero (the rows x
+    columns of each listed particle's footprint: its profile's reach or
+    its sprite variant's nonzero taps, clipped to the tile; for the
+    additive splat the (S + 1)^2 window) and of the factors on those rows
+    and columns."""
+    cfg, (ids, starts), records = args[:3]
+    gy, gx = cfg.grid
+    t, a = cfg.tile, cfg.apron
+    n = int(starts[-1])
+    sprite = name == "sprite_accumulate" or not isinstance(args[3], str)
+    table = args[3] if sprite else None
+    ranks = table[0].shape[1] if sprite else 1
+    support = table[0].shape[2] if sprite else 0
+    nbytes = 4.0 * (records.numel() + n + starts.numel()
+                    + (2 * table[0].numel() if sprite else 0))
+    if name == "sprite_accumulate":
+        ch = cfg.channels
+        nbytes += 4.0 * cfg.height * cfg.width * ch
+        ops = n * (support + 1) ** 2 * (2 * ranks - 1 + 2 * ch)
+        return nbytes, ops + n * 2 * (support + 1) * ranks * 6
+    background = args[4]
+    nbytes += 4.0 * cfg.height * cfg.width * 4 * (
+        2 if background is not None else 1)
+    ids = ids[:n].long()
+    tile = torch.searchsorted(starts[1:].long(),
+                              torch.arange(n, device=ids.device), right=True)
+    org = torch.stack([tile % gx, tile // gx], dim=1).float() * t
+    c = records[ids, :2] - org  # tile-local centres (x, y)
+    if sprite:
+        # Each variant's first and last nonzero tap, columns then rows: a
+        # window position is reached by its two lerp taps s - 1 and s.
+        nz = [(f != 0).any(dim=1).float() for f in (table[1], table[0])]
+        first = torch.stack([z.argmax(dim=1) for z in nz], dim=1)
+        last = support - 1 - torch.stack([z.flip(1).argmax(dim=1)
+                                          for z in nz], dim=1)
+        b = records[ids, 7].long().clamp(0, table[0].shape[0] - 1)
+        fl = torch.floor((c + a) - 0.5)
+        lo = fl + first[b] - support // 2 - a
+        hi = fl + last[b] + 1 - support // 2 - a
+    else:
+        r = records[ids, 6:7]
+        reach = (torch.clamp(r * 0.5, min=0.3) * 4.0 if args[3] == "gauss"
+                 else r + 0.5)
+        lo, hi = torch.ceil(c - reach - 0.5), torch.floor(c + reach - 0.5)
+    span = torch.clamp(torch.clamp(hi, max=t - 1) - torch.clamp(lo, min=0)
+                       + 1, min=0)  # (n, 2): footprint columns, rows
+    per_pair = 2 * ranks - 1 + (2 if sprite else 0) + 1 + 12
+    ops = (float(span.prod(dim=1).sum()) * per_pair
+           + float(span.sum()) * (6 * ranks + 8))
+    return nbytes, ops
+
+
+def _sprite_kernel_row(rec, key, name, args, tol, **fields):
+    """Check one recorded call of kernel `name` against its plain version
+    on the same inputs, time both and print the [kernel] line."""
+    from illuminant_tpu_torch.raster import tile_kernel as tk
+
+    kernel, plain = getattr(tk, name), _plain(name)
+    out = kernel(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    _require(name, err, tol, **fields)
+    nbytes, ops = kernel_work(name, args)
+    ms = device_ms(lambda: kernel(*args), KERNEL_REPS)
+    plain_ms = eager_ms(lambda: plain(*args), 1)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    say("kernel", name=name, **fields, max_abs_err=err, tol=tol,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / ms:.3f}", bytes=int(nbytes),
+        operations=int(ops))
+    rec[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                    bound=(bound_ms, bound_by), library_ms=None)
+
+
+def _add_tolerance(ref) -> float:
+    """The additive splat's bound against its plain scatter: float32
+    reordering of each pixel's sum, 1e-5 of (1 + the image's largest
+    value)."""
+    return 1e-5 * (1.0 + float(ref.abs().max()))
+
+
+def steady_sprites(device, seed=0):
+    """131,072 particles as the cell holds them once its ring has filled
+    (--warmup 260): a ring of radius 170 s about the centre (s = 1080 /
+    512) spread by 30 s and the swirl, sizes 8-18 px, leaf colours of
+    opacity 0.5-0.8, every rotation, made from a seed on the card."""
+    h, w, n = SPRITE_FULL["height"], SPRITE_FULL["width"], \
+        SPRITE_FULL["capacity"]
+    s = h / 512.0
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, device=device, generator=g)
+
+    ang = u(n) * (2.0 * math.pi)
+    rad = 170.0 * s + torch.randn(n, device=device, generator=g) * 45.0 * s
+    x = w * 0.5 + rad * torch.cos(ang)
+    y = h * 0.5 + rad * torch.sin(ang)
+    a = 0.5 + 0.3 * u(n)
+    color = torch.stack([0.3 * a, 0.8 * a, 1.0 * a, a], dim=1)
+    return (x, y, color, 8.0 + 10.0 * u(n), torch.ones(n, dtype=torch.bool,
+                                                       device=device),
+            u(n) * (2.0 * math.pi))
+
+
+def phase_sprite_kernels(device="cuda"):
+    """K11a and K11b at the cell's shapes (1080 x 1920, apron 9, the
+    leaf table, 131,072 steady particles) through the routes that call
+    them: each against its plain version on the same inputs, both timed,
+    beside the bound. The composite also with the untextured quad."""
+    from illuminant_tpu_torch.raster import sprites, tiled
+
+    x, y, color, size, live, rot = steady_sprites(device)
+    table = sprite_appearance().sprite_table(device)
+    cfg = tiled.TiledRasterConfig(height=SPRITE_FULL["height"],
+                                  width=SPRITE_FULL["width"], apron=9)
+    bg = lit_floor(cfg.height, cfg.width, device)
+    rec = {}
+    with KernelInputs("composite_over_tiles") as spy:
+        sprites.rasterize_sprites_alpha(cfg, table, x, y, color, size, live,
+                                        rotation=rot, background=bg)
+    _sprite_kernel_row(rec, "composite", "composite_over_tiles", spy.args,
+                       0.0, coverage="sprite", inputs="steady",
+                       particles=x.shape[0],
+                       entries=int(spy.args[1][1][-1]))
+    route_ms = eager_ms(lambda: sprites.rasterize_sprites_alpha(
+        cfg, table, x, y, color, size, live, rotation=rot, background=bg),
+        20)
+    say("kernel", name="rasterize_sprites_alpha", inputs="steady",
+        route_ms=f"{route_ms:.4f}", note="the route: bins, records, K11a")
+    with KernelInputs("composite_over_tiles") as spy:
+        tiled.rasterize_tiled_alpha(dataclasses.replace(cfg, kernel="quad"),
+                                    x, y, color, size, live, background=bg)
+    _sprite_kernel_row(rec, "composite_quad", "composite_over_tiles",
+                       spy.args, 0.0, coverage="quad", inputs="steady",
+                       particles=x.shape[0],
+                       entries=int(spy.args[1][1][-1]))
+    with KernelInputs("sprite_accumulate") as spy:
+        sprites.rasterize_sprites(cfg, table, x, y, color, size, live,
+                                  rotation=rot)
+    _sprite_kernel_row(rec, "accumulate", "sprite_accumulate", spy.args,
+                       _add_tolerance(spy.out), inputs="steady",
+                       particles=x.shape[0],
+                       entries=int(spy.args[1][1][-1]))
+    return rec
+
+
+def sprite_cell(field, warmup, additive, device="cuda"):
+    """The particles-alpha-sprites-1080p system after `warmup` frames:
+    (system, raster config, resolve, render keywords). Sizes run 18 -> 8
+    px through a size_from_life ramp over life 3 -> 0.8; rotation turns
+    with life and slot index."""
+    from illuminant_tpu_torch.core.config import HDRConfig
+    from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
+
+    api = particle_api(torch.device(device))
+    system, _ = config4_system(api, field, **SPRITE_FULL)
+    system.patch(render_data=api.RenderDataUniforms.defaults(**api.kw).replace(
+        size_from_life=api.pack_bezier([[8.0], [18.0]], 0.8, 3.0, **api.kw),
+        rotation_from_life_and_index=torch.tensor([1.5, 0.37],
+                                                  device=device)))
+    raster = TiledRasterConfig(height=SPRITE_FULL["height"],
+                               width=SPRITE_FULL["width"], apron=9)
+    hdr = HDRConfig(mode=2, exposure=2.2, white_point=3.0, srgb_output=True)
+    kw = dict(appearance=sprite_appearance(), additive_blend=additive,
+              z_formula=(0.0, 0.0, 1.0, 0.0),
+              background=lit_floor(raster.height, raster.width, device))
+    for _ in range(warmup):
+        sprite_frame(system, raster, hdr, kw)
+    torch.cuda.synchronize()
+    return system, raster, hdr, kw
+
+
+def sprite_frame(system, raster, hdr, kw):
+    """One frame of a sprite cell: a tick through `update`, the render,
+    the resolve, the uint8 image -> (image, the render's HDR image)."""
+    from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
+
+    system.update(DT)
+    img, _ = system.render(raster, **kw)
+    return to_uint8(resolve(img, hdr)), img
+
+
+def phase_slice_sprites(field, warmup: int, additive: bool, kernel_rec,
+                        device="cuda"):
+    """A sprite cell at full width: `warmup` frames, the timed frames
+    (each fenced by a synchronize; CUDA events split tick and render),
+    then one frame under the host-read counter whose kernel call is
+    checked against its plain version, and the gates. Returns (launches,
+    ms_per_frame)."""
+    from illuminant_tpu_torch.raster import tile_kernel as tk
+    from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    name = "slice_additive_sprites" if additive else "slice_alpha_sprites"
+    kernel = "sprite_accumulate" if additive else "composite_over_tiles"
+    torch.cuda.reset_peak_memory_stats()
+    system, raster, hdr, kw = sprite_cell(field, warmup, additive, device)
+    tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
+    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    tick_ms, render_ms = [], []
+    t0 = time.perf_counter()
+    for _ in range(SPRITE_TIMED_FRAMES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        system.update(DT)
+        ev[1].record()
+        img, _ = system.render(raster, **kw)
+        image = to_uint8(resolve(img, hdr))
+        ev[2].record()
+        torch.cuda.synchronize()
+        tick_ms.append(ev[0].elapsed_time(ev[1]))
+        render_ms.append(ev[1].elapsed_time(ev[2]))
+    ms_per_frame = 1e3 * (time.perf_counter() - t0) / SPRITE_TIMED_FRAMES
+    launches = dict(composite_over_tiles=tk.COMPOSITE_LAUNCHES,
+                    sprite_accumulate=tk.ACCUMULATE_LAUNCHES,
+                    column_query=ck.QUERY_LAUNCHES,
+                    column_maps_pack=ck.PACK_LAUNCHES,
+                    column_maps_sample=ck.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with HostReads() as tick_reads:
+        system.update(DT)
+    with HostReads() as render_reads, KernelInputs(kernel) as spy:
+        img, _ = system.render(raster, **kw)
+        image = to_uint8(resolve(img, hdr))
+    torch.cuda.synchronize()
+    live = system.live_count
+    tol = _add_tolerance(spy.out) if additive else 0.0
+    err = _max_err(spy.out, _plain(kernel)(*spy.args))
+    alpha_max = None
+    if not additive:
+        bare, _ = system.render(raster, **{**kw, "background": None})
+        alpha_max = float(bare[..., 3].max())
+        _sprite_kernel_row(kernel_rec, "composite_frame", kernel, spy.args,
+                           tol, coverage="sprite", inputs="frame",
+                           live=live, entries=int(spy.args[1][1][-1]))
+    img_np = image.cpu().numpy()
+    say(name, cell="particles-alpha-sprites-1080p" if not additive
+        else "particles-additive-sprites-1080p", warmup=warmup,
+        frames=SPRITE_TIMED_FRAMES, ms_per_frame=f"{ms_per_frame:.3f}",
+        tick_ms=f"{sum(tick_ms) / len(tick_ms):.3f}",
+        render_ms=f"{sum(render_ms) / len(render_ms):.3f}",
+        live_particles=live, peak_mem_gb=f"{peak_gb:.3f}",
+        image=f"{img_np.shape}/{img_np.dtype}",
+        image_mean=f"{img_np[..., :3].mean():.3f}",
+        **{f"{k}_launches": v for k, v in launches.items()},
+        host_reads_per_tick=tick_reads.n,
+        host_reads_per_render=render_reads.n, max_alpha=alpha_max,
+        kernel_vs_plain_max_abs_err=err, tol=tol)
+    expected = dict(composite_over_tiles=0 if additive
+                    else SPRITE_TIMED_FRAMES,
+                    sprite_accumulate=SPRITE_TIMED_FRAMES if additive else 0)
+    got = {k: launches[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f"{name}: tile kernels launched {got} times in "
+                             f"{SPRITE_TIMED_FRAMES} renders, expected "
+                             f"{expected}")
+    if tick_reads.n or render_reads.n:
+        raise AssertionError(f"{name}: {tick_reads.n} host reads in a tick, "
+                             f"{render_reads.n} in a render; expected 0")
+    if alpha_max is not None and not alpha_max <= 1.0 + 1e-5:
+        raise AssertionError(f"{name}: accumulated alpha {alpha_max} > 1")
+    if not (bool(torch.isfinite(img).all())
+            and img_np[..., :3].astype(np.float64).var() > 0.0
+            and img_np.shape == (SPRITE_FULL["height"],
+                                 SPRITE_FULL["width"], 4)):
+        raise AssertionError(f"{name}: the frame is flat or not finite")
+    if not live > 0:
+        raise AssertionError(f"{name}: no live particles")
+    _require(kernel, err, tol, phase=name)
+    full = SPRITE_FULL["capacity"]
+    if warmup >= full // SPRITE_FULL["spawn_max"] and live != full:
+        raise AssertionError(f"{name}: {live} live particles after the ring "
+                             f"filled, expected {full}")
+    return launches, ms_per_frame
+
+
+def phase_profile_sprites(field, warmup, frame_ms, out_dir):
+    """Two traced frames of the alpha sprite cell, on a system built anew
+    and run through the same warm-up and timed frames: the tables, the
+    busy time, the idle share and the host reads a frame as in
+    `phase_profile`."""
+    system, raster, hdr, kw = sprite_cell(
+        field, warmup + SPRITE_TIMED_FRAMES + 2, False)
+
+    def two_frames():
+        for _ in range(2):
+            sprite_frame(system, raster, hdr, kw)
+            torch.cuda.synchronize()
+
+    _traced("slice_alpha_sprites", out_dir, frame_ms, two_frames)
+
+
+def small_sprite_state(device, n=600, seed=4):
+    """The particles of `reference_sprites` at 90 x 150: positions over
+    the frame and past its edges, life 0.3-3, velocities, sizes 2-12,
+    rotations, premultiplied colours of opacity 0.3-1."""
+    from illuminant_tpu_torch.particles.state import ParticleState
+
+    h, w = SPRITE_SMALL["height"], SPRITE_SMALL["width"]
+    rng = np.random.default_rng(seed)
+    pos = np.stack([rng.uniform(-4, w + 4, n), rng.uniform(-4, h + 4, n),
+                    rng.uniform(0, 60, n), rng.uniform(0.3, 3.0, n)], -1)
+    pos[rng.uniform(size=n) < 0.1, 3] = 0.0
+    a = rng.uniform(0.3, 1.0, n)
+    rc = np.concatenate([rng.uniform(0.1, 1.0, (n, 3)) * a[:, None],
+                         a[:, None]], -1)
+    rd = np.zeros((n, 4))
+    rd[:, 0] = rng.uniform(2.0, 12.0, n)
+    rd[:, 1] = rng.uniform(-7.0, 7.0, n)
+    vel = np.zeros((n, 4))
+    vel[:, :3] = rng.normal(0, 20, (n, 3))
+
+    def t(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    return ParticleState(position=t(pos), velocity=t(vel),
+                         color=t(np.zeros((n, 4))), render_color=t(rc),
+                         render_data=t(rd),
+                         write_cursor=torch.tensor(0, device=device),
+                         total_spawned=torch.tensor(0, device=device))
+
+
+SHEET = np.concatenate([np.concatenate([LEAF, LEAF[::-1]], 1),
+                        np.concatenate([LEAF.T, LEAF * 0.5], 1)], 0)
+# Route name -> (what it drives, its keywords, the kernel it launches).
+SPRITE_ROUTES = {
+    "alpha_quad": ("alpha", dict(kernel="quad"), "composite"),
+    "alpha_gauss": ("alpha", dict(kernel="gauss"), "composite"),
+    "alpha_round": ("alpha", dict(kernel="round"), "composite"),
+    "alpha_dither": ("alpha", dict(kernel="quad", dither=True), "composite"),
+    "alpha_opacity_background": ("alpha", dict(kernel="quad", opacity=0.6,
+                                               background=True), "composite"),
+    "textured_additive": ("render", dict(appearance=dict()), "accumulate"),
+    "textured_alpha_z_formula": ("render", dict(
+        appearance=dict(), additive_blend=False,
+        z_formula=(0.0, 0.2, 1.0, 0.0), background=True), "composite"),
+    "power_disc": ("render", dict(appearance=dict(
+        texture=None, rounded=True, rounding_power_from_life=0.4)),
+        "accumulate"),
+    "relative_size": ("render", dict(appearance=dict(relative_size=True),
+                                     additive_blend=False), "composite"),
+    "velocity_sheet": ("render", dict(appearance=dict(
+        texture=SHEET, columns=2, rows=2, column_from_velocity=True,
+        animation_rate=(0.0, 1.5)), additive_blend=False), "composite"),
+    "vector_warp": ("warp", dict(), None),
+    "normal_refraction_warp": ("warp", dict(), None),
+}
+
+
+def _small_sprite_route(name, device):
+    """Route `name` of SPRITE_ROUTES at 90 x 150 on `device` -> the image
+    as numpy. The appearances keep supports of at most 2 x 9 + 1 px for
+    the apron of 9."""
+    from illuminant_tpu_torch.raster import render, tiled, warp
+
+    what, kw, _ = SPRITE_ROUTES[name]
+    kw = dict(kw)
+    h, w = SPRITE_SMALL["height"], SPRITE_SMALL["width"]
+    st = small_sprite_state(device)
+    bg = lit_floor(h, w, device)
+    if kw.pop("background", False):
+        kw["background"] = bg
+    if what == "warp":
+        rng = np.random.default_rng(5)
+        field = torch.as_tensor(rng.uniform(0, 1, (h, w, 4)).astype(
+            np.float32), device=device)
+        out = (warp.vector_warp(bg, field, intensity=(12.0, 12.0, 0.0))
+               if name == "vector_warp"
+               else warp.normal_refraction_warp(bg, field))
+        return out.cpu().numpy()
+    cfg = tiled.TiledRasterConfig(height=h, width=w, apron=9,
+                                  kernel=kw.pop("kernel", "quad"))
+    if what == "alpha":
+        x, y = st.position[:, 0], st.position[:, 1]
+        out, _ = tiled.rasterize_tiled_alpha(
+            cfg, x, y, st.render_color, st.render_data[:, 0],
+            st.live_mask(), **kw)
+        return out.cpu().numpy()
+    kw["appearance"] = sprite_appearance(**kw["appearance"])
+    out, _ = render.render_particles(st, cfg, **kw)
+    return out.cpu().numpy()
+
+
+def phase_reference_sprites():
+    """Every route of the sprite slice at 90 x 150 on the card against the
+    port's CPU path (which the CPU tests hold to the JAX package), from the
+    same particles. The composite routes bit for bit (K11a equals its plain
+    version; the bins, records and tables are the same on both devices),
+    except the dithered one: at most 0.5% of its pixels may differ (a
+    pixel whose alpha lies within a rounding of a Bayer threshold may
+    flip). The splat routes within K11b's bound, 1e-5 of (1 + the image's
+    largest value); the warps within 1e-5. Each route launches its kernel
+    exactly once on the card."""
+    from illuminant_tpu_torch.raster import tile_kernel as tk
+
+    for name, (_, _, kernel) in SPRITE_ROUTES.items():
+        cpu = _small_sprite_route(name, "cpu")
+        tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
+        cuda = _small_sprite_route(name, "cuda")
+        launches = dict(composite=tk.COMPOSITE_LAUNCHES,
+                        accumulate=tk.ACCUMULATE_LAUNCHES)
+        d = np.abs(cuda - cpu)
+        flipped = (d > 0.0).any(-1).mean()
+        tol = (_add_tolerance(torch.as_tensor(cpu))
+               if kernel == "accumulate" else 0.0)
+        say("reference_sprites", route=name,
+            size=f"{SPRITE_SMALL['height']}x{SPRITE_SMALL['width']}",
+            max_abs_err=f"{d.max():.3e}", tol=tol,
+            pixels_differing=f"{flipped:.5f}",
+            image_mean=f"{np.abs(cpu).mean():.4f}",
+            **{f"{k}_launches": v for k, v in launches.items()})
+        expected = {k: int(k == kernel) for k in launches}
+        if launches != expected:
+            raise AssertionError(f"reference_sprites ({name}): launches "
+                                 f"{launches}, expected {expected}")
+        if kernel is None:
+            ok = bool(np.allclose(cuda, cpu, rtol=1e-5, atol=1e-5))
+        elif name == "alpha_dither":
+            ok = flipped <= 0.005
+        else:
+            ok = float(d.max()) <= tol
+        if not (ok and np.isfinite(cuda).all() and np.abs(cpu).mean() > 0.0):
+            raise AssertionError(f"reference_sprites ({name}): the card's "
+                                 "image disagrees with the CPU path")
+
+
 def _busy_us(events) -> tuple:
     """(union of the device events' intervals, sum of their durations),
     in microseconds. The union counts overlapping work once; the stage
@@ -1599,8 +2165,10 @@ def _traced(name, out_dir, frame_ms, two_frames):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--warmup", type=int, default=4,
-                    help="untimed frames before the timed ones")
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="untimed frames before the timed ones (default 4 "
+                    "for the flagship and particle cells, 2 for the sprite "
+                    "cells)")
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler tables")
     args = ap.parse_args(argv)
@@ -1615,10 +2183,14 @@ def main(argv=None) -> int:
     say("card", nvidia_smi=json.dumps(card), torch=torch.__version__,
         cuda=torch.version.cuda, device=json.dumps(
             torch.cuda.get_device_name(0)))
+    warmup = 4 if args.warmup is None else args.warmup
+    sprite_warmup = SPRITE_WARMUP_FRAMES if args.warmup is None \
+        else args.warmup
     phase_build()
     cuda = torch.device("cuda")
     scene, field = _slice_field(cuda)
     kernel = phase_kernel(field)
+    kernel.update(phase_sprite_kernels())
     launches, frame_ms = {}, {}
     for name, kw in SLICES.items():
         if name == "slice_family":
@@ -1626,7 +2198,7 @@ def main(argv=None) -> int:
         if scene is None:
             scene = build_flagship(device=cuda, **FULL, **kw)
         launches[name], state, frame_ms[name] = phase_slice(
-            name, scene, args.warmup, TIMED_FRAMES)
+            name, scene, warmup, TIMED_FRAMES)
         if name == "slice":
             kernel.update(phase_frame_points(field, state))
         scene = state = None
@@ -1635,31 +2207,44 @@ def main(argv=None) -> int:
         frame_ms[name] = phase_slice_renderer(name)
         torch.cuda.empty_cache()
     particle_launches, frame_ms["slice_particles"] = phase_slice_particles(
-        field, args.warmup)
+        field, warmup)
     torch.cuda.empty_cache()
+    sprite_launches = {}
+    for additive in (False, True):
+        sprite_launches[additive], frame_ms[
+            "slice_additive_sprites" if additive
+            else "slice_alpha_sprites"] = phase_slice_sprites(
+                field, sprite_warmup, additive, kernel)
+        torch.cuda.empty_cache()
     # Profiled after every slice is timed: a profiler session slows the
     # launches that follow it in the process.
     for name in SLICES if args.profile else ():
-        phase_profile(name, args.warmup, frame_ms[name], args.profile)
+        phase_profile(name, warmup, frame_ms[name], args.profile)
         torch.cuda.empty_cache()
     for name in RENDERER_FRAMES if args.profile else ():
         phase_profile_renderer(name, frame_ms[name], args.profile)
         torch.cuda.empty_cache()
     if args.profile:
-        phase_profile_particles(field, args.warmup,
+        phase_profile_particles(field, warmup,
                                 frame_ms["slice_particles"], args.profile)
+        phase_profile_sprites(field, sprite_warmup,
+                              frame_ms["slice_alpha_sprites"], args.profile)
     del field
     phase_reference()
     phase_reference_analytic()
     phase_reference_family()
     phase_reference_renderer()
     phase_reference_particles()
+    phase_reference_sprites()
     # Each kernel at the heavier of the frame's calls: the query with the
     # unit gradient, the sampler with the derivative rows; the other calls
     # are in the [kernel] lines above. "ms" is one call of the wrapper the
     # frame calls (the query and the sampler include their pack).
     # "launches" counts the voxel flagship's timed frames,
-    # "launches_particles" the particle cell's timed ticks.
+    # "launches_particles" the particle cell's timed ticks,
+    # "launches_sprites" the alpha sprite cell's; the tile kernels'
+    # "launches" count their sprite cell's timed renders, their times
+    # are at that cell's steady 131,072 particles.
     rows = [("column_query", "illuminant_tpu/sdf/columns_pallas.py:78",
              kernel["query", True]),
             ("column_maps_sample", "illuminant_tpu/sdf/columns_pallas.py:78",
@@ -1673,6 +2258,7 @@ def main(argv=None) -> int:
         "replaces": replaces,
         "launches": launches["slice"][name],
         "launches_particles": particle_launches[name],
+        "launches_sprites": sprite_launches[False][name],
         "max_abs_err": r["err"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
@@ -1680,6 +2266,20 @@ def main(argv=None) -> int:
         "bound_by": r["bound"][1],
         "library_ms": r.get("library_ms"),
     } for name, replaces, r in rows]
+    for name, replaces, key, additive in (
+            ("composite_over_tiles", "illuminant_tpu/raster/tiled.py:749",
+             "composite", False),
+            ("sprite_accumulate", "illuminant_tpu/raster/sprites.py:344",
+             "accumulate", True)):
+        r = kernel[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "illuminant_tpu_torch/csrc/tile_raster.cu",
+            "replaces": replaces,
+            "launches": sprite_launches[additive][name],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

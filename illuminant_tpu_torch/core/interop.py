@@ -16,8 +16,9 @@ one written by height volumes and billboards), SystemUniforms, the
 particle engine's uniforms (SpawnUniforms, FeedbackUniforms,
 GravityUniforms, FMAUniforms, MatrixMultiplyUniforms, NoiseUniforms,
 VectorFieldUniforms, AreaUniforms; RenderDataUniforms with its beziers and
-life ramp) and RandomField. Static fields (`use_velocity_rotation`,
-`is_constant`) stay Python values.
+life ramp), RandomField and SpriteTable. Static fields
+(`use_velocity_rotation`, `is_constant`, a sprite table's bin counts, size
+range and residual) stay Python ints and floats.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..particles.state import ParticleState, SystemUniforms
 from ..particles.transforms import (AreaUniforms, FMAUniforms,
                                     GravityUniforms, MatrixMultiplyUniforms,
                                     NoiseUniforms, VectorFieldUniforms)
+from ..raster.sprites import SpriteTable
 from ..sdf.analytic import AnalyticScene
 from ..sdf.columns import ColumnField
 from ..sdf.height_volume import HeightVolumes
@@ -68,7 +70,7 @@ SUPPORTED = (AnalyticScene, HeightVolumes, SdfVolume, SdfVolumeConfig,
              SystemUniforms, SpawnUniforms, FeedbackUniforms, GravityUniforms,
              FMAUniforms, MatrixMultiplyUniforms, NoiseUniforms,
              VectorFieldUniforms, AreaUniforms, RenderDataUniforms,
-             ClampedBezier, RandomField)
+             ClampedBezier, RandomField, SpriteTable)
 
 
 def _as_numpy(v):

@@ -5,10 +5,9 @@ Each live particle scatters its coverage into the image with
 `index_add_`: `splat_additive` a bilinear 2x2 footprint,
 `rasterize_additive` a (size x size) quad with circular rounding
 (`computeCircularAlpha`, RasterizeParticleSystem.fx:145-156) over a static
-`footprint`^2 fan, with stipple rejection (fx StippleReject). Screen
-y = world y - z * z_to_y, as the rasterizer's vertex path projects it.
-The exact rounding-power curve (`rounding_power`) belongs to the
-power-disc sprite tables, ROADMAP M11.
+`footprint`^2 fan, with stipple rejection (fx StippleReject), or the
+exact computeCircularAlpha curve at a `rounding_power`. Screen y = world
+y - z * z_to_y, as the rasterizer's vertex path projects it.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import torch
 
 from ..ops.coords import stipple_keep
 from ..particles.state import ParticleState
+from .sprites import circular_alpha
 
 
 def _scatter(img, width, yi, xi, contrib):
@@ -71,13 +71,10 @@ def rasterize_additive(state: ParticleState, height: int, width: int,
                        size_scale: float = 1.0, rounding_power=None):
     """Sized-particle additive rasterization: each live particle covers a
     (size x size) quad, sizes clamped to [1, footprint] (footprint odd),
-    every covered texel adding color x coverage. `rounded`: a soft disc
-    edge (~computeCircularAlpha); else per-axis box coverage."""
-    if rounding_power is not None:
-        raise NotImplementedError(
-            "rasterize_additive(rounding_power=...): the exact "
-            "computeCircularAlpha curve comes with the power-disc sprite "
-            "tables, not ported yet (ROADMAP M11)")
+    every covered texel adding color x coverage. `rounding_power`: the
+    exact computeCircularAlpha curve at that power
+    (`sprites.circular_alpha`); else `rounded` a soft disc edge
+    (~computeCircularAlpha), or per-axis box coverage."""
     pos = state.position
     live = state.live_mask()
     if stipple_factor < 1.0:
@@ -102,7 +99,11 @@ def rasterize_additive(state: ParticleState, height: int, width: int,
             # Distance from the texel center to the particle center.
             ddx = dx - fx
             ddy = dy - fy
-            if rounded:
+            if rounding_power is not None:
+                r = torch.sqrt(ddx * ddx + ddy * ddy)
+                cov = circular_alpha(r / torch.clamp(radius, min=1e-6),
+                                     rounding_power)
+            elif rounded:
                 r = torch.sqrt(ddx * ddx + ddy * ddy)
                 cov = torch.clamp(radius - r + 0.5, 0.0, 1.0)
             else:

@@ -272,3 +272,39 @@ def test_interop_carries_analytic_scene(groups):
     assert own.group_types == scene_t.group_types
     for a, b in zip(own.centers, scene_t.centers):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_interop_carries_sprite_table():
+    """A JAX SpriteTable carried into the port: the factors as float32
+    tensors, the static bin counts as Python ints and the size range and
+    residual as Python floats; the port draws with the carried table
+    what it draws with its own build of the same texture."""
+    from illuminant_tpu.raster import sprites as jsprites
+    from illuminant_tpu_torch.raster import sprites, tiled
+
+    ys, xs = np.meshgrid(np.linspace(-1, 1, 12), np.linspace(-1, 1, 12),
+                         indexing="ij")
+    tex = np.clip(1.0 - np.sqrt(xs ** 2 + ys ** 2), 0, 1).astype(np.float32)
+    kw = dict(frames_x=2, angle_bins=3, size_bins=2, rank=2, size_min=3.0,
+              size_max=7.0)
+    table_j = jsprites.build_sprite_table(tex, **kw)
+    table_t = interop.to_torch(sprites.SpriteTable,
+                               interop.as_numpy_fields(table_j))
+    for name in ("frames", "angle_bins", "size_bins"):
+        assert type(getattr(table_t, name)) is int
+        assert getattr(table_t, name) == getattr(table_j, name)
+    for name in ("size_min", "size_max", "residual"):
+        assert type(getattr(table_t, name)) is float
+        assert getattr(table_t, name) == getattr(table_j, name)
+    assert table_t.row_factors.dtype == torch.float32
+    own = sprites.build_sprite_table(tex, device="cpu", **kw)
+    np.testing.assert_array_equal(table_t.col_factors.numpy(),
+                                  own.col_factors.numpy())
+    cfg = tiled.TiledRasterConfig(height=32, width=48)
+    args = (torch.tensor([10.0, 30.0]), torch.tensor([12.0, 20.0]),
+            torch.ones(2, 4), torch.tensor([4.0, 6.0]),
+            torch.ones(2, dtype=torch.bool))
+    frame = torch.tensor([0.0, 1.0])
+    np.testing.assert_array_equal(
+        sprites.rasterize_sprites(cfg, table_t, *args, frame=frame)[0],
+        sprites.rasterize_sprites(cfg, own, *args, frame=frame)[0])

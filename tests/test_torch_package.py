@@ -17,7 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
     "core.upload", "ops.noise", "particles.system", "particles.spawner",
     "particles.transforms", "particles.integrate", "particles.render_data",
-    "raster.particles", "raster.render", "utils.perf")]
+    "raster.particles", "raster.render", "utils.perf", "raster.sprites",
+    "raster.tile_kernel", "raster.warp")]
 
 
 def test_import_leaves_jax_out():
@@ -35,6 +36,22 @@ def test_import_leaves_jax_out():
         "                                            'illuminant_tpu.')))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_kernel_modules_load_nothing_at_import():
+    """Importing the kernel wrappers builds and loads no library: the
+    CUDA sources compile at the first launch, on the card."""
+    code = (
+        "import illuminant_tpu_torch.raster.tile_kernel as t\n"
+        "import illuminant_tpu_torch.sdf.columns_kernel as c\n"
+        "import illuminant_tpu_torch.raster.render\n"
+        "assert t._lib is None and t.BUILD_LOG is None, 'tile_raster'\n"
+        "assert c._lib is None and c.BUILD_LOG is None, 'column_maps'\n"
+        "assert t.COMPOSITE_LAUNCHES == t.ACCUMULATE_LAUNCHES == 0\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -117,6 +134,8 @@ def _entry_points():
     from illuminant_tpu_torch.lighting.renderer import LightingRenderer
     from illuminant_tpu_torch.ops.noise import RandomField
     from illuminant_tpu_torch.particles.system import ParticleSystem
+    from illuminant_tpu_torch.raster import sprites
+    from illuminant_tpu_torch.raster.render import ParticleAppearance
     from illuminant_tpu_torch.sdf.analytic import pack_scene
     from illuminant_tpu_torch.sdf.height_volume import pack_height_volumes
     from illuminant_tpu_torch.sdf.volume import SdfObstructions, SdfVolume
@@ -134,6 +153,11 @@ def _entry_points():
         "build_flagship": build_flagship,
         "ParticleSystem": ParticleSystem.__init__,
         "RandomField.create": RandomField.create,
+        "build_sprite_table": sprites.build_sprite_table,
+        "build_power_disc_table": sprites.build_power_disc_table,
+        "ParticleAppearance.sprite_table": ParticleAppearance.sprite_table,
+        "ParticleAppearance.power_disc_table":
+            ParticleAppearance.power_disc_table,
         "pack_scene": pack_scene,
         "EnvironmentUniforms.make": env.EnvironmentUniforms.make,
         "pack_sphere_lights": env.pack_sphere_lights,
