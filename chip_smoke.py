@@ -74,7 +74,13 @@ tile compositor K11a and the additive sprite splat K11b):
   * `[kernel]` rows for both at the sprite cell's shapes (1080 x 1920,
     apron 9, the leaf table, 131,072 particles as the cell holds them
     once full), each against its plain version (the composite bit for
-    bit), timed beside its bound; the composite also untextured (quad);
+    bit), timed beside its bound, with the mean, p99 and largest entries
+    a tile and the launch's block (threads, shared memory, blocks an SM,
+    registers); the composite also untextured (quad) and on the fullest
+    tile's list alone (`inputs=hottest_tile`), the splat with the
+    particles a block stages before and after its neighbour filter (by
+    the filter's plain mirror, which the kernel's kept lists, read back,
+    must equal entry for entry);
   * `slice_alpha_sprites` (particles-alpha-sprites-1080p): config 4 on
     the voxel slice's ColumnField cut to 1<<17 slots and 512 spawns a
     tick, sizes 18 -> 8 px over life; each of 8 timed frames (after 2
@@ -103,6 +109,11 @@ The particle rings fill after capacity / spawn_max = 256 frames, so
 `--warmup 260` times each frame at its steady population (about 1M live
 particles; 131,072 in the sprite cells); the default times it at 20k-33k
 (1,024-5,120 in the sprite cells).
+
+`--parent DIR` builds the tile kernels of another checkout at DIR (an
+earlier commit unpacked with `git archive`) and times them beside these
+in the `[kernel]` rows of the sprite kernels, on the same inputs, in
+turns (parent_ms).
 
 `--profile DIR` additionally traces two frames of each slice and of each
 renderer frame with
@@ -1636,27 +1647,24 @@ def kernel_work(name, args):
     input read once and the image written once; the operations of the
     (particle, pixel) pairs that its data makes nonzero (the rows x
     columns of each listed particle's footprint: its profile's reach or
-    its sprite variant's nonzero taps, clipped to the tile; for the
-    additive splat the (S + 1)^2 window) and of the factors on those rows
-    and columns."""
+    its sprite variant's nonzero taps, clipped to the tile for the
+    composite, to the particle's own tile's window and to the image for
+    the additive splat) and of the factors on those rows and columns."""
     cfg, (ids, starts), records = args[:3]
     gy, gx = cfg.grid
     t, a = cfg.tile, cfg.apron
     n = int(starts[-1])
-    sprite = name == "sprite_accumulate" or not isinstance(args[3], str)
+    accumulate = name == "sprite_accumulate"
+    sprite = accumulate or not isinstance(args[3], str)
     table = args[3] if sprite else None
     ranks = table[0].shape[1] if sprite else 1
     support = table[0].shape[2] if sprite else 0
+    ch = cfg.channels if accumulate else 4
+    background = None if accumulate else args[4]
     nbytes = 4.0 * (records.numel() + n + starts.numel()
-                    + (2 * table[0].numel() if sprite else 0))
-    if name == "sprite_accumulate":
-        ch = cfg.channels
-        nbytes += 4.0 * cfg.height * cfg.width * ch
-        ops = n * (support + 1) ** 2 * (2 * ranks - 1 + 2 * ch)
-        return nbytes, ops + n * 2 * (support + 1) * ranks * 6
-    background = args[4]
-    nbytes += 4.0 * cfg.height * cfg.width * 4 * (
-        2 if background is not None else 1)
+                    + (2 * table[0].numel() if sprite else 0)
+                    + cfg.height * cfg.width * ch
+                    * (2 if background is not None else 1))
     ids = ids[:n].long()
     tile = torch.searchsorted(starts[1:].long(),
                               torch.arange(n, device=ids.device), right=True)
@@ -1678,17 +1686,75 @@ def kernel_work(name, args):
         reach = (torch.clamp(r * 0.5, min=0.3) * 4.0 if args[3] == "gauss"
                  else r + 0.5)
         lo, hi = torch.ceil(c - reach - 0.5), torch.floor(c + reach - 0.5)
-    span = torch.clamp(torch.clamp(hi, max=t - 1) - torch.clamp(lo, min=0)
-                       + 1, min=0)  # (n, 2): footprint columns, rows
-    per_pair = 2 * ranks - 1 + (2 if sprite else 0) + 1 + 12
+    if accumulate:
+        extent = torch.tensor([cfg.width, cfg.height], device=org.device)
+        lo = torch.maximum(torch.clamp(lo, min=-a), -org)
+        hi = torch.minimum(torch.clamp(hi, max=t - 1 + a), extent - 1 - org)
+        per_pair = 2 * ranks - 1 + 2 * ch
+    else:
+        lo, hi = torch.clamp(lo, min=0), torch.clamp(hi, max=t - 1)
+        per_pair = 2 * ranks - 1 + (2 if sprite else 0) + 1 + 12
+    span = torch.clamp(hi - lo + 1, min=0)  # (n, 2): footprint columns, rows
     ops = (float(span.prod(dim=1).sum()) * per_pair
            + float(span.sum()) * (6 * ranks + 8))
     return nbytes, ops
 
 
-def _sprite_kernel_row(rec, key, name, args, tol, **fields):
+def entry_stats(starts) -> dict:
+    """Mean, p99 and maximum entries of the tiles' lists."""
+    counts = (starts[1:] - starts[:-1]).float()
+    return dict(entries_mean=f"{float(counts.mean()):.1f}",
+                entries_p99=f"{float(torch.quantile(counts, 0.99)):.0f}",
+                entries_max=int(counts.max()))
+
+
+def block_plan(name, args) -> dict:
+    """The launch the call makes on this card: its block and how many of
+    them an SM holds."""
+    from illuminant_tpu_torch.raster import tile_kernel as tk
+
+    coverage = args[3]
+    sprite = not isinstance(coverage, str)
+    plan = tk.launch_plan(name == "sprite_accumulate", args[0].tile,
+                          coverage[0].shape[1] if sprite else 1,
+                          2 * coverage[0].numel() if sprite else 0)
+    return dict(threads=plan["threads"], chunk=plan["chunk"],
+                smem_bytes=plan["smem_bytes"],
+                table_in_smem=plan["table_floats"] > 0,
+                blocks_per_sm=plan["blocks_per_sm"],
+                registers=plan["registers"], spill_bytes=plan["spill_bytes"])
+
+
+def parent_tile_kernel(root):
+    """The tile-kernel module of another checkout at `root` (an earlier
+    commit unpacked with `git archive`), imported as a package of its own
+    beside this one; its library is built from its own source into
+    root/build/."""
+    import importlib
+    import importlib.util
+
+    name = "parent_illuminant_tpu_torch"
+    pkg = os.path.join(os.path.abspath(root), "illuminant_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    tk = importlib.import_module(name + ".raster.tile_kernel")
+    t0 = time.perf_counter()
+    tk.build()
+    say("build", kernel="parent tile_raster", root=json.dumps(root),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return tk
+
+
+def _sprite_kernel_row(rec, key, name, args, tol, parent=None, **fields):
     """Check one recorded call of kernel `name` against its plain version
-    on the same inputs, time both and print the [kernel] line."""
+    on the same inputs, time both and print the [kernel] line with the
+    launch's block. With `parent` (`parent_tile_kernel`), the earlier
+    commit's kernel is checked and timed on the same inputs too, in turns
+    with this one (parent, this, this, parent)."""
     from illuminant_tpu_torch.raster import tile_kernel as tk
 
     kernel, plain = getattr(tk, name), _plain(name)
@@ -1698,16 +1764,41 @@ def _sprite_kernel_row(rec, key, name, args, tol, **fields):
     err = _max_err(out, ref)
     _require(name, err, tol, **fields)
     nbytes, ops = kernel_work(name, args)
-    ms = device_ms(lambda: kernel(*args), KERNEL_REPS)
-    plain_ms = eager_ms(lambda: plain(*args), 1)
     bound_ms, bound_by = _bound(nbytes, ops)
+    call = lambda: kernel(*args)  # noqa: E731
+    before = {}
+    if parent is not None:
+        old = getattr(parent, name)
+        _require("parent " + name, _max_err(old(*args), ref), tol, **fields)
+        old_call = lambda: old(*args)  # noqa: E731
+        times = [device_ms(f, KERNEL_REPS)
+                 for f in (old_call, call, call, old_call)]
+        ms, old_ms = min(times[1:3]), min(times[0], times[3])
+        before = dict(parent_ms=f"{old_ms:.4f}",
+                      parent_share_of_bound=f"{bound_ms / old_ms:.3f}",
+                      turns=json.dumps([round(v, 4) for v in times]))
+    else:
+        ms = device_ms(call, KERNEL_REPS)
+    plain_ms = eager_ms(lambda: plain(*args), 1)
     say("kernel", name=name, **fields, max_abs_err=err, tol=tol,
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         share_of_bound=f"{bound_ms / ms:.3f}", bytes=int(nbytes),
-        operations=int(ops))
+        operations=int(ops), **before, **block_plan(name, args))
     rec[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
                     bound=(bound_ms, bound_by), library_ms=None)
+
+
+def hottest_tile(args):
+    """The composite's call `args` with every list emptied but the
+    fullest."""
+    cfg, (ids, starts) = args[:2]
+    counts = starts[1:] - starts[:-1]
+    hot = int(torch.argmax(counts))
+    first, end = int(starts[hot]), int(starts[hot + 1])
+    kept = torch.arange(starts.shape[0], device=starts.device) > hot
+    hot_starts = (kept.to(torch.int32) * (end - first)).to(torch.int32)
+    return (cfg, (ids[first:end].contiguous(), hot_starts), *args[2:])
 
 
 def _add_tolerance(ref) -> float:
@@ -1717,13 +1808,14 @@ def _add_tolerance(ref) -> float:
     return 1e-5 * (1.0 + float(ref.abs().max()))
 
 
-def steady_sprites(device, seed=0):
+def steady_sprites(device, seed=0, height=SPRITE_FULL["height"],
+                   width=SPRITE_FULL["width"], n=SPRITE_FULL["capacity"]):
     """131,072 particles as the cell holds them once its ring has filled
-    (--warmup 260): a ring of radius 170 s about the centre (s = 1080 /
-    512) spread by 30 s and the swirl, sizes 8-18 px, leaf colours of
-    opacity 0.5-0.8, every rotation, made from a seed on the card."""
-    h, w, n = SPRITE_FULL["height"], SPRITE_FULL["width"], \
-        SPRITE_FULL["capacity"]
+    (--warmup 260): a ring of radius 170 s about the centre (s = height /
+    512) spread by 45 s and the swirl, sizes 8-18 px, leaf colours of
+    opacity 0.5-0.8, every rotation, made from a seed on the card. Other
+    frame sizes scale the ring; `n` particles."""
+    h, w = height, width
     s = h / 512.0
     g = torch.Generator(device=device).manual_seed(seed)
 
@@ -1741,12 +1833,18 @@ def steady_sprites(device, seed=0):
             u(n) * (2.0 * math.pi))
 
 
-def phase_sprite_kernels(device="cuda"):
+def phase_sprite_kernels(device="cuda", parent=None):
     """K11a and K11b at the cell's shapes (1080 x 1920, apron 9, the
     leaf table, 131,072 steady particles) through the routes that call
     them: each against its plain version on the same inputs, both timed,
-    beside the bound. The composite also with the untextured quad."""
+    beside the bound, with the lists' entries per tile and the block the
+    launch takes. The composite also with the untextured quad and on the
+    fullest tile's list alone (the floor of compositing in order); the
+    splat with the particles its blocks stage before and after the
+    neighbour filter. `parent`: an earlier commit's tile-kernel module,
+    timed on the same inputs (`parent_tile_kernel`)."""
     from illuminant_tpu_torch.raster import sprites, tiled
+    from illuminant_tpu_torch.raster import tile_kernel as tk
 
     x, y, color, size, live, rot = steady_sprites(device)
     table = sprite_appearance().sprite_table(device)
@@ -1757,10 +1855,16 @@ def phase_sprite_kernels(device="cuda"):
     with KernelInputs("composite_over_tiles") as spy:
         sprites.rasterize_sprites_alpha(cfg, table, x, y, color, size, live,
                                         rotation=rot, background=bg)
-    _sprite_kernel_row(rec, "composite", "composite_over_tiles", spy.args,
-                       0.0, coverage="sprite", inputs="steady",
+    sprite_args = spy.args
+    _sprite_kernel_row(rec, "composite", "composite_over_tiles", sprite_args,
+                       0.0, parent, coverage="sprite", inputs="steady",
                        particles=x.shape[0],
-                       entries=int(spy.args[1][1][-1]))
+                       entries=int(sprite_args[1][1][-1]),
+                       **entry_stats(sprite_args[1][1]))
+    hot = hottest_tile(sprite_args)
+    _sprite_kernel_row(rec, "composite_hot", "composite_over_tiles", hot,
+                       0.0, parent, coverage="sprite",
+                       inputs="hottest_tile", entries=int(hot[1][1][-1]))
     route_ms = eager_ms(lambda: sprites.rasterize_sprites_alpha(
         cfg, table, x, y, color, size, live, rotation=rot, background=bg),
         20)
@@ -1769,17 +1873,34 @@ def phase_sprite_kernels(device="cuda"):
     with KernelInputs("composite_over_tiles") as spy:
         tiled.rasterize_tiled_alpha(dataclasses.replace(cfg, kernel="quad"),
                                     x, y, color, size, live, background=bg)
+    quad_args = spy.args
     _sprite_kernel_row(rec, "composite_quad", "composite_over_tiles",
-                       spy.args, 0.0, coverage="quad", inputs="steady",
-                       particles=x.shape[0],
-                       entries=int(spy.args[1][1][-1]))
+                       quad_args, 0.0, parent, coverage="quad",
+                       inputs="steady", particles=x.shape[0],
+                       entries=int(quad_args[1][1][-1]),
+                       **entry_stats(quad_args[1][1]))
     with KernelInputs("sprite_accumulate") as spy:
         sprites.rasterize_sprites(cfg, table, x, y, color, size, live,
                                   rotation=rot)
+    # The particles a block stages, by the filter's plain mirror; the
+    # kernel's own kept lists, read back from its scratch, must equal it.
+    want, kept_starts, listed = tk.accumulate_filter_reference(
+        cfg, spy.args[1], spy.args[2], table.support)
+    got, got_starts, _ = tk.accumulate_kept(*spy.args[:4])
+    if not (torch.equal(got, want.cpu())
+            and torch.equal(got_starts, kept_starts.cpu())):
+        raise AssertionError("sprite_accumulate: the kernel's filter kept "
+                             "other entries than its mirror")
+    kept = (kept_starts[1:] - kept_starts[:-1]).float()
+    staged = dict(
+        mirror_staged_mean_unfiltered=f"{float(listed.float().mean()):.1f}",
+        mirror_staged_mean=f"{float(kept.mean()):.1f}",
+        mirror_staged_max=int(kept.max()), kernel_kept_equals_mirror=True)
     _sprite_kernel_row(rec, "accumulate", "sprite_accumulate", spy.args,
-                       _add_tolerance(spy.out), inputs="steady",
+                       _add_tolerance(spy.out), parent, inputs="steady",
                        particles=x.shape[0],
-                       entries=int(spy.args[1][1][-1]))
+                       entries=int(spy.args[1][1][-1]),
+                       **entry_stats(spy.args[1][1]), **staged)
     return rec
 
 
@@ -1871,7 +1992,8 @@ def phase_slice_sprites(field, warmup: int, additive: bool, kernel_rec,
         alpha_max = float(bare[..., 3].max())
         _sprite_kernel_row(kernel_rec, "composite_frame", kernel, spy.args,
                            tol, coverage="sprite", inputs="frame",
-                           live=live, entries=int(spy.args[1][1][-1]))
+                           live=live, entries=int(spy.args[1][1][-1]),
+                           **entry_stats(spy.args[1][1]))
     img_np = image.cpu().numpy()
     say(name, cell="particles-alpha-sprites-1080p" if not additive
         else "particles-additive-sprites-1080p", warmup=warmup,
@@ -2171,6 +2293,10 @@ def main(argv=None) -> int:
                     "cells)")
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler tables")
+    ap.add_argument("--parent", default=None,
+                    help="root of an earlier commit's checkout (`git "
+                    "archive`): its tile kernels are timed beside these on "
+                    "the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2190,7 +2316,8 @@ def main(argv=None) -> int:
     cuda = torch.device("cuda")
     scene, field = _slice_field(cuda)
     kernel = phase_kernel(field)
-    kernel.update(phase_sprite_kernels())
+    kernel.update(phase_sprite_kernels(parent=parent_tile_kernel(
+        args.parent) if args.parent else None))
     launches, frame_ms = {}, {}
     for name, kw in SLICES.items():
         if name == "slice_family":

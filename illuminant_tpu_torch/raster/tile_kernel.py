@@ -12,7 +12,9 @@ kernels, one wrapper each:
     table's coverage, the Bayer dither and the background epilogue;
   * `sprite_accumulate` (K11b): the additive sprite coverage, each pixel
     summing the particles binned to its tile and its 8 neighbours whose
-    windows cover it.
+    windows cover it. The kernel first keeps only the neighbours'
+    particles whose footprint meets its tile; `accumulate_filter_reference`
+    mirrors that filter for the tests and `chip_smoke.py`.
 Both take the bins of `tiled.bin_footprints` (particle indices grouped by
 tile in draw order, and the (NT + 1,) starts) and (N, 8) float32 particle
 records: x, y, four colour values, the profile radius, the variant id.
@@ -55,6 +57,9 @@ SPRITE = 3
 MAX_TILE = 32
 MAX_RANK = 64
 RECORD = 8
+# K11b packs a particle index and a 4-bit neighbour code in one int32.
+CODE_BITS = 4
+MAX_ACCUMULATE_PARTICLES = 1 << (31 - CODE_BITS)
 _BAYER = ((0, 8, 2, 10), (12, 4, 14, 6), (3, 11, 1, 9), (15, 7, 13, 5))
 
 # Launches since import (or since a caller reset them): each wrapper adds
@@ -113,12 +118,28 @@ def _library():
                                        ptr, ptr, i32, i32, i32, i32, i32, i32,
                                        ptr]
         lib.tile_accumulate.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                        i32, ptr, i32, i32, i32, i32, i32,
-                                        ptr]
-        for fn in (lib.tile_composite, lib.tile_accumulate):
+                                        i32, ptr, ctypes.c_longlong, ptr,
+                                        i32, i32, i32, i32, i32, ptr]
+        lib.tile_plan.argtypes = [i32, i32, i32, i32,
+                                  ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.tile_composite, lib.tile_accumulate, lib.tile_plan):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def launch_plan(accumulate: bool, tile: int, ranks: int,
+                table_floats: int) -> dict:
+    """The block a launch of K11b (`accumulate`) or K11a takes at these
+    sizes on the current card: threads, chunk, the table's floats held in
+    shared memory (0: read from global memory), dynamic shared memory
+    bytes, resident blocks an SM, registers and spilled bytes a thread.
+    `table_floats`: 2 x B x R x S of a sprite table, 0 for a profile."""
+    out = (ctypes.c_int * 7)()
+    _raise_on(_library().tile_plan(int(accumulate), tile, ranks,
+                                   table_floats, out), "tile_plan")
+    return dict(zip(("threads", "chunk", "table_floats", "smem_bytes",
+                     "blocks_per_sm", "registers", "spill_bytes"), out))
 
 
 def _check(name: str, cfg: TiledRasterConfig, bins, records, table):
@@ -372,25 +393,141 @@ def sprite_accumulate(cfg: TiledRasterConfig, bins, records, table):
     variant id in column 7, `table` the sprite table's (row_factors,
     col_factors). A CPU tensor runs the plain version; a CUDA tensor
     launches K11b on the current stream, or raises."""
-    global ACCUMULATE_LAUNCHES
     _check("sprite_accumulate", cfg, bins, records, table)
     if not 1 <= cfg.channels <= 4:
         raise ValueError("sprite_accumulate: 1 to 4 channels")
     if records.device.type == "cpu":
         return sprite_accumulate_reference(cfg, bins, records, table)
+    # The filter's kept entries: 9 slots of the lists' length.
+    keep = torch.empty(9 * bins[0].shape[0], dtype=torch.int32,
+                       device=records.device)
+    return _accumulate(cfg, bins, records, table, keep)
+
+
+def _accumulate(cfg: TiledRasterConfig, bins, records, table, keep):
+    """Launch K11b with `keep` as its filter's scratch list."""
+    global ACCUMULATE_LAUNCHES
     ids, starts = bins
     rows, cols = table
-    _launchable("sprite_accumulate", cfg, [records, ids, starts, rows, cols],
-                rows.shape[1])
+    _launchable("sprite_accumulate", cfg,
+                [records, ids, starts, rows, cols, keep], rows.shape[1])
+    if max(records.shape[0], ids.shape[0]) >= MAX_ACCUMULATE_PARTICLES:
+        raise ValueError("sprite_accumulate: the kernel takes fewer than "
+                         f"{MAX_ACCUMULATE_PARTICLES} particles")
     out = torch.empty((cfg.height, cfg.width, cfg.channels),
                       dtype=torch.float32, device=records.device)
     b, r, s = rows.shape
     with torch.cuda.device(records.device):
         err = _library().tile_accumulate(
             ids.data_ptr(), starts.data_ptr(), records.data_ptr(),
-            rows.data_ptr(), cols.data_ptr(), b, r, s, out.data_ptr(),
-            cfg.height, cfg.width, cfg.tile, cfg.apron, cfg.channels,
+            rows.data_ptr(), cols.data_ptr(), b, r, s, keep.data_ptr(),
+            ids.shape[0], out.data_ptr(), cfg.height, cfg.width, cfg.tile,
+            cfg.apron, cfg.channels,
             torch.cuda.current_stream(records.device).cuda_stream)
     _raise_on(err, "tile_accumulate")
     ACCUMULATE_LAUNCHES += 1
     return out
+
+
+def accumulate_kept(cfg: TiledRasterConfig, bins, records, table):
+    """What K11b's filter kept, read back from its scratch list after one
+    launch on the card, for the tests and `chip_smoke.py`: the entries
+    its walk then reads, tile by tile, as `accumulate_filter_reference`
+    gives them -> (kept (K,) int64 particle indices, starts (NT + 1,)
+    int64, source (K,) int64 the tile each entry's code names). The
+    scratch starts at -1; a block's kept entries of neighbour row r lie
+    from where that row's lists begin in ids, in slot 3 r + tx % 3, and
+    the walk reads as many as the slot holds there."""
+    _check("accumulate_kept", cfg, bins, records, table)
+    if records.device.type == "cpu":
+        raise ValueError("accumulate_kept: the filter's list exists only "
+                         "on the card")
+    ids, starts = bins
+    entries = ids.shape[0]
+    keep = torch.full((9 * entries,), -1, dtype=torch.int32,
+                      device=records.device)
+    _accumulate(cfg, bins, records, table, keep)
+    keep = keep.cpu().to(torch.int64)
+    st = starts.cpu().to(torch.int64)
+    gy, gx = cfg.grid
+    ty = torch.arange(gy * gx) // gx
+    tx = torch.arange(gy * gx) % gx
+    r = torch.arange(3)
+    sy = ty[:, None] + r - 1  # (NT, 3) the neighbour rows
+    inside = (sy >= 0) & (sy < gy)
+    row = torch.clamp(sy, 0, gy - 1) * gx
+    begin = torch.where(inside, st[row + torch.clamp(tx - 1, min=0)[:, None]],
+                        0)
+    end = torch.where(inside, st[row + torch.clamp(tx + 1, max=gx - 1)[:, None]
+                                 + 1], 0)
+    base = (r * 3 + (tx % 3)[:, None]) * entries + begin
+    held = torch.nn.functional.pad(torch.cumsum(keep >= 0, 0), (1, 0))
+    count = (held[base + (end - begin)] - held[base]).reshape(-1)
+    first = torch.repeat_interleave(base.reshape(-1), count)
+    offset = torch.arange(int(count.sum())) - torch.repeat_interleave(
+        torch.cumsum(count, 0) - count, count)
+    v = keep[first + offset]
+    code = v & ((1 << CODE_BITS) - 1)
+    per_tile = count.reshape(gy * gx, 3).sum(1)
+    block = torch.repeat_interleave(torch.arange(gy * gx), per_tile)
+    source = ((block // gx + code // 3 - 1) * gx
+              + block % gx + code % 3 - 1)
+    kept_starts = torch.nn.functional.pad(torch.cumsum(per_tile, 0), (1, 0))
+    return v >> CODE_BITS, kept_starts, source
+
+
+def accumulate_filter_reference(cfg: TiledRasterConfig, bins, records,
+                                support: int):
+    """What K11b stages, in its order: for each tile, the entries of its
+    own and its 8 neighbours' lists (neighbour row, then tile, then list
+    order, which is the order of the entries in `ids`) whose footprint
+    (the `support` + 1 window positions of `sprite_accumulate_reference`),
+    clipped to their own tile's window and to the image, meets the tile.
+    -> (kept (K,) int64 particle indices grouped by tile, starts (NT + 1,)
+    int64, listed (NT,) int64 the entries of the 3 x 3 lists, which the
+    kernel staged before it filtered)."""
+    ids, starts = bins
+    gy, gx = cfg.grid
+    t, a = cfg.tile, cfg.apron
+    nt = gy * gx
+    dev = records.device
+    half = support // 2
+    n = int(starts[-1])
+    pos = torch.arange(n, device=dev)
+    src = torch.searchsorted(starts[1:].to(torch.int64), pos, right=True)
+    sy, sx = src // gx, src % gx
+    rec = records[ids[:n].to(torch.int64)]
+    counts = (starts[1:] - starts[:-1]).to(torch.int64).reshape(gy, gx)
+    padded = torch.nn.functional.pad(counts, (1, 1, 1, 1))
+    listed = sum(padded[1 + dy:1 + dy + gy, 1 + dx:1 + dx + gx]
+                 for dy in (-1, 0, 1) for dx in (-1, 0, 1)).reshape(-1)
+
+    def meets(p, s_, own, extent):
+        """Window positions lo .. lo + S of tile s_'s window, inside it
+        and the image, that are lines of tile `own`."""
+        lo = torch.floor(((p - (s_ * t).to(torch.float32)) + a)
+                         - 0.5).to(torch.int64) - half
+        wlo = torch.clamp(lo, min=0)
+        whi = torch.clamp(lo + support, max=cfg.window - 1)
+        w0 = a + (own - s_) * t
+        llo = torch.clamp(wlo - w0, min=0)
+        lhi = torch.minimum(torch.clamp(whi - w0, max=t - 1),
+                            extent - 1 - own * t)
+        return llo <= lhi
+
+    tiles, entries = [], []
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            ty, tx = sy - dy, sx - dx  # the tile that sees src as (dy, dx)
+            ok = (ty >= 0) & (ty < gy) & (tx >= 0) & (tx < gx)
+            ok &= meets(rec[:, 1], sy, ty, cfg.height)
+            ok &= meets(rec[:, 0], sx, tx, cfg.width)
+            tiles.append((ty * gx + tx)[ok])
+            entries.append(pos[ok])
+    tile = torch.cat(tiles)
+    entry = torch.cat(entries)
+    order = torch.argsort(tile * max(n, 1) + entry)
+    kept = ids[entry[order]].to(torch.int64)
+    kept_starts = torch.searchsorted(tile[order],
+                                     torch.arange(nt + 1, device=dev))
+    return kept, kept_starts, listed
