@@ -98,13 +98,40 @@ tile compositor K11a and the additive sprite splat K11b):
     150 (partial tiles at the edges) on the card against the CPU path:
     the composite routes bit for bit, the splat routes within K11b's
     bound.
+The lighting library's remaining entry points (`csrc/tiled_lights.cu`:
+K10, the tiled particle-light shading):
+  * `slice_particle_lights` (particle-lights-tiled-1080p): demo.py's
+    `scene_tiled_torches` (:1357-1412) at 1080 x 1920: 2048 torch flames
+    as a ParticleState, a shadowless template with an AO radius of 16,
+    `ParticleLightSource(method="auto", tile=64, tile_capacity=48)` over a
+    flat ground at the voxel slice's ground and ceiling, its AO sample on
+    that slice's ColumnField. Each of 8 timed frames (after 4 warm-up
+    frames, or --warmup N) uploads new colour alphas from the host without
+    blocking, then runs `accumulate_particle_lights`, adds the ambient,
+    `resolve` and `to_uint8`. Gates: K10, the fused query and its pack
+    once a frame, 0 device reads a frame, no light dropped and no relief
+    beyond the candidate window, the last frame's K10 within 1e-5 x (1 +
+    max) of its plain version, the image finite and not flat. Its
+    `[kernel] tiled_light_accumulate` row holds that call against its
+    plain version, timed beside the bound, with the binned live lights a
+    tile and the launch's block;
+  * `reference_particle_lights`: the tiled and auto routes at 96 x 160
+    (partial 32-px tiles) with stipple, relief, a squashed falloff, an
+    overflowing tile (the same `dropped`), a ramp-texture template (auto
+    takes the subset), card against CPU; the tiled route against the
+    dense subset within 0.02 relative;
+  * `reference_probes`: `evaluate_probes` of every family of the
+    full-family flagship at a 36 x 20 grid across the frame, card against
+    CPU (and each family must change the values), an SH bake and the
+    jump flood of demo.py's 256 x 256 mask (exactly equal).
 Every phase prints one line; the last
 three lines are the kernels' record as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
 before those lines are printed. With no CUDA card the script exits 2.
 
 `--warmup N` runs N untimed frames before the timed ones of every
-flagship, particle and sprite cell (default 4; 2 for the sprite cells).
+flagship, particle, sprite and particle-light cell (default 4; 2 for the
+sprite cells).
 The particle rings fill after capacity / spawn_max = 256 frames, so
 `--warmup 260` times each frame at its steady population (about 1M live
 particles; 131,072 in the sprite cells); the default times it at 20k-33k
@@ -208,6 +235,8 @@ def phase_build():
     for each source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from illuminant_tpu_torch.core.cuda_build import BUILD_LOGS
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel
     from illuminant_tpu_torch.raster import tile_kernel
     from illuminant_tpu_torch.sdf import columns_kernel
 
@@ -216,11 +245,12 @@ def phase_build():
         mod.build()
         return time.perf_counter() - t0
 
-    mods = {"column_maps": columns_kernel, "tile_raster": tile_kernel}
+    mods = {"column_maps": columns_kernel, "tile_raster": tile_kernel,
+            "tiled_lights": tiled_lights_kernel}
     with ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(timed, mods.values())))
     for name, mod in mods.items():
-        log = (mod.BUILD_LOG or "").strip().replace("\n", " | ")
+        log = BUILD_LOGS.get(mod._LIBRARY, "").strip().replace("\n", " | ")
         say("build", kernel=name, seconds=f"{secs[name]:.2f}",
             ptxas=json.dumps(log[-400:]))
 
@@ -1595,24 +1625,28 @@ def sprite_appearance(**kw):
 
 
 class KernelInputs:
-    """Inside it, the arguments and result of the last call of the
-    tile-kernel wrapper `name` (`composite_over_tiles`,
-    `sprite_accumulate`) are kept as .args and .out; the wrapper still
-    runs and counts as before."""
+    """Inside it, the arguments and result of the last call of the kernel
+    wrapper `name` (the tile kernels' `composite_over_tiles`,
+    `sprite_accumulate`, or a wrapper of `module`) are kept as .args and
+    .out; the wrapper still runs and counts as before."""
 
-    def __init__(self, name):
+    def __init__(self, name, module=None):
         self.name, self.args, self.out = name, None, None
+        self._mod = module
 
     def __enter__(self):
-        from illuminant_tpu_torch.raster import tile_kernel
+        if self._mod is None:
+            from illuminant_tpu_torch.raster import tile_kernel
 
-        self._mod, self._orig = tile_kernel, getattr(tile_kernel, self.name)
+            self._mod = tile_kernel
+        self._orig = getattr(self._mod, self.name)
 
-        def spy(*args):
-            self.args, self.out = args, self._orig(*args)
+        def spy(*args, **kwargs):
+            self.args, self.out = args, self._orig(*args, **kwargs)
+            self.kwargs = kwargs
             return self.out
 
-        setattr(tile_kernel, self.name, spy)
+        setattr(self._mod, self.name, spy)
         return self
 
     def __exit__(self, *exc):
@@ -2185,6 +2219,507 @@ def phase_reference_sprites():
                                  "image disagrees with the CPU path")
 
 
+# --- the lighting library's remaining entry points --------------------------
+
+# The cell particle-lights-tiled-1080p: demo.py scene_tiled_torches
+# (:1357-1412) at 1080 x 1920: 2048 torch flames, each an exact shadowless
+# sphere light, binned to the 64-px tiles its support reaches (17 x 30 =
+# 510 tiles, the last row partial), shaded by K10 over the voxel slice's
+# ground, the AO sample through its ColumnField (the fused query). The
+# density estimate 2048 x (2 x 38 + 64)^2 / 2,073,600 = 19.4 binned a tile,
+# x 1.5 <= 48, takes the auto route to the tiled culling.
+LIGHTS_FULL = dict(height=1080, width=1920, n=2048, tile=64, capacity=48)
+LIGHTS_TIMED_FRAMES = 8
+LIGHTS_SMALL = dict(height=96, width=160)
+
+
+def torch_template(**kw):
+    """The cell's template: demo.py:1402-1406's torch light with an AO
+    radius of 16 at opacity 0.5 (the AO sample is the fused query's
+    traffic)."""
+    from illuminant_tpu_torch.lighting.environment import SphereLightSource
+
+    base = dict(radius=4.0, ramp_length=34.0, color=(1.0, 1.0, 1.0, 0.85),
+                cast_shadows=False, ambient_occlusion_radius=16.0,
+                ambient_occlusion_opacity=0.5)
+    base.update(kw)
+    return SphereLightSource(**base)
+
+
+def torch_flames(n, height, width, seed=12):
+    """demo.py:1387-1400's torch flames, all live: numpy default_rng(seed);
+    x, y uniform 24 px inside the frame, z 8-14; colour (1, 0.45-0.75,
+    0.1-0.3, 0.6-1.0) -> (position, color), (n, 4) float32 each."""
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((n, 4), np.float32)
+    pos[:, 0] = rng.uniform(24, width - 24, n)
+    pos[:, 1] = rng.uniform(24, height - 24, n)
+    pos[:, 2] = rng.uniform(8, 14, n)
+    pos[:, 3] = 1.0
+    col = np.zeros((n, 4), np.float32)
+    col[:, 0] = 1.0
+    col[:, 1] = rng.uniform(0.45, 0.75, n)
+    col[:, 2] = rng.uniform(0.1, 0.3, n)
+    col[:, 3] = rng.uniform(0.6, 1.0, n)
+    return pos, col
+
+
+def lights_cell(field, env_host, device="cuda"):
+    """The particle-lights-tiled-1080p scene on `device`: a flat-ground
+    G-buffer at the voxel slice's ground and ceiling (`env_host`), ambient
+    (0.01, 0.01, 0.015, 1), the flames as a ParticleState, the auto
+    source, the resolve, and the host generator of the flicker."""
+    from types import SimpleNamespace
+
+    from illuminant_tpu_torch.core.config import HDRConfig
+    from illuminant_tpu_torch.lighting.environment import EnvironmentUniforms
+    from illuminant_tpu_torch.lighting.gbuffer import flat_ground
+    from illuminant_tpu_torch.lighting.particle_light import (
+        ParticleLightSource)
+    from illuminant_tpu_torch.particles.state import ParticleState
+
+    h, w, n = LIGHTS_FULL["height"], LIGHTS_FULL["width"], LIGHTS_FULL["n"]
+    env = EnvironmentUniforms.make(ambient=(0.01, 0.01, 0.015, 1.0),
+                                   device=device, **env_host)
+    pos, col = torch_flames(n, h, w)
+    state = ParticleState.empty(n, device=device).replace(
+        position=torch.as_tensor(pos, device=device),
+        color=torch.as_tensor(col, device=device))
+    source = ParticleLightSource(template=torch_template(), method="auto",
+                                 tile=LIGHTS_FULL["tile"],
+                                 tile_capacity=LIGHTS_FULL["capacity"])
+    return SimpleNamespace(
+        field=field, gbuffer=flat_ground(h, w, env), env=env, state=state,
+        source=source, hdr=HDRConfig(mode=2, exposure=1.2, white_point=2.5),
+        rng=np.random.default_rng(13))
+
+
+def lights_frame(cell, events=None):
+    """One frame of the cell: the host draws new colour alphas (0.6-1.0)
+    and uploads them without blocking, then the particle lights, ambient,
+    the resolve and the uint8 image -> (image, lightmap, dropped).
+    `events`: two CUDA events recorded around the particle lights."""
+    from illuminant_tpu_torch.core.config import QualitySettings
+    from illuminant_tpu_torch.core.upload import upload
+    from illuminant_tpu_torch.lighting.particle_light import (
+        accumulate_particle_lights)
+    from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
+
+    state = cell.state
+    alpha = upload(cell.rng.uniform(0.6, 1.0, state.capacity),
+                   state.color.device)
+    cell.state = state.replace(color=torch.cat(
+        [state.color[:, :3], alpha[:, None]], dim=1))
+    if events:
+        events[0].record()
+    lm, dropped = accumulate_particle_lights(
+        cell.field, cell.gbuffer, cell.state, cell.source, cell.env,
+        QualitySettings(), return_diagnostics=True)
+    if events:
+        events[1].record()
+    return to_uint8(resolve(lm + cell.env.ambient, cell.hdr)), lm, dropped
+
+
+def _reset_launches():
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+    from illuminant_tpu_torch.raster import tile_kernel as tk
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    k10.LAUNCHES = 0
+    tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
+    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+
+
+def _launches():
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+    from illuminant_tpu_torch.raster import tile_kernel as tk
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    return dict(tiled_light_accumulate=k10.LAUNCHES,
+                column_query=ck.QUERY_LAUNCHES,
+                column_maps_pack=ck.PACK_LAUNCHES,
+                column_maps_sample=ck.LAUNCHES,
+                composite_over_tiles=tk.COMPOSITE_LAUNCHES,
+                sprite_accumulate=tk.ACCUMULATE_LAUNCHES)
+
+
+def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
+    """The cell at full width: `warmup` frames, the timed frames (each
+    fenced by a synchronize; CUDA events around the particle lights), then
+    one frame under the host-read counter whose K10 call is checked
+    against its plain version, and the gates: K10, the fused query and its
+    pack once a frame, 0 host reads a frame, no light dropped and no relief
+    beyond the window, the image finite and not flat. Returns (launches,
+    ms_per_frame, K10's recorded call)."""
+    from illuminant_tpu_torch.lighting import tiled_lights as tl
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+
+    torch.cuda.reset_peak_memory_stats()
+    cell = lights_cell(field, env_host, device)
+    for _ in range(warmup):
+        lights_frame(cell)
+    torch.cuda.synchronize()
+    _reset_launches()
+    light_ms, dropped = [], []
+    t0 = time.perf_counter()
+    for _ in range(LIGHTS_TIMED_FRAMES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        image, _, d = lights_frame(cell, ev)
+        dropped.append(d)
+        torch.cuda.synchronize()
+        light_ms.append(ev[0].elapsed_time(ev[1]))
+    ms_per_frame = 1e3 * (time.perf_counter() - t0) / LIGHTS_TIMED_FRAMES
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with HostReads() as reads, KernelInputs(
+            "accumulate_sphere_lights_tiled", tl) as route, KernelInputs(
+                "tiled_light_accumulate", k10) as spy:
+        image, lm, d = lights_frame(cell)
+    torch.cuda.synchronize()
+    dropped.append(d)
+    n_dropped = int(torch.stack(dropped).sum())
+    deficit = float(route.out[1]["window_deficit_px"])
+    ref = k10.tiled_light_accumulate_reference(*spy.args, **spy.kwargs)
+    err = _max_err(spy.out, ref)
+    tol = _add_tolerance(ref)
+    img_np = image.cpu().numpy()
+    say("slice_particle_lights", cell="particle-lights-tiled-1080p",
+        warmup=warmup, frames=LIGHTS_TIMED_FRAMES, lights=cell.state.capacity,
+        tile=cell.source.tile, capacity=cell.source.tile_capacity,
+        ms_per_frame=f"{ms_per_frame:.3f}",
+        light_ms=f"{sum(light_ms) / len(light_ms):.3f}",
+        peak_mem_gb=f"{peak_gb:.3f}",
+        image=f"{img_np.shape}/{img_np.dtype}",
+        image_mean=f"{img_np[..., :3].mean():.3f}",
+        **{f"{k}_launches": v for k, v in launches.items()},
+        host_reads_per_frame=reads.n, dropped=n_dropped,
+        window_deficit_px=deficit, kernel_vs_plain_max_abs_err=err,
+        tol=tol)
+    expected = dict(tiled_light_accumulate=LIGHTS_TIMED_FRAMES,
+                    column_query=LIGHTS_TIMED_FRAMES,
+                    column_maps_pack=LIGHTS_TIMED_FRAMES,
+                    column_maps_sample=0, composite_over_tiles=0,
+                    sprite_accumulate=0)
+    if launches != expected:
+        raise AssertionError(f"slice_particle_lights: launches {launches} "
+                             f"in {LIGHTS_TIMED_FRAMES} frames, expected "
+                             f"{expected}")
+    if reads.n:
+        raise AssertionError(f"slice_particle_lights: {reads.n} host reads "
+                             "in a frame; expected 0")
+    if n_dropped or deficit:
+        raise AssertionError(f"slice_particle_lights: {n_dropped} lights "
+                             f"dropped, window deficit {deficit} px")
+    if not (bool(torch.isfinite(lm).all())
+            and img_np[..., :3].astype(np.float64).var() > 0.0
+            and img_np.shape == (LIGHTS_FULL["height"],
+                                 LIGHTS_FULL["width"], 4)):
+        raise AssertionError("slice_particle_lights: the frame is flat or "
+                             "not finite")
+    _require("tiled_light_accumulate", err, tol,
+             phase="slice_particle_lights")
+    return launches, ms_per_frame, (spy.args, spy.kwargs)
+
+
+def light_kernel_work(args, kwargs):
+    """(bytes, operations) of K10's call: the G-buffer planes (z,
+    relative_y, normal), pix_f, the lists, the records and the light
+    occlusion read once, the image written once; the operations of the
+    binned (live light, pixel) pairs inside the frame, and each pixel's
+    own, counted on the plain version (`pointwise_ops`) at 1 and 2 slots a
+    tile: the difference is one slot's work over every pixel. The plain
+    version always computes the light-occlusion term and selects it away
+    when the environment's light_occlusion is 0; the kernel skips it, so
+    then its operations (`occluded`) are not counted."""
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+
+    z, rel, normal, pix_f, idx, mask, records, lo, tile = args[:9]
+    h, w = z.shape
+    channels = 4 if kwargs.get("with_alpha", True) else 3
+    nbytes = 4.0 * (z.numel() + rel.numel() + normal.numel() + pix_f.numel()
+                    + idx.numel() + records.numel() + lo.numel()
+                    + h * w * channels) + mask.numel()
+    on = mask & (records[idx.long(), 3] > 0.0)
+    th, tw = -(-h // tile), -(-w // tile)
+    rows = torch.clamp(h - torch.arange(th) * tile, max=tile)
+    cols = torch.clamp(w - torch.arange(tw) * tile, max=tile)
+    pixels = (rows[:, None] * cols[None, :]).reshape(-1).to(on.device)
+    pairs = float((on.sum(dim=1) * pixels).sum())
+
+    def plain(k):
+        return lambda: k10.tiled_light_accumulate_reference(
+            z, rel, normal, pix_f, idx[:, :k].contiguous(),
+            mask[:, :k].contiguous(), records, lo, *args[8:], **kwargs)
+
+    one, two = pointwise_ops(plain(1)), pointwise_ops(plain(2))
+    per_slot = two - one
+    own = one - per_slot
+    if float(lo) <= 0.0:
+        occl_on = lo > 0.0
+        per_slot -= pointwise_ops(lambda: k10.occluded(z, z, lo, occl_on))
+    return nbytes, own + per_slot / (h * w) * pairs, on
+
+
+def phase_light_kernel(call):
+    """K10 at the cell's shapes, on the last frame's call: against its
+    plain version, both timed (`device_ms`, `eager_ms`), beside the bound,
+    with the binned live slots a tile and the launch's block."""
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+
+    args, kwargs = call
+    out = k10.tiled_light_accumulate(*args, **kwargs)
+    ref = k10.tiled_light_accumulate_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    err = _max_err(out, ref)
+    tol = _add_tolerance(ref)
+    _require("tiled_light_accumulate", err, tol, inputs="frame")
+    nbytes, ops, on = light_kernel_work(args, kwargs)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    ms = device_ms(lambda: k10.tiled_light_accumulate(*args, **kwargs),
+                   KERNEL_REPS)
+    plain_ms = eager_ms(
+        lambda: k10.tiled_light_accumulate_reference(*args, **kwargs), 3)
+    slots = on.sum(dim=1).float()
+    idx = args[4]
+    plan = k10.launch_plan(args[8], idx.shape[1])
+    say("kernel", name="tiled_light_accumulate", inputs="frame",
+        shape=f"{tuple(args[0].shape)}", tile=args[8],
+        tiles=idx.shape[0], capacity=idx.shape[1],
+        binned_mean=f"{float(slots.mean()):.1f}",
+        binned_max=int(slots.max()), max_abs_err=err, tol=tol,
+        bit_equal=bool(torch.equal(out, ref)), ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.3f}",
+        bytes=int(nbytes), operations=int(ops), **plan)
+    return {"lights": dict(ms=ms, plain_ms=plain_ms, err=err,
+                           bound=(bound_ms, bound_by), library_ms=None)}
+
+
+def phase_profile_lights(field, env_host, warmup, frame_ms, out_dir):
+    """Two traced frames of the particle-lights cell, built anew and run
+    through the same warm-up and timed frames: the tables, the busy time,
+    the idle share and the host reads a frame as in `phase_profile`."""
+    cell = lights_cell(field, env_host)
+    for _ in range(warmup + LIGHTS_TIMED_FRAMES + 1):
+        lights_frame(cell)
+    torch.cuda.synchronize()
+
+    def two_frames():
+        for _ in range(2):
+            lights_frame(cell)
+            torch.cuda.synchronize()
+
+    _traced("slice_particle_lights", out_dir, frame_ms, two_frames)
+
+
+def _small_lights(case, device):
+    """Case `case` of `reference_particle_lights` at 96 x 160 on `device`
+    -> (image, dropped, K10 launches): 120 lights from a seed, 20% dead,
+    over and past the frame, on a box field."""
+    from illuminant_tpu_torch.core.config import QualitySettings
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+    from illuminant_tpu_torch.lighting.environment import (
+        LightingEnvironment, LightObstruction)
+    from illuminant_tpu_torch.lighting.gbuffer import flat_ground
+    from illuminant_tpu_torch.lighting.particle_light import (
+        ParticleLightSource, accumulate_particle_lights)
+    from illuminant_tpu_torch.particles.state import ParticleState
+    from illuminant_tpu_torch.sdf.analytic import pack_scene
+
+    h, w = LIGHTS_SMALL["height"], LIGHTS_SMALL["width"]
+    rng = np.random.default_rng(21)
+    n = 120
+    pos = np.stack([rng.uniform(-10, w + 10, n), rng.uniform(-10, h + 10, n),
+                    rng.uniform(4, 18, n),
+                    (rng.uniform(size=n) > 0.2).astype(float)],
+                   1).astype(np.float32)
+    col = rng.uniform(0.2, 1.0, (n, 4)).astype(np.float32)
+    if case == "overflow":
+        pos[:60, :2] = (70.0, 40.0)
+    env = LightingEnvironment(ground_z=0.0, maximum_z=64.0).uniforms(
+        device=device)
+    gb = flat_ground(h, w, env)
+    if case in ("tiled_25d", "auto"):
+        rel = torch.zeros((h, w), device=device)
+        rel[60:, 20:120] = -20.0
+        gb = gb.replace(relative_y=rel)
+    field = pack_scene([LightObstruction.box((60.0, 40.0, 8.0),
+                                             (10.0, 10.0, 8.0))],
+                       device=device)
+    state = ParticleState.empty(n, device=device).replace(
+        position=torch.as_tensor(pos, device=device),
+        color=torch.as_tensor(col, device=device))
+    tpl = dict(radius=2.0, ramp_length=14.0, color=(1.0, 0.9, 0.8, 0.3),
+               ambient_occlusion_radius=4.0, ambient_occlusion_opacity=0.7)
+    src = dict(method="tiled", tile=32, tile_capacity=64)
+    if case == "tiled_25d":
+        tpl.update(falloff_y_factor=0.5)
+        src.update(stipple_factor=0.5)
+    elif case == "auto":
+        src = dict(method="auto", tile=32, tile_capacity=64)
+    elif case == "overflow":
+        src.update(tile_capacity=16)
+    elif case == "ramp_texture_auto":
+        tpl.update(ramp_texture=np.linspace(0.2, 1.0, 24, dtype=np.float32)
+                   .reshape(1, 8, 3))
+        src = dict(method="auto", tile=32, tile_capacity=64)
+    elif case == "dense_subset":
+        src = dict(method="subset", max_lights=n)
+    before = k10.LAUNCHES
+    img, dropped = accumulate_particle_lights(
+        field, gb, state,
+        ParticleLightSource(template=torch_template(**tpl), **src), env,
+        QualitySettings(), return_diagnostics=True)
+    return img.cpu().numpy(), int(dropped), k10.LAUNCHES - before
+
+
+LIGHT_CASES = {  # case -> K10 launches on the card
+    "tiled_25d": 1, "auto": 1, "overflow": 1, "tiled": 1,
+    "ramp_texture_auto": 0, "dense_subset": 0}
+
+
+def phase_reference_particle_lights():
+    """The particle lights at 96 x 160 (partial 32-px tiles) on the card
+    against the CPU path from the same inputs: the tiled route on a 2.5D
+    G-buffer with a squashed y falloff at stipple 0.5, auto (taking the
+    tiled route), a tile that overflows its capacity (the same `dropped`),
+    the plain tiled route, a ramp-texture template (auto takes the subset)
+    and the dense subset; within K10's bound, 1e-5 x (1 + the image's
+    largest value). On the card the tiled route is then held to the dense
+    subset within tests/test_tiled_lights.py:42's 0.02 relative."""
+    images = {}
+    for case, k10_launches in LIGHT_CASES.items():
+        cpu, d_cpu, _ = _small_lights(case, "cpu")
+        cuda, d_cuda, launched = _small_lights(case, "cuda")
+        images[case] = cuda
+        err = float(np.abs(cuda - cpu).max())
+        tol = 1e-5 * (1.0 + float(np.abs(cpu).max()))
+        say("reference_particle_lights", case=case,
+            size=f"{LIGHTS_SMALL['height']}x{LIGHTS_SMALL['width']}",
+            max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", dropped=d_cuda,
+            dropped_cpu=d_cpu, image_max=f"{np.abs(cpu).max():.4f}",
+            k10_launches=launched)
+        if launched != k10_launches:
+            raise AssertionError(f"reference_particle_lights ({case}): K10 "
+                                 f"launched {launched} times, expected "
+                                 f"{k10_launches}")
+        if not (err <= tol and d_cuda == d_cpu
+                and (d_cuda > 0) == (case == "overflow")
+                and np.isfinite(cuda).all() and np.abs(cpu).max() > 0.0):
+            raise AssertionError(f"reference_particle_lights ({case}): the "
+                                 "card disagrees with the CPU path")
+    dense = images["dense_subset"]
+    rel = float(np.abs(images["tiled"] - dense).max()) / max(
+        float(dense.max()), 1e-6)
+    say("reference_particle_lights", case="tiled_vs_dense_subset",
+        max_rel_err=f"{rel:.4f}", tol=0.02)
+    if not rel < 0.02:
+        raise AssertionError("reference_particle_lights: the tiled route "
+                             "strays from the dense subset")
+
+
+# Probes on a 36 x 20 grid across the 1080p frame; every third without a
+# normal.
+PROBE_GRID = (36, 20)
+PROBE_FAMILIES = ("sphere", "directional", "line", "volumetric", "projector")
+
+
+def _probe_values(device, leave_out=None):
+    """evaluate_probes of the full-family flagship's analytic scene and
+    packed lights (1080 x 1920) at the probe grid on `device`, with family
+    `leave_out` left out -> (P, 4) numpy."""
+    from illuminant_tpu_torch.core.config import QualitySettings
+    from illuminant_tpu_torch.lighting.probes import (LightProbe,
+                                                      evaluate_probes,
+                                                      pack_probes)
+    from illuminant_tpu_torch.scenes import build_flagship
+
+    scene = build_flagship(device=device, height=FULL["height"],
+                           width=FULL["width"], n_lights=8, capacity=1 << 10,
+                           spawn_max=128, field="analytic", full_family=True)
+    gx, gy = PROBE_GRID
+    probes = [LightProbe(position=((i + 0.5) * FULL["width"] / gx,
+                                   (j + 0.5) * FULL["height"] / gy, 1.0),
+                         normal=None if (i + j) % 3 == 0 else (0, 0, 1))
+              for j in range(gy) for i in range(gx)]
+    extra = scene.extra_lights
+    lights = dict(sphere_lights=scene.sphere_lights,
+                  directional_lights=extra["directional"],
+                  line_lights=extra["line"],
+                  volumetric_lights=extra["volumetric"],
+                  projector_lights=extra["projector"])
+    if leave_out is not None:
+        lights.pop(f"{leave_out}_lights")
+    return evaluate_probes(
+        scene.volume, pack_probes(probes, device=device),
+        scene.environment.uniforms(device=device), QualitySettings(),
+        **lights).cpu().numpy()
+
+
+def _gi_radiance(dirs):
+    """demo.py:829-833's GI-probe radiance (scene_gi_probes)."""
+    w = torch.clamp(dirs[:, 0] * 0.8 + dirs[:, 2] * 0.6, min=0.0)[:, None]
+    f = torch.tensor([1.8, 1.2, 0.5], device=dirs.device)
+    return w ** 2 * f + torch.tensor([0.05, 0.08, 0.2], device=dirs.device)
+
+
+def _jfa_mask():
+    """demo.py:1063-1066's jump-flood mask, 256 x 256."""
+    ys, xs = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    return (((ys - 128) ** 2 + (xs - 96) ** 2) < 60 ** 2) | (
+        (np.abs(ys - 120) < 18) & (np.abs(xs - 180) < 50))
+
+
+def phase_reference_probes():
+    """The probes, the SH bake and the jump flood on the card against the
+    CPU path. Probes of every family at once: the cone marches take the
+    same float32 steps, so mean |d| <= 1e-3 and 99% of the probes within
+    1e-3 x (1 + the largest value), the family tests' march bound; leaving
+    any family out must change the card's values. The SH bake of
+    demo.py's radiance within 1e-5 of the largest coefficient (float32
+    sums over 256 samples in another order); the jump flood of
+    demo.py's 256 x 256 mask exactly equal."""
+    from illuminant_tpu_torch.lighting.spherical_harmonics import (
+        bake_probe_from_lights)
+    from illuminant_tpu_torch.utils.jumpflood import jump_flood_sdf
+
+    cpu, cuda = _probe_values("cpu"), _probe_values("cuda")
+    d = np.abs(cuda - cpu)
+    scale = 1e-3 * (1.0 + float(np.abs(cpu).max()))
+    changed = {f: float(np.abs(cuda - _probe_values("cuda", f)).max())
+               for f in PROBE_FAMILIES}
+    say("reference_probes", probes=cpu.shape[0],
+        grid=f"{PROBE_GRID[0]}x{PROBE_GRID[1]}", mean_abs_err=f"{d.mean():.3e}",
+        within=f"{float((d.max(axis=1) <= scale).mean()):.4f}",
+        max_abs_err=f"{d.max():.3e}", value_max=f"{np.abs(cpu).max():.4f}",
+        **{f"without_{f}": f"{v:.4f}" for f, v in changed.items()})
+    if not (d.mean() <= 1e-3 and (d.max(axis=1) <= scale).mean() >= 0.99
+            and np.isfinite(cuda).all()):
+        raise AssertionError("reference_probes: the card's probes disagree "
+                             "with the CPU path")
+    if not all(v > 1e-3 for v in changed.values()):
+        raise AssertionError(f"reference_probes: a family leaves the probes "
+                             f"unchanged: {changed}")
+    sh = {dev: bake_probe_from_lights((0.0, 0.0, 0.0), _gi_radiance,
+                                      n_samples=256, device=dev).cpu()
+          for dev in ("cpu", "cuda")}
+    sh_err = float((sh["cuda"] - sh["cpu"]).abs().max())
+    sh_tol = 1e-5 * float(sh["cpu"].abs().max())
+    mask = _jfa_mask()
+    jfa = {dev: jump_flood_sdf(mask, device=dev).cpu()
+           for dev in ("cpu", "cuda")}
+    say("reference_probes", sh_max_abs_err=f"{sh_err:.3e}",
+        sh_tol=f"{sh_tol:.3e}", jfa="256x256",
+        jfa_equal=bool(torch.equal(jfa["cuda"], jfa["cpu"])),
+        jfa_range=f"{float(jfa['cpu'].min()):.2f}..{float(jfa['cpu'].max()):.2f}")
+    if not sh_err <= sh_tol:
+        raise AssertionError("reference_probes: the card's SH bake "
+                             "disagrees with the CPU path")
+    if not torch.equal(jfa["cuda"], jfa["cpu"]):
+        raise AssertionError("reference_probes: the card's jump flood "
+                             "differs from the CPU path")
+
+
 def _busy_us(events) -> tuple:
     """(union of the device events' intervals, sum of their durations),
     in microseconds. The union counts overlapping work once; the stage
@@ -2315,6 +2850,8 @@ def main(argv=None) -> int:
     phase_build()
     cuda = torch.device("cuda")
     scene, field = _slice_field(cuda)
+    env_host = dict(ground_z=scene.environment.ground_z,
+                    maximum_z=scene.environment.maximum_z)
     kernel = phase_kernel(field)
     kernel.update(phase_sprite_kernels(parent=parent_tile_kernel(
         args.parent) if args.parent else None))
@@ -2343,6 +2880,11 @@ def main(argv=None) -> int:
             else "slice_alpha_sprites"] = phase_slice_sprites(
                 field, sprite_warmup, additive, kernel)
         torch.cuda.empty_cache()
+    light_launches, frame_ms["slice_particle_lights"], light_call = \
+        phase_slice_lights(field, env_host, warmup)
+    kernel.update(phase_light_kernel(light_call))
+    del light_call
+    torch.cuda.empty_cache()
     # Profiled after every slice is timed: a profiler session slows the
     # launches that follow it in the process.
     for name in SLICES if args.profile else ():
@@ -2356,6 +2898,8 @@ def main(argv=None) -> int:
                                 frame_ms["slice_particles"], args.profile)
         phase_profile_sprites(field, sprite_warmup,
                               frame_ms["slice_alpha_sprites"], args.profile)
+        phase_profile_lights(field, env_host, warmup,
+                             frame_ms["slice_particle_lights"], args.profile)
     del field
     phase_reference()
     phase_reference_analytic()
@@ -2363,15 +2907,19 @@ def main(argv=None) -> int:
     phase_reference_renderer()
     phase_reference_particles()
     phase_reference_sprites()
+    phase_reference_particle_lights()
+    phase_reference_probes()
     # Each kernel at the heavier of the frame's calls: the query with the
     # unit gradient, the sampler with the derivative rows; the other calls
     # are in the [kernel] lines above. "ms" is one call of the wrapper the
     # frame calls (the query and the sampler include their pack).
     # "launches" counts the voxel flagship's timed frames,
     # "launches_particles" the particle cell's timed ticks,
-    # "launches_sprites" the alpha sprite cell's; the tile kernels'
-    # "launches" count their sprite cell's timed renders, their times
-    # are at that cell's steady 131,072 particles.
+    # "launches_sprites" the alpha sprite cell's,
+    # "launches_particle_lights" the particle-light cell's timed frames;
+    # the tile kernels' "launches" count their sprite cell's timed
+    # renders, their times are at that cell's steady 131,072 particles;
+    # K10's count that cell's frames, its time is on its last frame.
     rows = [("column_query", "illuminant_tpu/sdf/columns_pallas.py:78",
              kernel["query", True]),
             ("column_maps_sample", "illuminant_tpu/sdf/columns_pallas.py:78",
@@ -2386,6 +2934,7 @@ def main(argv=None) -> int:
         "launches": launches["slice"][name],
         "launches_particles": particle_launches[name],
         "launches_sprites": sprite_launches[False][name],
+        "launches_particle_lights": light_launches[name],
         "max_abs_err": r["err"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
@@ -2407,6 +2956,15 @@ def main(argv=None) -> int:
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None})
+    r = kernel["lights"]
+    kernels.append({
+        "name": "tiled_light_accumulate", "route": "cuda",
+        "source": "illuminant_tpu_torch/csrc/tiled_lights.cu",
+        "replaces": "illuminant_tpu/lighting/tiled_lights.py:123",
+        "launches": light_launches["tiled_light_accumulate"],
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

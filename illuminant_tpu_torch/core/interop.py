@@ -11,8 +11,9 @@ HeightVolumes, SdfVolume (with its config and whatever `max_valid_z` a
 partial regeneration left), SdfObstructions, ColumnField, ParticleState,
 SphereLights (with ramp textures), DirectionalLights, LineLights,
 VolumetricLights, ProjectorLights (with its tuple of mip levels),
-EnvironmentUniforms, GBuffer (a windowed view with its `pixel_origin`, or
-one written by height volumes and billboards), SystemUniforms, the
+LightProbes, EnvironmentUniforms, GBuffer (a windowed view with its
+`pixel_origin`, or one written by height volumes and billboards),
+SystemUniforms, the
 particle engine's uniforms (SpawnUniforms, FeedbackUniforms,
 GravityUniforms, FMAUniforms, MatrixMultiplyUniforms, NoiseUniforms,
 VectorFieldUniforms, AreaUniforms; RenderDataUniforms with its beziers and
@@ -33,6 +34,7 @@ from ..lighting.directional import DirectionalLights
 from ..lighting.environment import EnvironmentUniforms, SphereLights
 from ..lighting.gbuffer import GBuffer
 from ..lighting.line import LineLights
+from ..lighting.probes import LightProbes
 from ..lighting.projector import ProjectorLights
 from ..lighting.volumetric import VolumetricLights
 from ..ops.bezier import ClampedBezier
@@ -65,7 +67,7 @@ _NESTED = {
 
 SUPPORTED = (AnalyticScene, HeightVolumes, SdfVolume, SdfVolumeConfig,
              SdfObstructions, ColumnField, ParticleState, SphereLights,
-             DirectionalLights, LineLights,
+             DirectionalLights, LineLights, LightProbes,
              VolumetricLights, ProjectorLights, EnvironmentUniforms, GBuffer,
              SystemUniforms, SpawnUniforms, FeedbackUniforms, GravityUniforms,
              FMAUniforms, MatrixMultiplyUniforms, NoiseUniforms,

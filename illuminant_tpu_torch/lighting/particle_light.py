@@ -6,13 +6,13 @@ becomes an instance of the template sphere light, its color the
 particle's attribute color (un-premultiplied) times the template's
 (fx:40-71), with StippleFactor thinning the set (fx:27).
 
-Ported: the strided-subset path. At most `max_lights` slots are taken
-from the particle SoA at a fixed stride and evaluated as one batched
-SphereLights set; brightness is compensated by the sampling ratio, so the
-total emitted energy is preserved. The exact tiled-culling path
-(lighting/tiled_lights.py), which the JAX package takes for small
-shadowless sets, is ROADMAP M9 / K10: `method="tiled"` raises, and so
-does `method="auto"` where it would route there.
+Two evaluations, as in the JAX package. The exact tiled culling
+(lighting/tiled_lights.py, its shading the CUDA kernel K10) takes small
+shadowless sets: every live particle is a light, binned to the screen
+tiles its influence reaches. The strided subset takes the rest: at most
+`max_lights` slots at a fixed stride, evaluated as one batched
+SphereLights set, brightness compensated by the sampling ratio so that
+the total emitted energy is preserved.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..particles.state import ParticleState
 from .environment import EnvironmentUniforms, SphereLights, SphereLightSource
 from .gbuffer import GBuffer
 from .sphere import accumulate_sphere_lights
+from . import tiled_lights
 
 
 @dataclasses.dataclass
@@ -106,8 +107,10 @@ def accumulate_particle_lights(volume, gbuffer: GBuffer,
 
     Uses the previous frame's particle state by convention (the reference
     reads usePreviousData, LightingRenderer.cs:1138-43); pass whichever
-    state you have. Sets the JAX package evaluates by tiled culling raise
-    NotImplementedError here."""
+    state you have. `method="auto"` takes the exact tiled culling for a
+    shadowless template without a ramp texture on a full-frame G-buffer
+    whose expected binned lights a tile fit the capacity, and the subset
+    otherwise."""
     tpl = source.template
     tpl_support = tpl.radius + (tpl.ramp_length if tpl.ramp_mode < 2
                                 else 1.0)
@@ -121,13 +124,28 @@ def accumulate_particle_lights(volume, gbuffer: GBuffer,
                   * (2.0 * inf_y + source.tile) / max(w * h, 1))
     use_tiled = source.method == "tiled" or (
         source.method == "auto" and not tpl.cast_shadows
+        and tpl.ramp_texture is None
         and gbuffer.pixel_origin is None and state.capacity <= 2048
         and exp_binned * 1.5 <= source.tile_capacity)
     if use_tiled:
-        raise NotImplementedError(
-            f"particle lights by tiled culling (method={source.method!r}, "
-            f"capacity {state.capacity}) are not ported yet (ROADMAP M9 / "
-            "K10: lighting/tiled_lights.py); method='subset' is")
+        active = (state.position[:, 3] > 0.0) & (state.color[:, 3] > 0.0)
+        brightness = 1.0
+        if source.stipple_factor < 1.0:
+            active = active & stipple_keep(state.capacity,
+                                           source.stipple_factor,
+                                           device=active.device)
+            # The subset path's energy-preserving convention, so that the
+            # auto route never changes the scene's brightness.
+            brightness = 1.0 / max(source.stipple_factor, 1e-3)
+        mry = (source.max_relative_y if source.max_relative_y is not None
+               else source.tile / max(gbuffer.render_scale, 1e-6))
+        img, diag = tiled_lights.accumulate_sphere_lights_tiled(
+            volume, gbuffer, state.position, state.color, active, tpl, env,
+            tile=source.tile, capacity=source.tile_capacity,
+            brightness_scale=brightness, max_relative_y=mry)
+        if return_diagnostics:
+            return img, diag["dropped"]
+        return img
     lights = subset_lights_from_particles(
         state, tpl, source.max_lights, stipple_factor=source.stipple_factor)
     if not tpl.cast_shadows:

@@ -24,33 +24,23 @@ launches the kernel or raises. The plain versions are what the kernels
 compute, in the same operation order: the composite runs one step per bin
 slot over the tiles whose list is that long, as the JAX scan does; the
 splat scatters each particle's footprint with `index_add_`. The library is
-compiled from the repository's source with nvcc at first use, into
-`build/illuminant_tpu_torch/` beside the package.
+compiled from the repository's source at first use (`core/cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from ..core import cuda_build
+# Read by tools/torch_tile_study.py, which builds variants of the source.
+from ..core.cuda_build import NVCC_FLAGS, nvcc as _nvcc  # noqa: F401
 from .tiled import (KERNEL_GAUSS, KERNEL_QUAD, KERNEL_ROUND,
                     TiledRasterConfig, _profile)
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "tile_raster.cu"
-_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
-              / "illuminant_tpu_torch")
-_LIBRARY = _BUILD_DIR / "libtile_raster.so"
-# -fmad=false: products and sums round one by one, as in the plain
-# versions (see the source's header).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+_SOURCE = cuda_build.CSRC / "tile_raster.cu"
+_LIBRARY = cuda_build.library_path(_SOURCE)
 # The kernels' coverage kinds, in the source's `Kind` order.
 KINDS = {KERNEL_QUAD: 0, KERNEL_GAUSS: 1, KERNEL_ROUND: 2}
 SPRITE = 3
@@ -66,65 +56,25 @@ _BAYER = ((0, 8, 2, 10), (12, 4, 14, 6), (3, 11, 1, 9), (15, 7, 13, 5))
 # one where it launches its kernel and nowhere else.
 COMPOSITE_LAUNCHES = 0   # composite_over_tiles (K11a)
 ACCUMULATE_LAUNCHES = 0  # sprite_accumulate (K11b)
-# nvcc's output from the build of this process, or None before it.
-BUILD_LOG = None
-
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the tile-raster kernels need the "
-                       "CUDA toolkit to build")
-
-
-def build() -> Path:
-    """Compile csrc/tile_raster.cu into the build directory unless an
-    up-to-date library is already there (written under a temporary name
-    and renamed into place)."""
-    global BUILD_LOG
-    if (_LIBRARY.exists()
-            and _LIBRARY.stat().st_mtime >= _SOURCE.stat().st_mtime):
-        return _LIBRARY
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, _LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _LIBRARY
+def build():
+    """Compile csrc/tile_raster.cu unless an up-to-date library is there."""
+    return cuda_build.build(_SOURCE, _LIBRARY)
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tile_composite.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                       ptr, ptr, i32, i32, i32, i32, i32, i32,
-                                       ptr]
-        lib.tile_accumulate.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                        i32, ptr, ctypes.c_longlong, ptr,
-                                        i32, i32, i32, i32, i32, ptr]
-        lib.tile_plan.argtypes = [i32, i32, i32, i32,
-                                  ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.tile_composite, lib.tile_accumulate, lib.tile_plan):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
+            "tile_composite": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
+                               ptr, i32, i32, i32, i32, i32, i32, ptr],
+            "tile_accumulate": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
+                                ctypes.c_longlong, ptr, i32, i32, i32, i32,
+                                i32, ptr],
+            "tile_plan": [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]})
     return _lib
 
 
@@ -136,8 +86,8 @@ def launch_plan(accumulate: bool, tile: int, ranks: int,
     bytes, resident blocks an SM, registers and spilled bytes a thread.
     `table_floats`: 2 x B x R x S of a sprite table, 0 for a profile."""
     out = (ctypes.c_int * 7)()
-    _raise_on(_library().tile_plan(int(accumulate), tile, ranks,
-                                   table_floats, out), "tile_plan")
+    cuda_build.check(_library().tile_plan(int(accumulate), tile, ranks,
+                                          table_floats, out), "tile_plan")
     return dict(zip(("threads", "chunk", "table_floats", "smem_bytes",
                      "blocks_per_sm", "registers", "spill_bytes"), out))
 
@@ -180,11 +130,6 @@ def _launchable(name: str, cfg: TiledRasterConfig, tensors, ranks: int):
                          f"{MAX_TILE} pixels (a multiple of 4), an apron "
                          f"up to the tile and 1 to {MAX_RANK} ranks; got "
                          f"tile {cfg.tile}, apron {cfg.apron}, {ranks}")
-
-
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 # --- the factors both plain versions share ------------------------------
@@ -332,7 +277,7 @@ def composite_over_tiles(cfg: TiledRasterConfig, bins, records, coverage,
             out.data_ptr(), cfg.height, cfg.width, cfg.tile, cfg.apron,
             SPRITE if sprite else KINDS[coverage], int(bool(dither)),
             torch.cuda.current_stream(records.device).cuda_stream)
-    _raise_on(err, "tile_composite")
+    cuda_build.check(err, "tile_composite")
     COMPOSITE_LAUNCHES += 1
     return out
 
@@ -424,7 +369,7 @@ def _accumulate(cfg: TiledRasterConfig, bins, records, table, keep):
             ids.shape[0], out.data_ptr(), cfg.height, cfg.width, cfg.tile,
             cfg.apron, cfg.channels,
             torch.cuda.current_stream(records.device).cuda_stream)
-    _raise_on(err, "tile_accumulate")
+    cuda_build.check(err, "tile_accumulate")
     ACCUMULATE_LAUNCHES += 1
     return out
 

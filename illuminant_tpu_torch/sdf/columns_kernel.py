@@ -19,30 +19,19 @@ What bounds them on an H100 is bytes; the source's header says what the
 design does about it. On a CPU tensor `pack_maps` and `sample_maps` run
 their plain versions (`pack_maps_reference`, `sample_maps_reference`); a
 CUDA tensor launches the kernel or raises. The library is compiled from
-the repository's source with nvcc at first use, into
-`build/illuminant_tpu_torch/` beside the package.
+the repository's source at first use (`core/cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "column_maps.cu"
-_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
-              / "illuminant_tpu_torch")
-_LIBRARY = _BUILD_DIR / "libcolumn_maps.so"
-# -fmad=false: products and sums round one by one, as in the plain
-# versions (see the source's header).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from ..core import cuda_build
+
+_SOURCE = cuda_build.CSRC / "column_maps.cu"
+_LIBRARY = cuda_build.library_path(_SOURCE)
 
 MAX_MAPS = 8
 # The fused query's ColumnField constants, in the order of the source's
@@ -55,76 +44,30 @@ QUERY_GEOMETRY = ("ex", "ey", "ez", "z_offset", "scale_x", "scale_y", "rx",
 LAUNCHES = 0        # sample_maps
 QUERY_LAUNCHES = 0  # query_columns
 PACK_LAUNCHES = 0   # pack_maps
-# nvcc's output from the build of this process (ptxas register and
-# shared-memory report), or None before the first build.
-BUILD_LOG = None
-
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the column-map kernels need the "
-                       "CUDA toolkit to build")
-
-
-def build() -> Path:
-    """Compile csrc/column_maps.cu into the build directory unless an
-    up-to-date library is already there. The library is written under a
-    temporary name and renamed into place, so concurrent builds never
-    load a half-written file."""
-    global BUILD_LOG
-    if (_LIBRARY.exists()
-            and _LIBRARY.stat().st_mtime >= _SOURCE.stat().st_mtime):
-        return _LIBRARY
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, _LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _LIBRARY
+def build():
+    """Compile csrc/column_maps.cu unless an up-to-date library is there."""
+    return cuda_build.build(_SOURCE, _LIBRARY)
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.column_maps_pack.argtypes = [ptr, ptr, i32, i32, i32, ptr]
-        lib.column_maps_sample.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                           i64, i32, ptr]
-        lib.column_query.argtypes = [
-            ptr, i32, i32, ctypes.POINTER(ctypes.c_float), ptr, i64, ptr, i64,
-            ptr, i64, i64, i32, i32, ptr, ptr, ptr, ptr, ptr]
-        for fn in (lib.column_maps_pack, lib.column_maps_sample,
-                   lib.column_query):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
+            "column_maps_pack": [ptr, ptr, i32, i32, i32, ptr],
+            "column_maps_sample": [ptr, ptr, ptr, ptr, i32, i32, i32, i64,
+                                   i32, ptr],
+            "column_query": [ptr, i32, i32, ctypes.POINTER(ctypes.c_float),
+                             ptr, i64, ptr, i64, ptr, i64, i64, i32, i32,
+                             ptr, ptr, ptr, ptr, ptr]})
     return _lib
 
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def _on_cuda(name: str, tensors):
@@ -197,7 +140,7 @@ def pack_maps(maps):
         err = _library().column_maps_pack(
             maps.data_ptr(), pack.data_ptr(), n_maps, hc, wc,
             _stream(maps.device))
-    _raise_on(err, "column_maps_pack")
+    cuda_build.check(err, "column_maps_pack")
     PACK_LAUNCHES += 1
     return pack
 
@@ -264,7 +207,7 @@ def sample_maps(maps, ty, tx, want_grad: bool = False):
         err = _library().column_maps_sample(
             pack.data_ptr(), ty.data_ptr(), tx.data_ptr(), out.data_ptr(),
             n_maps, hc, wc, n, int(bool(want_grad)), _stream(maps.device))
-    _raise_on(err, "column_maps_sample")
+    cuda_build.check(err, "column_maps_sample")
     LAUNCHES += 1
     return out
 
@@ -312,6 +255,6 @@ def query_columns(pack, geometry, x, y, z, want_grad: bool = False,
             pack.data_ptr(), hc, wc, geom, *args[0], *args[1], *args[2], n,
             int(bool(want_grad)), int(bool(normalize)), *ptrs,
             _stream(x.device))
-    _raise_on(err, "column_query")
+    cuda_build.check(err, "column_query")
     QUERY_LAUNCHES += 1
     return tuple(outs) if want_grad else outs[0]

@@ -615,21 +615,27 @@ def test_particle_lights_match_jax(fields, field, shadows, stipple):
 
 
 @pytest.mark.parametrize("method,capacity", [("tiled", 256), ("auto", 64)])
-def test_tiled_particle_lights_raise(fields, method, capacity):
-    """The tiled culling path is not ported: forcing it raises, and so
-    does "auto" where the JAX package would route a small shadowless set
-    there."""
-    _, ft = fields
-    _, gt = _gbuffers("flat")
-    _, et = _envs()
-    _, st = _state_pair(capacity=capacity)
-    src = tplight.ParticleLightSource(
-        template=tenv.SphereLightSource(radius=1.0, ramp_length=2.0,
-                                        cast_shadows=False),
-        method=method, tile_capacity=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        tplight.accumulate_particle_lights(ft["analytic"], gt, st, src, et,
-                                       QualitySettings())
+def test_tiled_particle_lights_match_jax(fields, method, capacity):
+    """The tiled culling path, forced and where "auto" routes a small
+    shadowless set, gives the JAX package's image within its bfloat16
+    light sums' bound, 2^-8 of the largest value + 1e-3."""
+    fj, ft = fields
+    gj, gt = _gbuffers("flat")
+    ej, et = _envs()
+    sj, st = _state_pair(capacity=capacity)
+    kw = dict(radius=1.0, ramp_length=2.0, cast_shadows=False)
+    src = dict(method=method, tile_capacity=256)
+    out = tplight.accumulate_particle_lights(
+        ft["analytic"], gt, st,
+        tplight.ParticleLightSource(template=tenv.SphereLightSource(**kw),
+                                    **src), et, QualitySettings()).numpy()
+    ref = np.asarray(jpl.accumulate_particle_lights(
+        fj["analytic"], gj, sj,
+        jpl.ParticleLightSource(template=jenv.SphereLightSource(**kw),
+                                **src), ej, JQuality()))
+    assert out.shape == ref.shape == (H, W, 4)
+    assert np.abs(out - ref).max() <= 2.0 ** -8 * ref.max() + 1e-3
+    assert ref[..., 3].max() > 0.05
 
 
 # -- the scan's new arguments -----------------------------------------------

@@ -18,7 +18,10 @@ NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
     "core.upload", "ops.noise", "particles.system", "particles.spawner",
     "particles.transforms", "particles.integrate", "particles.render_data",
     "raster.particles", "raster.render", "utils.perf", "raster.sprites",
-    "raster.tile_kernel", "raster.warp")]
+    "raster.tile_kernel", "raster.warp", "lighting.tiled_lights",
+    "lighting.tiled_lights_kernel", "lighting.probes",
+    "lighting.spherical_harmonics", "utils.jumpflood", "utils.mapgen",
+    "utils.visualize")]
 
 
 def test_import_leaves_jax_out():
@@ -48,9 +51,14 @@ def test_kernel_modules_load_nothing_at_import():
     code = (
         "import illuminant_tpu_torch.raster.tile_kernel as t\n"
         "import illuminant_tpu_torch.sdf.columns_kernel as c\n"
+        "import illuminant_tpu_torch.lighting.tiled_lights_kernel as k\n"
         "import illuminant_tpu_torch.raster.render\n"
-        "assert t._lib is None and t.BUILD_LOG is None, 'tile_raster'\n"
-        "assert c._lib is None and c.BUILD_LOG is None, 'column_maps'\n"
+        "import illuminant_tpu_torch.lighting.particle_light\n"
+        "from illuminant_tpu_torch.core.cuda_build import BUILD_LOGS\n"
+        "assert t._lib is None, 'tile_raster'\n"
+        "assert k._lib is None and k.LAUNCHES == 0, 'tiled_lights'\n"
+        "assert c._lib is None, 'column_maps'\n"
+        "assert not BUILD_LOGS\n"
         "assert t.COMPOSITE_LAUNCHES == t.ACCUMULATE_LAUNCHES == 0\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -92,9 +100,11 @@ def test_unknown_light_family_raises(families):
                        n_lights=2, full_family=families)
 
 
-def test_tiled_particle_lights_are_unported():
-    """`ParticleLightSource(method="tiled")` names its ROADMAP item
-    instead of falling back to the strided subset."""
+def test_tiled_particle_lights_run_on_the_cpu():
+    """`ParticleLightSource(method="tiled")` on CPU tensors runs K10's
+    plain version, gives the (H, W, 4) image and, with
+    `return_diagnostics`, the tiled overflow count as an int32 device
+    scalar."""
     import torch
 
     from illuminant_tpu_torch.lighting import environment as env
@@ -104,11 +114,17 @@ def test_tiled_particle_lights_are_unported():
     from illuminant_tpu_torch.particles.state import ParticleState
 
     env_u = env.EnvironmentUniforms.make(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
-        accumulate_particle_lights(
-            None, flat_ground(8, 8, env_u),
-            ParticleState.empty(16, device=torch.device("cpu")),
-            ParticleLightSource(method="tiled"), env_u, QualitySettings())
+    state = ParticleState.empty(16, device=torch.device("cpu"))
+    state.position[:4] = torch.tensor([4.0, 4.0, 3.0, 1.0])
+    img, dropped = accumulate_particle_lights(
+        None, flat_ground(8, 8, env_u), state,
+        ParticleLightSource(method="tiled", tile=4, tile_capacity=2,
+                            template=env.SphereLightSource(
+                                radius=1.0, ramp_length=4.0,
+                                cast_shadows=False)),
+        env_u, QualitySettings(), return_diagnostics=True)
+    assert img.shape == (8, 8, 4) and float(img[..., 3].max()) > 0.0
+    assert dropped.dtype == torch.int32 and int(dropped) > 0
 
 
 def test_flagship_holds_the_packed_extra_lights():
@@ -131,7 +147,10 @@ def _entry_points():
     from illuminant_tpu_torch.lighting import directional, line
     from illuminant_tpu_torch.lighting import environment as env
     from illuminant_tpu_torch.lighting import projector, volumetric
+    from illuminant_tpu_torch.lighting.probes import pack_probes
     from illuminant_tpu_torch.lighting.renderer import LightingRenderer
+    from illuminant_tpu_torch.lighting.spherical_harmonics import (
+        bake_probe_from_lights)
     from illuminant_tpu_torch.ops.noise import RandomField
     from illuminant_tpu_torch.particles.system import ParticleSystem
     from illuminant_tpu_torch.raster import sprites
@@ -139,8 +158,14 @@ def _entry_points():
     from illuminant_tpu_torch.sdf.analytic import pack_scene
     from illuminant_tpu_torch.sdf.height_volume import pack_height_volumes
     from illuminant_tpu_torch.sdf.volume import SdfObstructions, SdfVolume
+    from illuminant_tpu_torch.utils.jumpflood import jump_flood_sdf
+    from illuminant_tpu_torch.utils.visualize import visualize_distance_field
 
     return {
+        "pack_probes": pack_probes,
+        "bake_probe_from_lights": bake_probe_from_lights,
+        "jump_flood_sdf": jump_flood_sdf,
+        "visualize_distance_field": visualize_distance_field,
         "LightingRenderer": LightingRenderer.__init__,
         "pack_height_volumes": pack_height_volumes,
         "SdfVolume.empty": SdfVolume.empty,
