@@ -99,22 +99,29 @@ tile compositor K11a and the additive sprite splat K11b):
     the composite routes bit for bit, the splat routes within K11b's
     bound.
 The lighting library's remaining entry points (`csrc/tiled_lights.cu`:
-K10, the tiled particle-light shading):
+K10, the tiled particle lights as one fused launch a frame):
   * `slice_particle_lights` (particle-lights-tiled-1080p): demo.py's
     `scene_tiled_torches` (:1357-1412) at 1080 x 1920: 2048 torch flames
     as a ParticleState, a shadowless template with an AO radius of 16,
     `ParticleLightSource(method="auto", tile=64, tile_capacity=48)` over a
-    flat ground at the voxel slice's ground and ceiling, its AO sample on
-    that slice's ColumnField. Each of 8 timed frames (after 4 warm-up
-    frames, or --warmup N) uploads new colour alphas from the host without
-    blocking, then runs `accumulate_particle_lights`, adds the ambient,
-    `resolve` and `to_uint8`. Gates: K10, the fused query and its pack
-    once a frame, 0 device reads a frame, no light dropped and no relief
-    beyond the candidate window, the last frame's K10 within 1e-5 x (1 +
-    max) of its plain version, the image finite and not flat. Its
-    `[kernel] tiled_light_accumulate` row holds that call against its
-    plain version, timed beside the bound, with the binned live lights a
-    tile and the launch's block;
+    flat ground at the voxel slice's ground and ceiling, its AO sampled
+    in K10 from that slice's ColumnField. Each of 8 timed frames (after 4
+    warm-up frames, or --warmup N) uploads new colour alphas from the host
+    without blocking, then runs `accumulate_particle_lights`, adds the
+    ambient, `resolve` and `to_uint8`. Gates: K10 and the map pack once a
+    frame, the column query never, 0 device reads a frame, no light
+    dropped and no relief beyond the candidate window, the last frame's
+    K10 call repeated with its debug lists, which must equal
+    `bin_lights_to_tiles`' (and `dropped`, the deficit), its image within
+    1e-5 x (1 + max) of its plain version, the frame finite and not flat.
+    Its `[kernel] tiled_lights_fused` row holds that call against its
+    plain version, timed beside the bound (bytes once; operations of the
+    cull's box tests, each pixel's AO query and the (light, pixel) pairs
+    whose plain opacity is nonzero), with the binned and the contributing
+    pairs and the launch's block; with `--parent`, the earlier checkout's
+    K10 (which shades alone, from bins made in PyTorch) on the frame's
+    own bins in turns with it, and both routes' device work timed
+    eagerly;
   * `reference_particle_lights`: the tiled and auto routes at 96 x 160
     (partial 32-px tiles) with stipple, relief, a squashed falloff, an
     overflowing tile (the same `dropped`), a ramp-texture template (auto
@@ -137,18 +144,19 @@ The particle rings fill after capacity / spawn_max = 256 frames, so
 particles; 131,072 in the sprite cells); the default times it at 20k-33k
 (1,024-5,120 in the sprite cells).
 
-`--parent DIR` builds the tile kernels of another checkout at DIR (an
-earlier commit unpacked with `git archive`) and times them beside these
-in the `[kernel]` rows of the sprite kernels, on the same inputs, in
-turns (parent_ms).
+`--parent DIR` builds the tile kernels and K10 of another checkout at DIR
+(an earlier commit unpacked with `git archive`) and times them beside
+these in the `[kernel]` rows of the sprite kernels and of K10, on the same
+inputs, in turns (parent_ms).
 
 `--profile DIR` additionally traces two frames of each slice and of each
 renderer frame with
 torch.profiler once every slice is timed (on a scene built anew and run
 through the same warm-up and timed frames, so no other slice's memory is
 held), writes the per-kernel and per-stage tables under DIR/<slice>/, and
-prints the device's busy time per frame and its idle share of the
-unprofiled frame.
+prints the device's busy time per frame, its device operations
+(kernels, copies, fills) per frame and its idle share of the unprofiled
+frame.
 """
 
 from __future__ import annotations
@@ -1759,34 +1767,35 @@ def block_plan(name, args) -> dict:
                 registers=plan["registers"], spill_bytes=plan["spill_bytes"])
 
 
-def parent_tile_kernel(root):
-    """The tile-kernel module of another checkout at `root` (an earlier
-    commit unpacked with `git archive`), imported as a package of its own
-    beside this one; its library is built from its own source into
-    root/build/."""
+def parent_module(root, name):
+    """Module `name` (e.g. "raster.tile_kernel") of the port in another
+    checkout at `root` (an earlier commit unpacked with `git archive`),
+    imported as a package of its own beside this one; its kernel library
+    is built from its own source into root/build/."""
     import importlib
     import importlib.util
 
-    name = "parent_illuminant_tpu_torch"
-    pkg = os.path.join(os.path.abspath(root), "illuminant_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        name, os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    tk = importlib.import_module(name + ".raster.tile_kernel")
+    pkg_name = "parent_illuminant_tpu_torch"
+    if pkg_name not in sys.modules:
+        pkg = os.path.join(os.path.abspath(root), "illuminant_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            pkg_name, os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[pkg_name] = mod
+        spec.loader.exec_module(mod)
+    mod = importlib.import_module(f"{pkg_name}.{name}")
     t0 = time.perf_counter()
-    tk.build()
-    say("build", kernel="parent tile_raster", root=json.dumps(root),
+    mod.build()
+    say("build", kernel=f"parent {name}", root=json.dumps(root),
         seconds=f"{time.perf_counter() - t0:.2f}")
-    return tk
+    return mod
 
 
 def _sprite_kernel_row(rec, key, name, args, tol, parent=None, **fields):
     """Check one recorded call of kernel `name` against its plain version
     on the same inputs, time both and print the [kernel] line with the
-    launch's block. With `parent` (`parent_tile_kernel`), the earlier
+    launch's block. With `parent` (`parent_module`), the earlier
     commit's kernel is checked and timed on the same inputs too, in turns
     with this one (parent, this, this, parent)."""
     from illuminant_tpu_torch.raster import tile_kernel as tk
@@ -1876,7 +1885,7 @@ def phase_sprite_kernels(device="cuda", parent=None):
     fullest tile's list alone (the floor of compositing in order); the
     splat with the particles its blocks stage before and after the
     neighbour filter. `parent`: an earlier commit's tile-kernel module,
-    timed on the same inputs (`parent_tile_kernel`)."""
+    timed on the same inputs (`parent_module`)."""
     from illuminant_tpu_torch.raster import sprites, tiled
     from illuminant_tpu_torch.raster import tile_kernel as tk
 
@@ -2224,8 +2233,9 @@ def phase_reference_sprites():
 # The cell particle-lights-tiled-1080p: demo.py scene_tiled_torches
 # (:1357-1412) at 1080 x 1920: 2048 torch flames, each an exact shadowless
 # sphere light, binned to the 64-px tiles its support reaches (17 x 30 =
-# 510 tiles, the last row partial), shaded by K10 over the voxel slice's
-# ground, the AO sample through its ColumnField (the fused query). The
+# 510 tiles, the last row partial) and shaded over the voxel slice's
+# ground by K10, one launch a frame that also samples the AO from that
+# slice's ColumnField (the column query's device function). The
 # density estimate 2048 x (2 x 38 + 64)^2 / 2,073,600 = 19.4 binned a tile,
 # x 1.5 <= 48, takes the auto route to the tiled culling.
 LIGHTS_FULL = dict(height=1080, width=1920, n=2048, tile=64, capacity=48)
@@ -2235,8 +2245,8 @@ LIGHTS_SMALL = dict(height=96, width=160)
 
 def torch_template(**kw):
     """The cell's template: demo.py:1402-1406's torch light with an AO
-    radius of 16 at opacity 0.5 (the AO sample is the fused query's
-    traffic)."""
+    radius of 16 at opacity 0.5 (K10 samples the AO from the ColumnField
+    at every pixel)."""
     from illuminant_tpu_torch.lighting.environment import SphereLightSource
 
     base = dict(radius=4.0, ramp_length=34.0, color=(1.0, 1.0, 1.0, 0.85),
@@ -2335,7 +2345,7 @@ def _launches():
     from illuminant_tpu_torch.raster import tile_kernel as tk
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
-    return dict(tiled_light_accumulate=k10.LAUNCHES,
+    return dict(tiled_lights_fused=k10.LAUNCHES,
                 column_query=ck.QUERY_LAUNCHES,
                 column_maps_pack=ck.PACK_LAUNCHES,
                 column_maps_sample=ck.LAUNCHES,
@@ -2343,15 +2353,37 @@ def _launches():
                 sprite_accumulate=tk.ACCUMULATE_LAUNCHES)
 
 
+def check_fused_lights(args, kwargs, phase):
+    """K10's call (`args`, `kwargs`) once more with its debug lists, and
+    its plain version on the same inputs: the kept lists, their counts,
+    `dropped` and `window_deficit_px` must be equal, the image within
+    1e-5 x (1 + max) -> (image error, tolerance, the kept lists' entries,
+    the plain version's result)."""
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+
+    got = k10.tiled_lights_fused(*args, **dict(kwargs, debug=True))
+    ref = k10.tiled_lights_fused_reference(*args, **dict(kwargs, debug=True))
+    torch.cuda.synchronize()
+    err = _max_err(got[0], ref[0])
+    tol = _add_tolerance(ref[0])
+    for name, a, b in zip(("dropped", "window_deficit_px", "kept lists",
+                           "kept counts"), got[1:], ref[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{phase}: K10's {name} differ from the "
+                                 "plain binning's")
+    _require("tiled_lights_fused", err, tol, phase=phase)
+    return err, tol, int(ref[4].sum()), ref
+
+
 def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
     """The cell at full width: `warmup` frames, the timed frames (each
     fenced by a synchronize; CUDA events around the particle lights), then
     one frame under the host-read counter whose K10 call is checked
-    against its plain version, and the gates: K10, the fused query and its
-    pack once a frame, 0 host reads a frame, no light dropped and no relief
-    beyond the window, the image finite and not flat. Returns (launches,
-    ms_per_frame, K10's recorded call)."""
-    from illuminant_tpu_torch.lighting import tiled_lights as tl
+    against its plain version (`check_fused_lights`: the debug lists equal
+    to `bin_lights_to_tiles`'), and the gates: K10 and the map pack once a
+    frame, the column query never, 0 host reads a frame, no light dropped
+    and no relief beyond the window, the image finite and not flat.
+    Returns (launches, ms_per_frame, K10's recorded call)."""
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
 
     torch.cuda.reset_peak_memory_stats()
@@ -2371,17 +2403,15 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / LIGHTS_TIMED_FRAMES
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with HostReads() as reads, KernelInputs(
-            "accumulate_sphere_lights_tiled", tl) as route, KernelInputs(
-                "tiled_light_accumulate", k10) as spy:
+    with HostReads() as reads, KernelInputs("tiled_lights_fused",
+                                            k10) as spy:
         image, lm, d = lights_frame(cell)
     torch.cuda.synchronize()
     dropped.append(d)
     n_dropped = int(torch.stack(dropped).sum())
-    deficit = float(route.out[1]["window_deficit_px"])
-    ref = k10.tiled_light_accumulate_reference(*spy.args, **spy.kwargs)
-    err = _max_err(spy.out, ref)
-    tol = _add_tolerance(ref)
+    deficit = float(spy.out[2])
+    err, tol, kept, _ = check_fused_lights(spy.args, spy.kwargs,
+                                           "slice_particle_lights")
     img_np = image.cpu().numpy()
     say("slice_particle_lights", cell="particle-lights-tiled-1080p",
         warmup=warmup, frames=LIGHTS_TIMED_FRAMES, lights=cell.state.capacity,
@@ -2393,11 +2423,10 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
         image_mean=f"{img_np[..., :3].mean():.3f}",
         **{f"{k}_launches": v for k, v in launches.items()},
         host_reads_per_frame=reads.n, dropped=n_dropped,
-        window_deficit_px=deficit, kernel_vs_plain_max_abs_err=err,
-        tol=tol)
-    expected = dict(tiled_light_accumulate=LIGHTS_TIMED_FRAMES,
-                    column_query=LIGHTS_TIMED_FRAMES,
-                    column_maps_pack=LIGHTS_TIMED_FRAMES,
+        window_deficit_px=deficit, kept_entries=kept,
+        debug_lists="equal", kernel_vs_plain_max_abs_err=err, tol=tol)
+    expected = dict(tiled_lights_fused=LIGHTS_TIMED_FRAMES,
+                    column_query=0, column_maps_pack=LIGHTS_TIMED_FRAMES,
                     column_maps_sample=0, composite_over_tiles=0,
                     sprite_accumulate=0)
     if launches != expected:
@@ -2416,40 +2445,68 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
                                  LIGHTS_FULL["width"], 4)):
         raise AssertionError("slice_particle_lights: the frame is flat or "
                              "not finite")
-    _require("tiled_light_accumulate", err, tol,
-             phase="slice_particle_lights")
     return launches, ms_per_frame, (spy.args, spy.kwargs)
 
 
-def light_kernel_work(args, kwargs):
-    """(bytes, operations) of K10's call: the G-buffer planes (z,
-    relative_y, normal), pix_f, the lists, the records and the light
-    occlusion read once, the image written once; the operations of the
-    binned (live light, pixel) pairs inside the frame, and each pixel's
-    own, counted on the plain version (`pointwise_ops`) at 1 and 2 slots a
-    tile: the difference is one slot's work over every pixel. The plain
-    version always computes the light-occlusion term and selects it away
-    when the environment's light_occlusion is 0; the kernel skips it, so
-    then its operations (`occluded`) are not counted."""
+# Operations of the cull's test of one (light, tile) candidate inside the
+# window: x, y scaled (2); floor(x / tile), floor(y / tile) (4); the two
+# offsets and their window checks (6); the tile's x box (2), the clamps of
+# x and y to the box and the distances (6); the two compares and their
+# and with live (5).
+CULL_OPS_PER_CANDIDATE = 25
+
+
+def light_kernel_work(args):
+    """(bytes, operations, counts) of K10's fused call `args`: bytes of
+    the G-buffer planes (z, relative_y, normal), the factor plane
+    (fullbright or pix_f), the ColumnField's 5 maps (the call packs them
+    itself: the quad pack is its own intermediate), the lights
+    (position x, y, z, colour, active) and the light occlusion read once
+    and the image written once; operations of the cull's box tests (each
+    live light against the in-frame tiles of its candidate window), of
+    each pixel's own work and factor (the AO query included), counted on
+    the plain version (`pointwise_ops`), and of the shading over the
+    (light, pixel) pairs whose plain opacity is nonzero only (a pair's
+    operations counted on the plain shading at 1 and 2 slots a tile: the
+    difference is one slot's work over every pixel). The plain shading
+    always computes the light-occlusion term and selects it away when the
+    environment's light_occlusion is 0; K10 skips it, so then its
+    operations (`occluded`) are not counted."""
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
 
-    z, rel, normal, pix_f, idx, mask, records, lo, tile = args[:9]
+    z, rel, normal, factor, position, color, active, lo, sh, mode = args[:10]
+    column = args[10] if len(args) > 10 else None
     h, w = z.shape
-    channels = 4 if kwargs.get("with_alpha", True) else 3
-    nbytes = 4.0 * (z.numel() + rel.numel() + normal.numel() + pix_f.numel()
-                    + idx.numel() + records.numel() + lo.numel()
-                    + h * w * channels) + mask.numel()
-    on = mask & (records[idx.long(), 3] > 0.0)
-    th, tw = -(-h // tile), -(-w // tile)
-    rows = torch.clamp(h - torch.arange(th) * tile, max=tile)
-    cols = torch.clamp(w - torch.arange(tw) * tile, max=tile)
-    pixels = (rows[:, None] * cols[None, :]).reshape(-1).to(on.device)
-    pairs = float((on.sum(dim=1) * pixels).sum())
+    n = position.shape[0]
+    channels = 4 if sh.with_alpha else 3
+    maps = 0 if column is None else column.maps_c.numel()
+    nbytes = (4.0 * (z.numel() + rel.numel() + normal.numel()
+                     + factor.numel() + maps + 7 * n + lo.numel()
+                     + h * w * channels) + active.numel())
+    pix_f, idx, mask, records, _, _ = k10.fused_inputs(*args[:7], sh, mode,
+                                                      column)
+    # The cull: live lights x in-frame tiles of their candidate window.
+    th, tw = -(-h // sh.tile), -(-w // sh.tile)
+    spans = []
+    for c, reps, n_t in ((0, sh.reps_x, tw), (1, sh.reps_y, th)):
+        base = torch.floor(position[:, c] * sh.render_scale / sh.tile)
+        lo_t = torch.clamp(base - reps, min=0)
+        hi_t = torch.clamp(base + reps, max=n_t - 1)
+        spans.append(torch.clamp(hi_t - lo_t + 1, min=0))
+    candidates = float((spans[0] * spans[1] * active).sum())
+    if mode == "pix_f":
+        factor_ops = 0
+    else:
+        factor_ops = pointwise_ops(lambda: k10.pixel_factor(
+            column, z, rel, normal, factor, sh.render_scale,
+            sh.ao_radius if mode == "column_ao" else 0.0, sh.ao_opacity))
 
     def plain(k):
         return lambda: k10.tiled_light_accumulate_reference(
             z, rel, normal, pix_f, idx[:, :k].contiguous(),
-            mask[:, :k].contiguous(), records, lo, *args[8:], **kwargs)
+            mask[:, :k].contiguous(), records, lo, sh.tile, sh.radius,
+            sh.ramp_length, sh.y_factor, sh.ramp_mode, sh.render_scale,
+            sh.with_alpha)
 
     one, two = pointwise_ops(plain(1)), pointwise_ops(plain(2))
     per_slot = two - one
@@ -2457,40 +2514,103 @@ def light_kernel_work(args, kwargs):
     if float(lo) <= 0.0:
         occl_on = lo > 0.0
         per_slot -= pointwise_ops(lambda: k10.occluded(z, z, lo, occl_on))
-    return nbytes, own + per_slot / (h * w) * pairs, on
+    per_pair = per_slot / (h * w)
+    rows = torch.clamp(h - torch.arange(th) * sh.tile, max=sh.tile)
+    cols = torch.clamp(w - torch.arange(tw) * sh.tile, max=sh.tile)
+    pixels = (rows[:, None] * cols[None, :]).reshape(-1).to(mask.device)
+    binned = float((mask.sum(dim=1) * pixels).sum())
+    _, contributing = k10.tiled_light_accumulate_reference(
+        z, rel, normal, pix_f, idx, mask, records, lo, sh.tile, sh.radius,
+        sh.ramp_length, sh.y_factor, sh.ramp_mode, sh.render_scale,
+        sh.with_alpha, count_pairs=True)
+    ops = (own + factor_ops + candidates * CULL_OPS_PER_CANDIDATE
+           + per_pair * contributing)
+    counts = dict(binned_pairs=int(binned), contributing_pairs=contributing,
+                  ops_per_pair=per_pair, cull_candidates=int(candidates),
+                  factor_ops=factor_ops,
+                  binned_mean=float(mask.sum(dim=1).float().mean()),
+                  binned_max=int(mask.sum(dim=1).max()))
+    return nbytes, ops, counts
 
 
-def phase_light_kernel(call):
+def parent_k10_call(parent, args):
+    """The earlier checkout's K10 on this frame -> (that call, the
+    route's whole device work). That K10 shades alone
+    (`tiled_light_accumulate` of the checkout module `parent`): it takes
+    the frame's own bins, records and factor as its route computed them
+    in PyTorch (`tiled_lights_kernel.fused_inputs`), and the route is those
+    PyTorch pieces and that K10."""
+    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+
+    sh, mode = args[8], args[9]
+    column = args[10] if len(args) > 10 else None
+
+    def shading_args():
+        pix_f, idx, mask, records, _, _ = k10.fused_inputs(
+            *args[:7], sh, mode, column)
+        return (*args[:3], pix_f.contiguous(), idx, mask,
+                records.contiguous(), args[7], sh.tile, sh.radius,
+                sh.ramp_length, sh.y_factor, sh.ramp_mode, sh.render_scale,
+                sh.with_alpha)
+
+    frame = shading_args()
+    return (lambda: parent.tiled_light_accumulate(*frame),
+            lambda: parent.tiled_light_accumulate(*shading_args()))
+
+
+def phase_light_kernel(call, parent=None):
     """K10 at the cell's shapes, on the last frame's call: against its
-    plain version, both timed (`device_ms`, `eager_ms`), beside the bound,
-    with the binned live slots a tile and the launch's block."""
+    plain version (the debug lists, `dropped` and the deficit equal, the
+    image within 1e-5 x (1 + max)), both timed (`device_ms` on the wrapper:
+    the map pack, the zeroing of the diagnostics and K10; `eager_ms` on
+    the plain version), beside the bound, with the binned and the
+    contributing (light, pixel) pairs and the launch's block. With
+    `parent` (`parent_module(root, "lighting.tiled_lights_kernel")`), the
+    earlier checkout's K10 on the same frame's bins (`parent_k10_call`),
+    in turns with this one, and the eager time of each route's device
+    work."""
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
 
     args, kwargs = call
-    out = k10.tiled_light_accumulate(*args, **kwargs)
-    ref = k10.tiled_light_accumulate_reference(*args, **kwargs)
-    torch.cuda.synchronize()
-    err = _max_err(out, ref)
-    tol = _add_tolerance(ref)
-    _require("tiled_light_accumulate", err, tol, inputs="frame")
-    nbytes, ops, on = light_kernel_work(args, kwargs)
+    err, tol, kept, ref = check_fused_lights(args, kwargs,
+                                             "phase_light_kernel")
+    nbytes, ops, counts = light_kernel_work(args)
     bound_ms, bound_by = _bound(nbytes, ops)
-    ms = device_ms(lambda: k10.tiled_light_accumulate(*args, **kwargs),
-                   KERNEL_REPS)
-    plain_ms = eager_ms(
-        lambda: k10.tiled_light_accumulate_reference(*args, **kwargs), 3)
-    slots = on.sum(dim=1).float()
-    idx = args[4]
-    plan = k10.launch_plan(args[8], idx.shape[1])
-    say("kernel", name="tiled_light_accumulate", inputs="frame",
-        shape=f"{tuple(args[0].shape)}", tile=args[8],
-        tiles=idx.shape[0], capacity=idx.shape[1],
-        binned_mean=f"{float(slots.mean()):.1f}",
-        binned_max=int(slots.max()), max_abs_err=err, tol=tol,
-        bit_equal=bool(torch.equal(out, ref)), ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.3f}",
-        bytes=int(nbytes), operations=int(ops), **plan)
+    fused = lambda: k10.tiled_lights_fused(*args, **kwargs)  # noqa: E731
+    before = {}
+    if parent is not None:
+        old, old_route = parent_k10_call(parent, args)
+        _require("parent tiled_light_accumulate", _max_err(old(), ref[0]),
+                 tol, inputs="frame")
+        times = [device_ms(f, KERNEL_REPS) for f in (old, fused, fused, old)]
+        ms, old_ms = min(times[1:3]), min(times[0], times[3])
+        eager = [eager_ms(f, 20) for f in (old_route, fused, fused,
+                                           old_route)]
+        before = dict(parent_ms=f"{old_ms:.4f}",
+                      parent_share_of_bound=f"{bound_ms / old_ms:.3f}",
+                      turns=json.dumps([round(v, 4) for v in times]),
+                      route_eager_ms=f"{min(eager[1:3]):.4f}",
+                      parent_route_eager_ms=f"{min(eager[0], eager[3]):.4f}")
+    else:
+        ms = device_ms(fused, KERNEL_REPS)
+    plain_ms = eager_ms(lambda: k10.tiled_lights_fused_reference(
+        *args, **kwargs), 2)
+    sh = args[8]
+    plan = k10.launch_plan(sh)
+    say("kernel", name="tiled_lights_fused", inputs="frame",
+        shape=f"{tuple(args[0].shape)}", tile=sh.tile,
+        tiles=ref[3].shape[0], capacity=sh.capacity, offsets=sh.offsets,
+        mode=args[9], binned_mean=f"{counts['binned_mean']:.1f}",
+        binned_max=counts["binned_max"], kept_entries=kept,
+        binned_pairs=counts["binned_pairs"],
+        contributing_pairs=counts["contributing_pairs"],
+        ops_per_pair=f"{counts['ops_per_pair']:.1f}",
+        cull_candidates=counts["cull_candidates"],
+        factor_ops=counts["factor_ops"], max_abs_err=err, tol=tol,
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / ms:.3f}", bytes=int(nbytes),
+        operations=int(ops), **before, **plan)
     return {"lights": dict(ms=ms, plain_ms=plain_ms, err=err,
                            bound=(bound_ms, bound_by), library_ms=None)}
 
@@ -2722,8 +2842,9 @@ def phase_reference_probes():
 
 def _busy_us(events) -> tuple:
     """(union of the device events' intervals, sum of their durations),
-    in microseconds. The union counts overlapping work once; the stage
-    ranges' device-side twins span the timeline and are left out."""
+    in microseconds, and their count. The union counts overlapping work
+    once; the stage ranges' device-side twins span the timeline and are
+    left out."""
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -2735,7 +2856,7 @@ def _busy_us(events) -> tuple:
         if b > end:
             union += b - max(a, end)
             end = b
-    return union, total
+    return union, total, len(spans)
 
 
 def phase_profile(name, warmup: int, frame_ms, out_dir):
@@ -2804,7 +2925,7 @@ def _traced(name, out_dir, frame_ms, two_frames):
                     f"host_ms_per_frame={e.cpu_time_total / 2e3:.3f} "
                     f"device_ms_per_frame={e.device_time_total / 2e3:.3f}"
                     "\n")
-    union, total = _busy_us(prof.events())
+    union, total, events = _busy_us(prof.events())
     busy_ms = union / 2e3
     # Device-to-host reads of a scalar (a march's "any ray live?" check,
     # a percentile): each waits for the device to drain its queue.
@@ -2812,6 +2933,7 @@ def _traced(name, out_dir, frame_ms, two_frames):
     say(name.replace("slice", "profile"), frames=2, out=out_dir,
         device_busy_ms_per_frame=f"{busy_ms:.3f}",
         device_kernel_sum_ms_per_frame=f"{total / 2e3:.3f}",
+        device_events_per_frame=events / 2,
         unprofiled_ms_per_frame=f"{frame_ms:.3f}",
         device_idle_share=f"{1.0 - busy_ms / frame_ms:.4f}",
         host_reads_per_frame=sum(e.count for e in reads) / 2,
@@ -2853,8 +2975,12 @@ def main(argv=None) -> int:
     env_host = dict(ground_z=scene.environment.ground_z,
                     maximum_z=scene.environment.maximum_z)
     kernel = phase_kernel(field)
-    kernel.update(phase_sprite_kernels(parent=parent_tile_kernel(
-        args.parent) if args.parent else None))
+    kernel.update(phase_sprite_kernels(parent=parent_module(
+        args.parent, "raster.tile_kernel") if args.parent else None))
+    parent_lights = None
+    if args.parent:
+        parent_lights = parent_module(args.parent,
+                                      "lighting.tiled_lights_kernel")
     launches, frame_ms = {}, {}
     for name, kw in SLICES.items():
         if name == "slice_family":
@@ -2882,7 +3008,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     light_launches, frame_ms["slice_particle_lights"], light_call = \
         phase_slice_lights(field, env_host, warmup)
-    kernel.update(phase_light_kernel(light_call))
+    kernel.update(phase_light_kernel(light_call, parent_lights))
     del light_call
     torch.cuda.empty_cache()
     # Profiled after every slice is timed: a profiler session slows the
@@ -2958,10 +3084,10 @@ def main(argv=None) -> int:
             "bound_by": r["bound"][1], "library_ms": None})
     r = kernel["lights"]
     kernels.append({
-        "name": "tiled_light_accumulate", "route": "cuda",
+        "name": "tiled_lights_fused", "route": "cuda",
         "source": "illuminant_tpu_torch/csrc/tiled_lights.cu",
         "replaces": "illuminant_tpu/lighting/tiled_lights.py:123",
-        "launches": light_launches["tiled_light_accumulate"],
+        "launches": light_launches["tiled_lights_fused"],
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": None})

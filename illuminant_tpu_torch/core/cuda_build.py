@@ -45,13 +45,23 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}.so"
 
 
+def is_stale(source: Path, library: Path) -> bool:
+    """True unless `library` exists and is at least as new as `source`
+    and as every header (`*.cuh`) beside it, which a source may include."""
+    if not library.exists():
+        return True
+    built = library.stat().st_mtime
+    inputs = [source, *source.parent.glob("*.cuh")]
+    return any(p.stat().st_mtime > built for p in inputs)
+
+
 def build(source: Path, library: Path | None = None) -> Path:
     """Compile `source` into `library` (by default `library_path(source)`)
-    unless the library is newer than the source. The library is written
+    unless the library is up to date (`is_stale`). The library is written
     under a temporary name and renamed into place, so concurrent builds
     never load a half-written file."""
     library = library or library_path(source)
-    if library.exists() and library.stat().st_mtime >= source.stat().st_mtime:
+    if not is_stale(source, library):
         return library
     library.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=library.parent)

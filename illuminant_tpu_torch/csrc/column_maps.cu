@@ -23,7 +23,8 @@
 //   * the query ran as ~80 elementwise PyTorch passes over the points
 //     around the sample. column_query_kernel runs the whole query in
 //     registers: one launch, the points read once, the results written
-//     once.
+//     once. The sample and the query are device functions of
+//     column_query.cuh, which K10 (tiled_lights.cu) shares for its AO.
 //
 // Edge rules are columns_pallas._rows exactly (not the texture unit's
 // clamp or its 8-bit weights): i0 = clip(floor(t), 0, n - 1),
@@ -38,90 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "column_query.cuh"
+
 namespace {
 
+using namespace illum_columns;
+
 constexpr int kThreads = 256;
-
-__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
-
-// The low tap i0 and the weight w of coordinate t on an axis of n texels
-// (the high tap, min(i0 + 1, n - 1), is baked into the pack).
-__device__ __forceinline__ void taps(float t, int n, int* i0, float* w) {
-  float fl = floorf(t);
-  *w = t - fl;
-  // __float2int_rd saturates out-of-range values; the clip follows.
-  int i = __float2int_rd(t);
-  *i0 = min(max(i, 0), n - 1);
-}
-
-// N floats from a 16-byte aligned record, as ceil(N / 4) vector loads
-// through the read-only path.
-template <int N>
-__device__ __forceinline__ void load(const float* __restrict__ p,
-                                     float (&v)[N]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int k = 0; k < (N + 3) / 4; ++k) {
-    const float4 a = __ldg(q + k);
-    const float e[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (4 * k + j < N) v[4 * k + j] = e[j];
-    }
-  }
-}
-
-template <int NC>
-struct Sample {
-  float val[NC];  // bilinear value of each map
-  float dtx;      // d(map 0)/dtx
-  float dty;      // d(map 0)/dty
-};
-
-// The bilinear sample of the NC packed maps at texel coords (ty, tx): the
-// one device function behind both sample_maps and column_query.
-template <int NC>
-__device__ __forceinline__ void sample(const float* __restrict__ pack,
-                                       int hc, int wc, float ty, float tx,
-                                       bool grad, Sample<NC>* s) {
-  int y0, x0;
-  float wy, wx;
-  taps(ty, hc, &y0, &wy);
-  taps(tx, wc, &x0, &wx);
-  // The record of (y0, x0) holds the taps at (y0, x0), (y0, x1),
-  // (y1, x0), (y1, x1).
-  float q[4 * NC];
-  load<4 * NC>(pack + (long long)(y0 * wc + x0) * round4(4 * NC), q);
-  float v00[NC], v01[NC], v10[NC], v11[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    v00[c] = q[c];
-    v01[c] = q[NC + c];
-    v10[c] = q[2 * NC + c];
-    v11[c] = q[3 * NC + c];
-  }
-  const float ay = 1.0f - wy;
-  const float ax = 1.0f - wx;
-  float col0_0 = 0.0f, col1_0 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    // y-lerp each of the two columns, then x-lerp: the order of the
-    // Pallas kernel's (by @ map) then (. * bx) contraction.
-    const float col0 = ay * v00[c] + wy * v10[c];
-    const float col1 = ay * v01[c] + wy * v11[c];
-    s->val[c] = ax * col0 + wx * col1;
-    if (c == 0) {
-      col0_0 = col0;
-      col1_0 = col1;
-    }
-  }
-  if (grad) {
-    s->dtx = col1_0 - col0_0;
-    const float row0 = ax * v00[0] + wx * v01[0];
-    const float row1 = ax * v10[0] + wx * v11[0];
-    s->dty = row1 - row0;
-  }
-}
 
 // One thread per texel: the quad record of texel (y, x), the NC maps at
 // (y, x), (y, x1), (y1, x), (y1, x1) with the edge clamp baked in, zero
@@ -175,18 +99,6 @@ __global__ void sample_maps_kernel(const float* __restrict__ pack,
   }
 }
 
-// The ColumnField's constants, float32 as the plain version rounds its
-// Python scalars (columns_kernel.QUERY_GEOMETRY names them in order).
-struct Geometry {
-  float ex, ey, ez, z_offset;  // virtual box and its z offset
-  float scale_x, scale_y;      // world -> fine texel
-  float rx, ry;                // fine texel -> coarse texel
-  float sx_c, sy_c;            // coarse texel derivative -> world
-  float z_lo, z_hi;            // the end slices' world z
-};
-
-constexpr int kColumnMaps = 5;  // f, t, b, d_top, d_bot
-
 __global__ void column_query_kernel(
     const float* __restrict__ pack, int hc, int wc, Geometry g,
     const float* __restrict__ xs, long long sx,
@@ -199,73 +111,38 @@ __global__ void column_query_kernel(
   const float px = __ldg(xs + i * sx);
   const float py = __ldg(ys + i * sy);
   const float pz = __ldg(zs + i * sz);
-
-  // sampling._clamped_axes: the clamp into the box and the signed
-  // out-of-box offsets. (Its slice coordinate and z mask, the only terms
-  // that read max_valid_z, do not enter the column query.)
-  const float pzr = pz - g.z_offset;
-  const float cx = fminf(fmaxf(px, 0.0f), g.ex);
-  const float cy = fminf(fmaxf(py, 0.0f), g.ey);
-  const float ux = fminf(px, 0.0f) + fmaxf(px - g.ex, 0.0f);
-  const float uy = fminf(py, 0.0f) + fmaxf(py - g.ey, 0.0f);
-  const float uz = fminf(pzr, 0.0f) + fmaxf(pzr - g.ez, 0.0f);
-  const bool in_x = (px > 0.0f) && (px < g.ex);
-  const bool in_y = (py > 0.0f) && (py < g.ey);
-
-  // columns._map_coords: fine texel coords, then the coarse map's.
-  float tx = cx * g.scale_x - 0.5f;
-  float ty = cy * g.scale_y - 0.5f;
-  tx = (tx + 0.5f) * g.rx - 0.5f;
-  ty = (ty + 0.5f) * g.ry - 0.5f;
-
-  Sample<kColumnMaps> s;
-  sample<kColumnMaps>(pack, hc, wc, ty, tx, want_grad != 0, &s);
-  const float f = s.val[0], t = s.val[1], b = s.val[2];
-  const float d_top = s.val[3], d_bot = s.val[4];
-
-  // columns._finish: reconstruct at the z clamped to the end slices, the
-  // 1-Lipschitz end-slice clamps, then the out-of-volume distance.
-  const float pzc = fminf(fmaxf(pz - uz, g.z_lo), g.z_hi);
-  const float dist = sqrtf(ux * ux + uy * uy + uz * uz);
-  const float lip_top = d_top + (g.z_hi - pzc);
-  const float lip_bot = d_bot + (pzc - g.z_lo);
-  const float lip = fminf(lip_top, lip_bot);
-
-  // columns._reconstruct.
-  const float below = b - pzc;
-  const float above = pzc - t;
-  const float dz = fmaxf(below, above);
-  const float f_pos = fmaxf(f, 0.0f);
-  const float dz_pos = fmaxf(dz, 0.0f);
-  const float outside = sqrtf(f_pos * f_pos + dz_pos * dz_pos);
-  float d = fminf(fmaxf(f, dz), 0.0f) + outside;
   if (!want_grad) {
-    d_out[i] = fminf(d, lip) + dist;
+    d_out[i] = column_distance(pack, hc, wc, g, px, py, pz);
     return;
   }
-  const float gfx = in_x ? s.dtx * g.sx_c : 0.0f;
-  const float gfy = in_y ? s.dty * g.sy_c : 0.0f;
-  const float zsign = above > below ? 1.0f : -1.0f;
-  const float inv = 1.0f / fmaxf(outside, 1e-9f);
-  const bool out_mask = (f > 0.0f) || (dz > 0.0f);
-  const float side_w = out_mask ? f_pos * inv : (f >= dz ? 1.0f : 0.0f);
-  const float cap_w = out_mask ? dz_pos * inv : (f >= dz ? 0.0f : 1.0f);
+  ColumnPoint c;
+  column_point(pack, hc, wc, g, px, py, pz, true, &c);
+  float d = c.d;
+  const float gfx = c.in_x ? c.s.dtx * g.sx_c : 0.0f;
+  const float gfy = c.in_y ? c.s.dty * g.sy_c : 0.0f;
+  const float zsign = c.above > c.below ? 1.0f : -1.0f;
+  const float inv = 1.0f / fmaxf(c.outside, 1e-9f);
+  const bool out_mask = (c.f > 0.0f) || (c.dz > 0.0f);
+  const float side_w =
+      out_mask ? c.f_pos * inv : (c.f >= c.dz ? 1.0f : 0.0f);
+  const float cap_w =
+      out_mask ? c.dz_pos * inv : (c.f >= c.dz ? 0.0f : 1.0f);
   float gx = side_w * gfx;
   float gy = side_w * gfy;
   float gz = cap_w * zsign;
   // A winning end clamp puts the nearest feature toward that end.
-  const bool top_wins = lip_top <= lip_bot;
-  if (lip < d) {
+  const bool top_wins = c.lip_top <= c.lip_bot;
+  if (c.lip < d) {
     gx = 0.0f;
     gy = 0.0f;
     gz = top_wins ? -1.0f : 1.0f;
   }
-  d = fminf(d, lip);
-  const float safe = fmaxf(dist, 1e-9f);
-  const bool off_box = dist > 0.0f;
-  gx = gx + (off_box ? ux / safe : 0.0f);
-  gy = gy + (off_box ? uy / safe : 0.0f);
-  gz = gz + (off_box ? uz / safe : 0.0f);
+  d = fminf(d, c.lip);
+  const float safe = fmaxf(c.dist, 1e-9f);
+  const bool off_box = c.dist > 0.0f;
+  gx = gx + (off_box ? c.ux / safe : 0.0f);
+  gy = gy + (off_box ? c.uy / safe : 0.0f);
+  gz = gz + (off_box ? c.uz / safe : 0.0f);
   if (normalize) {
     // analytic._normalized: unit length, zero where the gradient vanishes.
     const float norm = sqrtf(gx * gx + gy * gy + gz * gz);
@@ -280,7 +157,7 @@ __global__ void column_query_kernel(
       gz = 0.0f;
     }
   }
-  d_out[i] = d + dist;
+  d_out[i] = d + c.dist;
   gx_out[i] = gx;
   gy_out[i] = gy;
   gz_out[i] = gz;
@@ -360,19 +237,7 @@ extern "C" int column_query(const void* pack, int hc, int wc,
                             int want_grad, int normalize, void* d, void* gx,
                             void* gy, void* gz, void* stream) {
   if (n <= 0) return 0;
-  Geometry g;
-  g.ex = geometry[0];
-  g.ey = geometry[1];
-  g.ez = geometry[2];
-  g.z_offset = geometry[3];
-  g.scale_x = geometry[4];
-  g.scale_y = geometry[5];
-  g.rx = geometry[6];
-  g.ry = geometry[7];
-  g.sx_c = geometry[8];
-  g.sy_c = geometry[9];
-  g.z_lo = geometry[10];
-  g.z_hi = geometry[11];
+  const illum_columns::Geometry g = illum_columns::geometry_from(geometry);
   const unsigned int blocks = blocks_for(n);
   const cudaStream_t st = (cudaStream_t)stream;
   column_query_kernel<<<blocks, kThreads, 0, st>>>(
