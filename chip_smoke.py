@@ -92,12 +92,40 @@ tile compositor K11a and the additive sprite splat K11b):
     last frame's composite equal to its plain version;
     `slice_additive_sprites` draws the same system additively (K11b once
     a render);
-  * `reference_sprites`: every route (alpha quad / gauss / round, dither,
-    opacity and background, textured additive and alpha, power disc,
-    relative size, a velocity-driven sprite sheet, both warps) at 90 x
-    150 (partial tiles at the edges) on the card against the CPU path:
-    the composite routes bit for bit, the splat routes within K11b's
-    bound.
+  * `reference_sprites`: every route (alpha quad / gauss / round /
+    point, the additive point splat, dither, opacity and background,
+    textured additive and alpha, power disc, relative size, a
+    velocity-driven sprite sheet, both warps) at 90 x 150 (partial tiles
+    at the edges) on the card against the CPU path: the composite routes
+    bit for bit, the splat routes within K11b's bound.
+The modeling layer (`illuminant_tpu_torch/models/`), the way an editor or
+a compiled model drives the engine (demo.py:1324-1354):
+  * `slice_model` (model-engine-1080p): `EngineModel.loads` of
+    `model_json` (three systems: sparks from a Spawner whose rate is the
+    named variable `rate`, with an attractor and Noise, untextured
+    additive quads; embers from a FeedbackSpawner fed by the sparks,
+    an inline texture drawn additively, K11b; smoke with demo.py's leaf,
+    opacity from life, composited over the additive image, K11a), an
+    `EngineView` of 1<<17 slots a system on the voxel slice's
+    ColumnField (each tick of each system collides: 5 fused queries and
+    5 packs), then each of 8 timed frames (after 2 warm-up frames, or
+    --warmup N) `update(1/60)`, every system's `render` in draw order,
+    `resolve`, `to_uint8`. Gates: the query and pack 15 times a frame
+    and the sampler never, K11a and K11b once a render, 0 host reads in
+    an update, in the renders 0 but the untextured splat's one
+    (ROADMAP Queue 3, K5), alpha <= 1, the frame finite and not flat,
+    the checked frame's K11a equal to its plain version and its K11b
+    within its bound (each timed, `[kernel] inputs=model_frame`),
+    `refresh_variables` with half the rate keeping the live state and
+    halving the sparks' spawns a tick, 131,072 live in each ring under
+    `--warmup 260`;
+  * `reference_models`: the model at 96 x 160 for 10 updates on the
+    card against the CPU from the same host draws (every live particle
+    within 1e-4 + 1e-5 |b|, equal live masks and cursors); the
+    SaveAsCode module's systems against the JSON view's on the card
+    after 20 updates, bit for bit; tests/test_editor.py's edit script on
+    the card against the CPU (digest within the same bound, `dumps()`
+    equal).
 The lighting library's remaining entry points (`csrc/tiled_lights.cu`:
 K10, the tiled particle lights as one fused launch a frame):
   * `slice_particle_lights` (particle-lights-tiled-1080p): demo.py's
@@ -137,12 +165,13 @@ limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
 before those lines are printed. With no CUDA card the script exits 2.
 
 `--warmup N` runs N untimed frames before the timed ones of every
-flagship, particle, sprite and particle-light cell (default 4; 2 for the
-sprite cells).
+flagship, particle, sprite, model and particle-light cell (default 4; 2
+for the sprite and model cells).
 The particle rings fill after capacity / spawn_max = 256 frames, so
 `--warmup 260` times each frame at its steady population (about 1M live
-particles; 131,072 in the sprite cells); the default times it at 20k-33k
-(1,024-5,120 in the sprite cells).
+particles; 131,072 in the sprite cells and in each model system); the
+default times it at 20k-33k (1,024-5,120 in the sprite cells, 5,632 a
+model system).
 
 `--parent DIR` builds the tile kernels and K10 of another checkout at DIR
 (an earlier commit unpacked with `git archive`) and times them beside
@@ -1677,6 +1706,21 @@ def eager_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """(fn()'s result, its device time in ms): CUDA events around one
+    eager call, with no warm-up call. For plain versions that take
+    hundreds of milliseconds, beside which a first call's set-up is small;
+    their result is then the reference the kernel is checked against."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _plain(name):
     from illuminant_tpu_torch.raster import tile_kernel as tk
 
@@ -1802,8 +1846,7 @@ def _sprite_kernel_row(rec, key, name, args, tol, parent=None, **fields):
 
     kernel, plain = getattr(tk, name), _plain(name)
     out = kernel(*args)
-    ref = plain(*args)
-    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: plain(*args))
     err = _max_err(out, ref)
     _require(name, err, tol, **fields)
     nbytes, ops = kernel_work(name, args)
@@ -1822,7 +1865,6 @@ def _sprite_kernel_row(rec, key, name, args, tol, parent=None, **fields):
                       turns=json.dumps([round(v, 4) for v in times]))
     else:
         ms = device_ms(call, KERNEL_REPS)
-    plain_ms = eager_ms(lambda: plain(*args), 1)
     say("kernel", name=name, **fields, max_abs_err=err, tol=tol,
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
@@ -2131,6 +2173,9 @@ SPRITE_ROUTES = {
     "alpha_quad": ("alpha", dict(kernel="quad"), "composite"),
     "alpha_gauss": ("alpha", dict(kernel="gauss"), "composite"),
     "alpha_round": ("alpha", dict(kernel="round"), "composite"),
+    "alpha_point": ("alpha", dict(kernel="point"), "composite"),
+    "additive_point": ("render", dict(appearance=dict(
+        texture=None, kernel="point")), None),
     "alpha_dither": ("alpha", dict(kernel="quad", dither=True), "composite"),
     "alpha_opacity_background": ("alpha", dict(kernel="quad", opacity=0.6,
                                                background=True), "composite"),
@@ -2226,6 +2271,472 @@ def phase_reference_sprites():
         if not (ok and np.isfinite(cuda).all() and np.abs(cpu).mean() > 0.0):
             raise AssertionError(f"reference_sprites ({name}): the card's "
                                  "image disagrees with the CPU path")
+
+
+# --- the modeling layer -----------------------------------------------------
+
+# The cell model-engine-1080p: an artist's saved particle model, as a game
+# or the Lumined editor loads it (demo.py:1324-1354's path, at full
+# width): `EngineModel.loads` of the JSON below, an `EngineView` of
+# 1<<17 slots a system on the voxel slice's ColumnField, `update(1/60)`,
+# each system's `render` in draw order, `resolve`, `to_uint8`. Three
+# systems: "sparks" (a Spawner whose rate is the named variable `rate`,
+# an attractor, Noise, untextured additive quads), "embers" (a
+# FeedbackSpawner re-emitting the sparks' live particles, an inline
+# texture drawn additively: K11b) and "smoke" (demo.py's leaf, rounded,
+# opacity from life, composited "over" the additive image: K11a). All
+# three collide with the field at 3 substeps (K7). Each spawns 512 a tick
+# and lives 5-6 s, so every ring holds its 131,072 slots from the 256th
+# frame on (`--warmup 260`).
+MODEL_FULL = dict(height=1080, width=1920, capacity=1 << 17, per_tick=512)
+MODEL_TIMED_FRAMES = 8
+MODEL_WARMUP_FRAMES = 2
+MODEL_SMALL = dict(height=96, width=160, capacity=1 << 10, per_tick=64)
+MODEL_TICKS = 10
+CODEGEN_UPDATES = 20
+# Fused column queries a tick of a system on the ColumnField at 3
+# substeps (particles/integrate.py:11-14): the initial distance, one a
+# substep, the normal; each packs the maps once.
+QUERIES_PER_TICK = 5
+
+
+def ember_texture(n=12):
+    """A soft disc, the embers' inline texture."""
+    ys, xs = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n),
+                         indexing="ij")
+    return np.clip(1.0 - (xs * xs + ys * ys), 0.0, 1.0).astype(np.float32)
+
+
+def _vec(*v):
+    return dict(zip("XYZW", (float(x) for x in v)))
+
+
+def model_json(height, width, per_tick, **_):
+    """The model-engine cell's EngineModel as Lumined JSON (the serialized
+    forms of tests/test_models.py:SAMPLE and tests/test_codegen.py:
+    MODEL_JSON), laid out on a (height, width) frame; each system spawns
+    `per_tick` particles a tick at 60 updates a second."""
+    s, cx, cy = _frame_scale(height, width)
+    rate = float(per_tick * 60)
+    prefix = "Squared.Illuminant.Particles.Transforms."
+
+    def prop(v):
+        return {"Type": "System.Object", "Value": v}
+
+    def transform(kind, order, **props):
+        return {"Name": kind.lower(), "Type": prefix + kind,
+                "UpdateOrder": order,
+                "Properties": {k: prop(v) for k, v in props.items()}}
+
+    def config(**kw):
+        return {"LifeDecayPerSecond": 1.0, "UpdatesPerSecond": 60.0,
+                "Collision": {"Distance": 1.0, "LifePenalty": 0.0,
+                              "BounceVelocityMultiplier": 0.6,
+                              "EscapeVelocity": 128.0}, **kw}
+
+    life = {"Constant": 5.5, "RandomScale": 1.0, "Offset": -0.5}
+    sparks = {
+        "Name": "sparks", "UpdateOrder": 0, "DrawOrder": 0,
+        "AdditiveBlend": True,
+        "Configuration": config(
+            MaximumVelocity=260.0 * s, Friction=0.15, Size=3.0,
+            Color={"FromLife": {"Mode": 0, "Count": 2, "MinValue": 0.0,
+                                "MaxValue": 2.0, "A": _vec(0.2, 0.05, 0.0,
+                                                           0.2),
+                                "B": _vec(1.0, 1.0, 1.0, 1.0)}}),
+        "Transforms": [
+            transform(
+                "Spawner", 0,
+                MinRate={"ValueType": "System.Single", "Name": "rate"},
+                MaxRate={"ValueType": "System.Single", "Name": "rate"},
+                Life=life,
+                Position={"Constant": [cx, cy - 150.0 * s, 10.0],
+                          "RandomScale": [40.0 * s, 40.0 * s, 4.0],
+                          "Type": "Spherical"},
+                Velocity={"RandomScale": [120.0 * s, 120.0 * s, 0.0],
+                          "Type": "Spherical"},
+                Color={"Constant": {
+                    "ValueType": "Microsoft.Xna.Framework.Vector4",
+                    "Name": "tint"}}),
+            transform("Gravity", 1, Attractors=[{
+                "Position": {"ValueType": "Microsoft.Xna.Framework.Vector3",
+                             "Constant": _vec(cx, cy, 10.0)},
+                "Radius": {"ValueType": "System.Single",
+                           "Constant": 500.0 * s},
+                "Strength": {"ValueType": "System.Single",
+                             "Constant": 80.0 * s},
+                "Type": 1}], MaximumAcceleration=400.0 * s),
+            transform("Noise", 2, Interval=250.0,
+                      Velocity={"Scale": [30.0 * s, 30.0 * s, 0.0, 0.0]}),
+        ]}
+    embers = {
+        "Name": "embers", "UpdateOrder": 1, "DrawOrder": 1,
+        "AdditiveBlend": True,
+        "Configuration": config(
+            MaximumVelocity=200.0 * s, Friction=0.3, Size=6.0,
+            Appearance={"Texture": ember_texture().tolist()}),
+        "Transforms": [
+            transform("FeedbackSpawner", 0, MinRate=rate, MaxRate=rate,
+                      SourceSystem="sparks", InstanceMultiplier=1,
+                      SourceVelocityFactor=0.5, Life=life,
+                      Velocity={"RandomScale": [20.0 * s, 20.0 * s, 0.0],
+                                "Type": "Spherical"},
+                      Color={"Constant": [1.0, 0.45, 0.15, 0.8]}),
+            transform("Gravity", 1, Attractors=[{
+                "Position": [cx, cy + 150.0 * s, 10.0],
+                "Radius": 400.0 * s, "Strength": 40.0 * s,
+                "Type": 1}]),
+        ]}
+    smoke = {
+        "Name": "smoke", "UpdateOrder": 2, "DrawOrder": 2,
+        "AdditiveBlend": False,
+        "Configuration": config(
+            MaximumVelocity=120.0 * s, Friction=0.2, Size=10.0,
+            ZFormula=[0.0, 0.0, 1.0, 0.0],
+            Color={"OpacityFromLife": 1.5},
+            Appearance={"Texture": leaf_texture().tolist(),
+                        "Rounded": True}),
+        "Transforms": [
+            transform("Spawner", 0, MinRate=rate, MaxRate=rate, Life=life,
+                      Position={"Constant": [cx + 250.0 * s, cy + 80.0 * s,
+                                             20.0],
+                                "RandomScale": [60.0 * s, 60.0 * s, 10.0],
+                                "Type": "Spherical"},
+                      Velocity={"RandomScale": [25.0 * s, 25.0 * s, 0.0],
+                                "Type": "Spherical"},
+                      Color={"Constant": [0.55, 0.55, 0.6, 0.7],
+                             "RandomScale": [0.2, 0.2, 0.2, 0.2]}),
+            transform("FMA", 1, Velocity={"Add": [0.0, -10.0 * s, 0.0]},
+                      CyclesPerSecond=1.0),
+        ]}
+    return json.dumps({
+        "NamedVariables": {
+            "rate": {"DefaultValue": {"ValueType": "System.Single",
+                                      "Constant": rate},
+                     "IsExternal": True},
+            "tint": {"DefaultValue": {
+                "ValueType": "Microsoft.Xna.Framework.Vector4",
+                "Constant": _vec(1.0, 0.55, 0.2, 1.0)},
+                "IsExternal": False}},
+        "Systems": [sparks, embers, smoke],
+        "UserData": {"Cell": "model-engine-1080p"}})
+
+
+def model_view(device, size, volume, overrides=None):
+    """The model of `size` (MODEL_FULL or MODEL_SMALL) bound by an
+    EngineView on `device` with the given collision field."""
+    from illuminant_tpu_torch.models.model import EngineModel
+    from illuminant_tpu_torch.models.view import EngineView
+
+    return EngineView(EngineModel.loads(model_json(**size)), volume=volume,
+                      overrides=overrides, capacity=size["capacity"],
+                      device=device)
+
+
+def model_render(view, raster):
+    """Every system in draw order: the additive ones add onto the image so
+    far, the alpha ones composite over it -> the (H, W, 4) HDR image."""
+    img = None
+    for sv in sorted(view.systems, key=lambda v: v.model.draw_order):
+        img, _ = sv.system.render(raster, appearance=sv.appearance,
+                                  additive_blend=sv.model.additive_blend,
+                                  background=img)
+    return img
+
+
+def model_cell(field, warmup, device="cuda"):
+    """The model-engine-1080p view after `warmup` frames, its raster
+    config and its resolve."""
+    from illuminant_tpu_torch.core.config import HDRConfig
+    from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
+    from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
+
+    view = model_view(device, MODEL_FULL, field)
+    raster = TiledRasterConfig(height=MODEL_FULL["height"],
+                               width=MODEL_FULL["width"], apron=9)
+    hdr = HDRConfig(mode=2, exposure=2.2, white_point=3.0, srgb_output=True)
+    for _ in range(warmup):
+        view.update(DT)
+        to_uint8(resolve(model_render(view, raster), hdr))
+    torch.cuda.synchronize()
+    return view, raster, hdr
+
+
+def _system_ticks(view) -> int:
+    return sum(sv.system._tick_index for sv in view.systems)
+
+
+def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
+    """The cell model-engine-1080p: `warmup` frames, the timed frames
+    (CUDA events split the update and the render), one checked frame
+    (host reads of the update and of each system's render; its K11a call
+    against its plain version bit for bit and its K11b call within its
+    bound, each timed as a `[kernel] inputs=model_frame` row), the alpha
+    system's accumulated alpha, then `refresh_variables` with half the
+    rate: the live state carries over and the sparks spawn half as many a
+    tick. Returns (launches in the timed frames, ms/frame)."""
+    from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
+
+    torch.cuda.reset_peak_memory_stats()
+    view, raster, hdr = model_cell(field, warmup, device)
+    _reset_launches()
+    ticks0 = _system_ticks(view)
+    update_ms, render_ms = [], []
+    t0 = time.perf_counter()
+    for _ in range(MODEL_TIMED_FRAMES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        view.update(DT)
+        ev[1].record()
+        image = to_uint8(resolve(model_render(view, raster), hdr))
+        ev[2].record()
+        torch.cuda.synchronize()
+        update_ms.append(ev[0].elapsed_time(ev[1]))
+        render_ms.append(ev[1].elapsed_time(ev[2]))
+    ms_per_frame = 1e3 * (time.perf_counter() - t0) / MODEL_TIMED_FRAMES
+    launches = _launches()
+    system_ticks = _system_ticks(view) - ticks0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with HostReads() as tick_reads:
+        view.update(DT)
+    render_reads = {}
+    img = None
+    with KernelInputs("composite_over_tiles") as alpha_spy, \
+            KernelInputs("sprite_accumulate") as add_spy:
+        for sv in sorted(view.systems, key=lambda v: v.model.draw_order):
+            with HostReads() as reads:
+                img, _ = sv.system.render(
+                    raster, appearance=sv.appearance,
+                    additive_blend=sv.model.additive_blend, background=img)
+            render_reads[sv.model.name] = reads.n
+        image = to_uint8(resolve(img, hdr))
+    torch.cuda.synchronize()
+    live = {sv.model.name: sv.system.live_count for sv in view.systems}
+    for key, name, spy, tol in (
+            ("composite_model", "composite_over_tiles", alpha_spy, 0.0),
+            ("accumulate_model", "sprite_accumulate", add_spy,
+             _add_tolerance(add_spy.out))):
+        _sprite_kernel_row(kernel_rec, key, name, spy.args, tol,
+                           coverage="sprite", inputs="model_frame",
+                           live=json.dumps(live),
+                           entries=int(spy.args[1][1][-1]),
+                           **entry_stats(spy.args[1][1]))
+    smoke = next(sv for sv in view.systems if not sv.model.additive_blend)
+    bare, _ = smoke.system.render(raster, appearance=smoke.appearance,
+                                  additive_blend=False)
+    alpha_max = float(bare[..., 3].max())
+    systems = [sv.system for sv in view.systems]
+    sparks = systems[0]
+    spawned0 = int(sparks.state.total_spawned)
+    states = [s.state.position.clone() for s in systems]
+    view.refresh_variables({"rate": MODEL_FULL["per_tick"] * 30.0})
+    carried = (all(sv.system is s and torch.equal(s.state.position, p)
+                   for sv, s, p in zip(view.systems, systems, states))
+               and systems[1].transforms[0].source is sparks)
+    view.update(DT)
+    spawned = int(sparks.state.total_spawned) - spawned0
+    img_np = image.cpu().numpy()
+    per_frame = {k: v / MODEL_TIMED_FRAMES for k, v in launches.items()}
+    say("slice_model", cell="model-engine-1080p", warmup=warmup,
+        frames=MODEL_TIMED_FRAMES, ms_per_frame=f"{ms_per_frame:.3f}",
+        update_ms=f"{sum(update_ms) / len(update_ms):.3f}",
+        render_ms=f"{sum(render_ms) / len(render_ms):.3f}",
+        **{f"live_{k}": v for k, v in live.items()},
+        peak_mem_gb=f"{peak_gb:.3f}", system_ticks=system_ticks,
+        **{f"{k}_per_frame": v for k, v in per_frame.items()},
+        host_reads_per_update=tick_reads.n,
+        host_reads_per_render=json.dumps(render_reads),
+        max_alpha=alpha_max,
+        composite_vs_plain=kernel_rec["composite_model"]["err"],
+        accumulate_vs_plain=kernel_rec["accumulate_model"]["err"],
+        image_mean=f"{img_np[..., :3].mean():.3f}",
+        refresh_carried_state=carried,
+        sparks_spawned_after_refresh=spawned)
+    expected = dict(
+        column_query=QUERIES_PER_TICK * system_ticks,
+        column_maps_pack=QUERIES_PER_TICK * system_ticks,
+        column_maps_sample=0, composite_over_tiles=MODEL_TIMED_FRAMES,
+        sprite_accumulate=MODEL_TIMED_FRAMES, tiled_lights_fused=0)
+    if launches != expected or system_ticks != 3 * MODEL_TIMED_FRAMES:
+        raise AssertionError(f"slice_model: launches {launches} in "
+                             f"{system_ticks} system ticks, expected "
+                             f"{expected} in {3 * MODEL_TIMED_FRAMES}")
+    # The untextured additive splat (raster/tiled.py:rasterize_tiled) reads
+    # its largest radius back once a call: ROADMAP Queue 3, K5.
+    if tick_reads.n or render_reads != dict(sparks=1, embers=0, smoke=0):
+        raise AssertionError(f"slice_model: {tick_reads.n} host reads in an "
+                             f"update, {render_reads} in the renders; "
+                             "expected 0 and the splat's 1")
+    if not alpha_max <= 1.0 + 1e-5:
+        raise AssertionError(f"slice_model: accumulated alpha {alpha_max}")
+    if not (bool(torch.isfinite(img).all())
+            and img_np[..., :3].astype(np.float64).var() > 0.0
+            and img_np.shape == (MODEL_FULL["height"], MODEL_FULL["width"],
+                                 4)):
+        raise AssertionError("slice_model: the frame is flat or not finite")
+    full = MODEL_FULL["capacity"]
+    if warmup >= full // MODEL_FULL["per_tick"]:
+        if set(live.values()) != {full}:
+            raise AssertionError(f"slice_model: live {live} after the rings "
+                                 f"filled, expected {full} each")
+    elif not min(live.values()) > 0:
+        raise AssertionError(f"slice_model: a system is empty: {live}")
+    if not (carried and spawned == MODEL_FULL["per_tick"] // 2):
+        raise AssertionError(
+            f"slice_model: refresh_variables kept the state: {carried}; the "
+            f"sparks spawned {spawned} in a tick after it, expected "
+            f"{MODEL_FULL['per_tick'] // 2}")
+    return launches, ms_per_frame
+
+
+def model_draws(view, updates, seed=0):
+    """Host draws for `updates` updates of one tick each: per update, by
+    system name, one tick of one (spawn_max, 4) triple per spawner."""
+    rng = np.random.default_rng(seed)
+    return [{sv.model.name: [[tuple(rng.random((s.spawn_max, 4),
+                                               dtype=np.float32)
+                                    for _ in range(3))
+                              for s in sv.system.spawners]]
+             for sv in view.systems} for _ in range(updates)]
+
+
+def small_model(device, draws=None, random_fields=None):
+    """The model at 96 x 160 on `device` over its small ColumnField,
+    MODEL_TICKS updates from `draws` (None: make them) with the given
+    Noise fields (one a system; None: the device's own) -> (view, draws,
+    fused-query launches)."""
+    from illuminant_tpu_torch.ops.noise import RandomField
+    from illuminant_tpu_torch.sdf import columns_kernel as ck
+
+    h, w = MODEL_SMALL["height"], MODEL_SMALL["width"]
+    view = model_view(device, MODEL_SMALL, small_column_field(
+        particle_api(device), h, w, device))
+    for sv, field in zip(view.systems, random_fields or ()):
+        sv.system.random_field = RandomField(data=field.to(device))
+    draws = draws or model_draws(view, MODEL_TICKS)
+    ck.QUERY_LAUNCHES = 0
+    for d in draws:
+        view.update(DT, spawn_uniforms=d)
+    return view, draws, ck.QUERY_LAUNCHES
+
+
+STATE_FIELDS = ("position", "velocity", "color", "render_color",
+                "render_data")
+
+
+def state_agreement(a, b) -> tuple:
+    """tests/test_torch_particle_system.py's rule between two states:
+    (same live masks, cursors and totals; the share of live particles
+    whose every field agrees to 1e-4 + 1e-5 |b|)."""
+    la = a.position[:, 3].cpu().numpy() > 0
+    lb = b.position[:, 3].cpu().numpy() > 0
+    same = (bool(np.array_equal(la, lb))
+            and int(a.write_cursor) == int(b.write_cursor)
+            and int(a.total_spawned) == int(b.total_spawned))
+    ok = np.ones(la.shape, bool)
+    for name in STATE_FIELDS:
+        x = getattr(a, name).cpu().numpy()
+        y = getattr(b, name).cpu().numpy()
+        ok &= np.all(np.abs(x - y) <= 1e-4 + 1e-5 * np.abs(y), axis=1)
+    return same, float(ok[lb].mean()) if lb.any() else 1.0
+
+
+def editor_session(device, draws=None):
+    """tests/test_editor.py:49-108's edit script on `device`: a system,
+    a Spawner and a Gravity added, 10 updates, the attractor's strength
+    edited live, 10 more updates, from host draws (None: make them) ->
+    (controller, draws)."""
+    from illuminant_tpu_torch.models.editor import EditorController
+
+    ed = EditorController(capacity=MODEL_SMALL["capacity"], device=device)
+    ed.add_system("sparks")
+    ed.add_transform(0, "Spawner", {
+        "MinRate": 600.0, "MaxRate": 600.0,
+        "Life": {"Constant": 2.0, "RandomScale": 0.5},
+        "Position": {"Constant": [64.0, 64.0, 0.0],
+                     "RandomScale": [8.0, 8.0, 0.0], "Type": "Spherical"},
+        "Velocity": {"RandomScale": [30.0, 30.0, 0.0], "Type": "Spherical"},
+        "Color": {"Constant": [1.0, 0.8, 0.2, 1.0]}})
+    ed.add_transform(0, "Gravity", {
+        "Attractors": [{"Position": [64.0, 120.0, 0.0], "Radius": 200.0,
+                        "Strength": 50.0, "FalloffType": "Linear"}],
+        "MaximumAcceleration": 500.0})
+    draws = draws or model_draws(ed.view, 20, seed=1)
+    for i, d in enumerate(draws):
+        if i == 10:
+            ed.set_transform_property(0, 1, "Attractors", [
+                {"Position": [64.0, 120.0, 0.0], "Radius": 200.0,
+                 "Strength": 150.0, "FalloffType": "Linear"}])
+        ed.update(DT, spawn_uniforms=d)
+    return ed, draws
+
+
+def phase_reference_models(device="cuda"):
+    """The modeling layer at 96 x 160 on the card against the port's CPU
+    path (which the CPU tests hold to the JAX package): the model's three
+    systems after 10 updates from the same host draws and the CPU's Noise
+    fields (same live masks, cursors and totals; every live particle
+    within 1e-4 + 1e-5 |b|; 5 fused queries a system tick); the SaveAsCode
+    module's systems against the JSON view's on the card, each drawing
+    from its own generator, after 20 updates: bit for bit (drift 0.0); the
+    scripted editor session: its digest within the same bound and its
+    `dumps()` equal byte for byte. `device="cpu"` rehearses it here."""
+    from illuminant_tpu_torch.models.codegen import save_as_code
+
+    cpu, draws, _ = small_model("cpu")
+    cuda, _, launches = small_model(
+        device, draws, [sv.system.random_field.data for sv in cpu.systems])
+    agree = {sv.model.name: state_agreement(sv.system.state,
+                                            sg.system.state)
+             for sv, sg in zip(cpu.systems, cuda.systems)}
+    h, w = MODEL_SMALL["height"], MODEL_SMALL["width"]
+    field = small_column_field(particle_api(device), h, w, device)
+    view = model_view(device, MODEL_SMALL, field)
+    ns = {}
+    exec(compile(save_as_code(view.model), "<generated>", "exec"), ns)
+    compiled = ns["build_systems"](volume=field,
+                                   capacity=MODEL_SMALL["capacity"],
+                                   device=device)
+    for _ in range(CODEGEN_UPDATES):
+        for s in compiled:
+            s.update(DT)
+        view.update(DT)
+    drift = max(float((getattr(s.state, f) - getattr(sv.system.state, f))
+                      .abs().max())
+                for s, sv in zip(compiled, view.systems)
+                for f in ("position", "velocity", "color"))
+    compiled_live = [s.live_count for s in compiled]
+    ed_cpu, ed_draws = editor_session("cpu")
+    ed_cuda, _ = editor_session(device, ed_draws)
+    dc, dg = ed_cpu.state_digest(), ed_cuda.state_digest()
+    live = dc["0:position"][:, 3] > 0
+    digest_err = max(float(np.abs(dg[k][live] - dc[k][live]).max())
+                     for k in dc)
+    digest_ok = bool(np.array_equal(live, dg["0:position"][:, 3] > 0)) and \
+        all(np.all(np.abs(dg[k][live] - dc[k][live])
+                   <= 1e-4 + 1e-5 * np.abs(dc[k][live])) for k in dc)
+    dumps_equal = ed_cpu.model.dumps() == ed_cuda.model.dumps()
+    say("reference_models", size=f"{h}x{w}", ticks=MODEL_TICKS,
+        live=json.dumps({sv.model.name: sv.system.live_count
+                         for sv in cpu.systems}),
+        same_live_cursors=json.dumps({k: v[0] for k, v in agree.items()}),
+        share_within_rule=json.dumps({k: v[1] for k, v in agree.items()}),
+        column_query_launches=launches, codegen_drift=drift,
+        codegen_live=json.dumps(compiled_live),
+        editor_live=ed_cuda.live_count, editor_digest_max_err=digest_err,
+        editor_digest_ok=digest_ok, editor_dumps_equal=dumps_equal)
+    if not all(same and share == 1.0 for same, share in agree.values()):
+        raise AssertionError(f"reference_models: the card's systems disagree "
+                             f"with the CPU path: {agree}")
+    if launches != QUERIES_PER_TICK * 3 * MODEL_TICKS:
+        raise AssertionError(f"reference_models: {launches} fused queries in "
+                             f"{MODEL_TICKS} updates of 3 systems")
+    if not (drift == 0.0 and min(compiled_live) > 0):
+        raise AssertionError(f"reference_models: the SaveAsCode systems "
+                             f"drift {drift} from the JSON view's")
+    if not (digest_ok and dumps_equal and ed_cuda.live_count > 0):
+        raise AssertionError("reference_models: the editor session on the "
+                             "card disagrees with the CPU's")
 
 
 # --- the lighting library's remaining entry points --------------------------
@@ -2969,6 +3480,8 @@ def main(argv=None) -> int:
     warmup = 4 if args.warmup is None else args.warmup
     sprite_warmup = SPRITE_WARMUP_FRAMES if args.warmup is None \
         else args.warmup
+    model_warmup = MODEL_WARMUP_FRAMES if args.warmup is None \
+        else args.warmup
     phase_build()
     cuda = torch.device("cuda")
     scene, field = _slice_field(cuda)
@@ -3006,6 +3519,9 @@ def main(argv=None) -> int:
             else "slice_alpha_sprites"] = phase_slice_sprites(
                 field, sprite_warmup, additive, kernel)
         torch.cuda.empty_cache()
+    model_launches, frame_ms["slice_model"] = phase_slice_model(
+        field, model_warmup, kernel)
+    torch.cuda.empty_cache()
     light_launches, frame_ms["slice_particle_lights"], light_call = \
         phase_slice_lights(field, env_host, warmup)
     kernel.update(phase_light_kernel(light_call, parent_lights))
@@ -3033,6 +3549,7 @@ def main(argv=None) -> int:
     phase_reference_renderer()
     phase_reference_particles()
     phase_reference_sprites()
+    phase_reference_models()
     phase_reference_particle_lights()
     phase_reference_probes()
     # Each kernel at the heavier of the frame's calls: the query with the
@@ -3042,7 +3559,8 @@ def main(argv=None) -> int:
     # "launches" counts the voxel flagship's timed frames,
     # "launches_particles" the particle cell's timed ticks,
     # "launches_sprites" the alpha sprite cell's,
-    # "launches_particle_lights" the particle-light cell's timed frames;
+    # "launches_particle_lights" the particle-light cell's timed frames,
+    # "launches_model" the model cell's;
     # the tile kernels' "launches" count their sprite cell's timed
     # renders, their times are at that cell's steady 131,072 particles;
     # K10's count that cell's frames, its time is on its last frame.
@@ -3061,6 +3579,7 @@ def main(argv=None) -> int:
         "launches_particles": particle_launches[name],
         "launches_sprites": sprite_launches[False][name],
         "launches_particle_lights": light_launches[name],
+        "launches_model": model_launches[name],
         "max_abs_err": r["err"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
@@ -3079,6 +3598,7 @@ def main(argv=None) -> int:
             "source": "illuminant_tpu_torch/csrc/tile_raster.cu",
             "replaces": replaces,
             "launches": sprite_launches[additive][name],
+            "launches_model": model_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None})

@@ -7,9 +7,9 @@
 // (rank-R one-hot matmuls per tile, then an overlap-add of the tile
 // windows). Two kernels on shared device functions:
 //   * composite_kernel (K11a): the ordered "over" of a tile's binned
-//     particles in draw order, with an analytic profile (quad, gauss,
-//     round: tiled._profile) or a sprite table's rank-R factors, the Bayer
-//     dither, the opacity folded into each record's alpha, and the
+//     particles in draw order, with an analytic profile (point, quad,
+//     gauss, round: tiled._profile) or a sprite table's rank-R factors,
+//     the Bayer dither, the opacity folded into each record's alpha, and the
 //     background "over" fused in as the epilogue;
 //   * accumulate_kernel (K11b): the additive sprite coverage: each pixel
 //     sums the particles binned to its own tile and to its 8 neighbours
@@ -104,7 +104,7 @@ constexpr int kOrderWords = kOrderBins + 32 + 4;
 // block's threads, blocks take the tiles in screen order.
 constexpr int kOrderSpan = 16;
 
-enum Kind { kQuad = 0, kGauss = 1, kRound = 2, kSprite = 3 };
+enum Kind { kQuad = 0, kGauss = 1, kRound = 2, kSprite = 3, kPoint = 4 };
 
 struct Raster {
   int height, width, tile, apron, gx, gy;
@@ -122,6 +122,7 @@ __device__ __forceinline__ float clamp01(float v) {
 
 // tiled._profile: 1-D coverage at signed distance d from the centre.
 __device__ __forceinline__ float profile(int kind, float d, float radius) {
+  if (kind == kPoint) return clamp01(1.0f - fabsf(d));
   if (kind == kQuad) return clamp01((radius - fabsf(d)) + 0.5f);
   if (kind == kGauss) {
     const float sigma = fmaxf(radius * 0.5f, (float)0.3);
@@ -835,8 +836,9 @@ bool valid(int tile, int apron, int ranks) {
 
 }  // namespace
 
-// kind: 0 quad, 1 gauss, 2 round (analytic profiles), 3 sprite (rows,
-// cols (variants, rank, support) float32). background: (H, W, 4) or null.
+// kind: 0 quad, 1 gauss, 2 round, 4 point (analytic profiles), 3 sprite
+// (rows, cols (variants, rank, support) float32). background: (H, W, 4) or
+// null.
 extern "C" int tile_composite(const void* ids, const void* starts,
                               const void* records, const void* rows,
                               const void* cols, int variants, int rank,
@@ -844,7 +846,7 @@ extern "C" int tile_composite(const void* ids, const void* starts,
                               int height, int width, int tile, int apron,
                               int kind, int dither, void* stream) {
   const int ranks = kind == kSprite ? rank : 1;
-  if (kind < kQuad || kind > kSprite || !valid(tile, apron, ranks) ||
+  if (kind < kQuad || kind > kPoint || !valid(tile, apron, ranks) ||
       (kind == kSprite && (variants < 1 || support < 1)))
     return (int)cudaErrorInvalidValue;
   const Raster g = raster(height, width, tile, apron);

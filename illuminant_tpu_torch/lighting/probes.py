@@ -85,7 +85,9 @@ class ProbePoints:
     and projector cores evaluate over it as over a frame, in the modes
     `evaluate_probes` runs them (the march, unshadowed volumetric). It
     offers what those read of a G-buffer: `shape`, `normal`,
-    `world_position()`, `enable_shadows`, `fullbright`."""
+    `world_position()`, `enable_shadows`, `fullbright`, and the G-buffer
+    properties `render_scale` (1), `relative_y` (0) and `z` (the points'
+    heights), each (P, 1)."""
 
     position: torch.Tensor  # (P, 3)
     normal: torch.Tensor  # (P, 1, 3)
@@ -95,6 +97,19 @@ class ProbePoints:
     @property
     def shape(self):
         return (self.position.shape[0], 1)
+
+    @property
+    def render_scale(self):
+        return 1.0
+
+    @property
+    def relative_y(self):
+        return torch.zeros((self.position.shape[0], 1), dtype=torch.float32,
+                           device=self.position.device)
+
+    @property
+    def z(self):
+        return self.position[:, 2][:, None]
 
     def world_position(self):
         return self.position[:, None, :]

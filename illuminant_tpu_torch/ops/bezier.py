@@ -149,6 +149,17 @@ class DynamicMatrix:
             angle=f32(angle), scale=f32(scale),
             translation=f32(translation), is_dynamic=f32(1.0))
 
+    @staticmethod
+    def from_matrix(matrix, device=None):
+        """An explicit (4, 4) row-vector matrix (not regenerated)."""
+        def f32(v):
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+        return DynamicMatrix(
+            matrix=f32(matrix), angle=f32(0.0), scale=f32(1.0),
+            translation=torch.zeros((3,), dtype=torch.float32,
+                                    device=device), is_dynamic=f32(0.0))
+
     def regenerate(self):
         """rotation(angle) * scale + translation when dynamic, the
         explicit matrix otherwise."""

@@ -1,12 +1,22 @@
-"""Small geometry helpers (counterpart of illuminant_tpu/ops/coords.py,
-only what the particle path, the particle lights and the G-buffer
-billboards use)."""
+"""Small geometry helpers (counterpart of illuminant_tpu/ops/coords.py):
+the spherical normal encoding of the G-buffer (EnvironmentCommon.fxh:
+34-52), vector length and normalization, the spawners' row-vector point
+transform and the stipple mask."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def encode_normal_spherical(n):
+    """(..., 3) unit normals -> (..., 2) spherical encoding in [0, 1], the
+    inverse of `decode_normal_spherical`; an x below 1e-4 in magnitude is
+    taken as 1e-4."""
+    nx = torch.where(torch.abs(n[..., 0]) < 1e-4, 1e-4, n[..., 0])
+    ang = torch.atan2(n[..., 1], nx) / math.pi
+    return (torch.stack([ang, n[..., 2]], dim=-1) + 1.0) * 0.5
 
 
 def decode_normal_spherical(enc):
@@ -21,6 +31,17 @@ def decode_normal_spherical(enc):
     n = torch.stack([c * r, s * r, z], dim=-1)
     is_zero = torch.all(enc == 0.0, dim=-1, keepdim=True)
     return torch.where(is_zero, 0.0, n)
+
+
+def normalize(v, axis=-1, eps=1e-20):
+    """v / |v| along `axis`, the squared length floored at `eps`."""
+    return v / torch.sqrt(torch.clamp(torch.sum(v * v, dim=axis,
+                                                keepdim=True), min=eps))
+
+
+def vlength(v, axis=-1):
+    """|v| along `axis`."""
+    return torch.sqrt(torch.sum(v * v, dim=axis))
 
 
 def mul_point_rows(v4, matrix):

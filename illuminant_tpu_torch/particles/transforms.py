@@ -59,6 +59,18 @@ class AreaUniforms:
     rotation: torch.Tensor  # (4,) quaternion
     strength: torch.Tensor  # ()
 
+    @staticmethod
+    def everywhere(strength=1.0, device=None) -> "AreaUniforms":
+        """The area of type 0: weight `strength` at every position."""
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        return AreaUniforms(
+            type=torch.tensor(0, dtype=torch.int32, device=device),
+            center=f32([0.0, 0.0, 0.0]), size=f32([1.0, 1.0, 1.0]),
+            falloff=f32(1.0), rotation=f32([0.0, 0.0, 0.0, 1.0]),
+            strength=f32(strength))
+
 
 def area_weight(position_xyz, a: AreaUniforms):
     """computeWeight (FMA.fx:15-20): 1 - saturate(d / max(falloff, 1)) of

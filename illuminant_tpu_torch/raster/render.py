@@ -38,12 +38,13 @@ from .tiled import (KERNEL_GAUSS, KERNEL_QUAD, KERNEL_ROUND,
 class ParticleAppearance:
     """ParticleAppearance (ParticleConfiguration.cs:42-109): the JAX
     package's fields. Untextured particles draw as quads; `rounded` picks
-    the disc, `glow` the Gaussian, an explicit `kernel` (tiled.KERNEL_*)
-    wins over both. A texture (TH, TW[, C]) draws through an SVD sprite
-    table of `rank`, `angle_bins` and `size_bins` over [size_min,
-    size_max]; `rounding_power_from_life` (a float, or a bezier with a
-    `.packed()` or already packed) animates a rounded disc's power with
-    life through a table of `power_bins` powers."""
+    the disc, `glow` the Gaussian, an explicit `kernel` (tiled.KERNEL_*:
+    point, quad, gauss, round) wins over both. A texture (TH, TW[, C])
+    draws through an SVD sprite table of `rank`, `angle_bins` and
+    `size_bins` over [size_min, size_max]; `rounding_power_from_life` (a
+    float, or a bezier with a `.packed()` or already packed) animates a
+    rounded disc's power with life through a table of `power_bins`
+    powers."""
 
     texture: Optional[np.ndarray] = None  # (TH, TW[, C])
     columns: int = 1  # sprite sheet layout

@@ -36,13 +36,13 @@ import torch
 from ..core import cuda_build
 # Read by tools/torch_tile_study.py, which builds variants of the source.
 from ..core.cuda_build import NVCC_FLAGS, nvcc as _nvcc  # noqa: F401
-from .tiled import (KERNEL_GAUSS, KERNEL_QUAD, KERNEL_ROUND,
+from .tiled import (KERNEL_GAUSS, KERNEL_POINT, KERNEL_QUAD, KERNEL_ROUND,
                     TiledRasterConfig, _profile)
 
 _SOURCE = cuda_build.CSRC / "tile_raster.cu"
 _LIBRARY = cuda_build.library_path(_SOURCE)
 # The kernels' coverage kinds, in the source's `Kind` order.
-KINDS = {KERNEL_QUAD: 0, KERNEL_GAUSS: 1, KERNEL_ROUND: 2}
+KINDS = {KERNEL_QUAD: 0, KERNEL_GAUSS: 1, KERNEL_ROUND: 2, KERNEL_POINT: 4}
 SPRITE = 3
 MAX_TILE = 32
 MAX_RANK = 64

@@ -34,6 +34,7 @@ from typing import Tuple
 
 import torch
 
+KERNEL_POINT = "point"
 KERNEL_QUAD = "quad"
 KERNEL_GAUSS = "gauss"
 KERNEL_ROUND = "round"
@@ -68,6 +69,10 @@ def _profile(kernel: str, d, radius):
     """1-D coverage at signed distance d from the center (tiled.py:
     228-268); the 2-D footprint is the product of a row and a column
     profile."""
+    if kernel == KERNEL_POINT:
+        # The bilinear 2-tap subpixel splat: each particle deposits
+        # exactly its colour over the 2 x 2 pixels around it.
+        return torch.clamp(1.0 - torch.abs(d), 0.0, 1.0)
     if kernel == KERNEL_QUAD:
         return torch.clamp(radius - torch.abs(d) + 0.5, 0.0, 1.0)
     if kernel == KERNEL_GAUSS:
@@ -92,6 +97,8 @@ def _profile(kernel: str, d, radius):
 
 def _support(kernel: str, radius: float) -> float:
     """Half-width in pixels beyond which `_profile` is exactly 0."""
+    if kernel == KERNEL_POINT:
+        return 1.0
     if kernel == KERNEL_GAUSS:
         return 4.0 * max(radius * 0.5, 0.3)
     return radius + 0.5

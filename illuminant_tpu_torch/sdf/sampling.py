@@ -78,6 +78,15 @@ _NORMAL_WEIGHTS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0),
                    (1.0, 1.0, 1.0))
 
 
+def sample_or_max(volume, position, maximum_z: float = 128.0):
+    """sampleDistanceField (DistanceFieldCommon.fxh:355-364): `sample`, or
+    `maximum_z` everywhere when there is no field (`volume` None)."""
+    if volume is None:
+        return torch.full(position.shape[:-1], maximum_z,
+                          dtype=torch.float32, device=position.device)
+    return sample(volume, position)
+
+
 def estimate_normal(volume: SdfVolume, position):
     """4-tap tetrahedral gradient with one-voxel world offsets
     (VisualizeCommon.fxh:47-63) -> unit normals (..., 3); a zero gradient

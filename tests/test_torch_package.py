@@ -21,7 +21,8 @@ NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
     "raster.tile_kernel", "raster.warp", "lighting.tiled_lights",
     "lighting.tiled_lights_kernel", "lighting.probes",
     "lighting.spherical_harmonics", "utils.jumpflood", "utils.mapgen",
-    "utils.visualize")]
+    "utils.visualize", "models.parameter", "models.model", "models.view",
+    "models.codegen", "models.editor")]
 
 
 def test_import_leaves_jax_out():
@@ -151,6 +152,10 @@ def _entry_points():
     from illuminant_tpu_torch.lighting.renderer import LightingRenderer
     from illuminant_tpu_torch.lighting.spherical_harmonics import (
         bake_probe_from_lights)
+    from illuminant_tpu_torch.models.codegen import save_as_code
+    from illuminant_tpu_torch.models.editor import EditorController
+    from illuminant_tpu_torch.models.model import EngineModel
+    from illuminant_tpu_torch.models.view import EngineView
     from illuminant_tpu_torch.ops.noise import RandomField
     from illuminant_tpu_torch.particles.system import ParticleSystem
     from illuminant_tpu_torch.raster import sprites
@@ -161,7 +166,14 @@ def _entry_points():
     from illuminant_tpu_torch.utils.jumpflood import jump_flood_sdf
     from illuminant_tpu_torch.utils.visualize import visualize_distance_field
 
+    compiled: dict = {}
+    exec(compile(save_as_code(EngineModel()), "<generated>", "exec"),
+         compiled)
     return {
+        "EngineView": EngineView.__init__,
+        "EditorController": EditorController.__init__,
+        "EditorController.load": EditorController.load,
+        "build_systems (SaveAsCode)": compiled["build_systems"],
         "pack_probes": pack_probes,
         "bake_probe_from_lights": bake_probe_from_lights,
         "jump_flood_sdf": jump_flood_sdf,

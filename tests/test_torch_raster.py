@@ -76,7 +76,7 @@ def _numpy_oracle(kernel, h, w, tile, apron, channels, parts):
     return img
 
 
-@pytest.mark.parametrize("kernel", ["gauss", "round", "quad"])
+@pytest.mark.parametrize("kernel", ["gauss", "round", "quad", "point"])
 def test_direct_splat_is_the_separable_profile(kernel):
     """The port's splat is exactly the sum of the separable profiles over
     the tile windows; float32 accumulation against a float64 sum."""
@@ -168,6 +168,48 @@ def test_round_matches_jax_parity_preset():
     # payload and coverage on the JAX side (measured 0.039 and 0.015%).
     assert _rel(out, ref, 0.25) < 0.08
     assert abs(out.sum() - ref.sum()) / ref.sum() < 0.01
+
+
+def test_point_matches_jax():
+    """The bilinear point splat (tiled.py:233-234), additive, against the
+    JAX rasterizer with float colours. Bounds of test_tiled_raster.py::
+    test_additive_fuzz_random_configs for the point kernel (0.08 of the
+    local magnitude floored at 0.5, energy within 2%) and of its
+    test_point_kernel_conserves_energy: each interior particle deposits
+    exactly its colour."""
+    h, w = 64, 64
+    kw = dict(height=h, width=w, tile=16, bin_capacity=512, apron=4,
+              kernel="point", rgba8_colors=False, channels=4,
+              slots_per_row=4)
+    parts = _particles(400, h, w, seed=100)
+    out, ref = _both(kw, parts)
+    assert _rel(out, ref, 0.5) < 0.08
+    assert abs(out.sum() - ref.sum()) / ref.sum() < 0.02
+    rng = np.random.default_rng(7)
+    n = 200
+    x = rng.uniform(4, w - 4, n).astype(np.float32)
+    y = rng.uniform(4, h - 4, n).astype(np.float32)
+    color = rng.uniform(0.2, 1.0, (n, 4)).astype(np.float32)
+    cfg = tiled.TiledRasterConfig(height=h, width=w, tile=16, apron=2,
+                                  kernel="point")
+    img, _ = tiled.rasterize_tiled(cfg, *(torch.as_tensor(a) for a in (
+        x, y, color, np.ones(n, np.float32), np.ones(n, bool))))
+    np.testing.assert_allclose(img.numpy().sum(axis=(0, 1)),
+                               color.sum(axis=0), rtol=1e-5)
+
+
+def test_point_alpha_matches_jax():
+    """The point profile on the ordered alpha route (K11a's plain version
+    on the CPU) against the JAX package's. The coverage of positions on
+    the 1/16-px grid is a multiple of 1/16 and its products of 1/256, so
+    the JAX side's bf16 factors are exact and the images agree to float32
+    rounding, as the quad's do in test_torch_alpha.py."""
+    from test_torch_alpha import _cloud, _run
+
+    out, ref = _run("point", _cloud(seed=2))
+    assert np.abs(ref).sum() > 1.0
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    assert out[..., 3].max() <= 1.0 + 1e-5
 
 
 def test_histogram_percentile_tonemap_match_jax():

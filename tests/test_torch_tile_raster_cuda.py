@@ -103,7 +103,8 @@ def _alpha(cfg, x, y, color, size, live, rotation, table):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["quad", "gauss", "round", "sprite"])
+@pytest.mark.parametrize("kernel", ["quad", "gauss", "round", "point",
+                                    "sprite"])
 @pytest.mark.parametrize("dither", [False, True])
 def test_cuda_composite_equals_plain(kernel, dither):
     """K11a over cross-tile overlaps and a hot tile of more than 1024
