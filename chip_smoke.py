@@ -159,6 +159,25 @@ K10, the tiled particle lights as one fused launch a frame):
     full-family flagship at a 36 x 20 grid across the frame, card against
     CPU (and each family must change the values), an SH bake and the
     jump flood of demo.py's 256 x 256 mask (exactly equal).
+The march and the splat (`csrc/cone_trace.cu`: K12, every cone march;
+`csrc/splat.cu`: K5, the untextured additive splat):
+  * `slice_family_march` (analytic-family-march-1080p): the full-family
+    flagship with `shadow_mode="march"`, the sphere lights and the sun
+    marched, K12 three times a frame (the sphere pass, the sun, the
+    projector); its device busy time (`profile_family_march`) in every
+    run. Every flagship slice gates K5 once a frame, K12 as
+    `K12_PER_FRAME` counts, FLAGSHIP_READS_PER_FRAME host reads and its
+    splat under the sync debug mode; the renderer frames gate 0 host
+    reads a frame and K12 once a light pass under the march; the
+    particle and model cells 0 reads a render;
+  * `[kernel] name=cone_trace` on renderer-voxel-march's rays
+    (SdfVolume), the march cell's sphere rays (AnalyticScene) and the
+    voxel flagship's ColumnField; `[kernel] name=splat` on the voxel
+    flagship's and the particle cell's particles; each against its plain
+    version, timed beside its bound;
+  * `reference_march`: the march flagship at 96 x 160 on both fields,
+    with and without the families, a `carried_all` frame and one at
+    `shadow_scale=0.25`, card against CPU.
 Every phase prints one line; the last
 three lines are the kernels' record as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -216,7 +235,24 @@ SLICES = {
     "slice_family": dict(field="analytic", preset="fast", full_family=True),
     "slice_family_parity": dict(field="analytic", preset="parity",
                                 full_family=True),
+    # analytic-family-march-1080p: the exact march for the sphere lights
+    # and the sun (K12), the line light's and the volumetric light's own
+    # scans.
+    "slice_family_march": dict(field="analytic", preset="fast",
+                               full_family=True, shadow_mode="march"),
 }
+# K12 launches a frame of each slice: the sphere pass under the march; the
+# sun's standalone march when no fused scan carries it (under the march);
+# the projector's march with full_family (its rays disabled in the
+# flagship, whose projector has no origin, but launched). The line light
+# takes its own scan under the march, as in the JAX frame.
+K12_PER_FRAME = {"slice": 0, "slice_analytic": 0, "slice_parity": 0,
+                 "slice_family": 1, "slice_family_parity": 1,
+                 "slice_family_march": 3}
+# Device-to-host reads a flagship frame: the exposure's percentile
+# (utils/histogram.py:percentile) indexes four tensors with 0-d tensor
+# indices; the splat's `amax` (and its `nonzero`) are gone with K5.
+FLAGSHIP_READS_PER_FRAME = 4
 # The small input of tests/test_torch_flagship.py and
 # tests/test_torch_analytic_flagship.py, for the reference checks.
 SMALL = dict(height=96, width=160, n_lights=4, capacity=1 << 10,
@@ -273,8 +309,9 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from illuminant_tpu_torch.core.cuda_build import BUILD_LOGS
-    from illuminant_tpu_torch.lighting import tiled_lights_kernel
-    from illuminant_tpu_torch.raster import tile_kernel
+    from illuminant_tpu_torch.lighting import (cone_trace_kernel,
+                                               tiled_lights_kernel)
+    from illuminant_tpu_torch.raster import splat_kernel, tile_kernel
     from illuminant_tpu_torch.sdf import columns_kernel
 
     def timed(mod):
@@ -283,7 +320,8 @@ def phase_build():
         return time.perf_counter() - t0
 
     mods = {"column_maps": columns_kernel, "tile_raster": tile_kernel,
-            "tiled_lights": tiled_lights_kernel}
+            "tiled_lights": tiled_lights_kernel,
+            "cone_trace": cone_trace_kernel, "splat": splat_kernel}
     with ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(timed, mods.values())))
     for name, mod in mods.items():
@@ -495,17 +533,228 @@ def phase_kernel(field):
     return rec
 
 
-def phase_frame_points(field, state):
+def phase_frame_points(field, state, raster_config):
     """The fused query on the voxel slice's own traffic: the particles'
     positions after its timed frames, in slot order, passed as the frame
     passes them (strided columns of the (N, 4) state), against its plain
     version and timed as in `phase_kernel`. The maps are the loaded
-    field's, the frame's before its animation."""
+    field's, the frame's before its animation. Then K5 on the same
+    particles as the frame's splat takes them (`[kernel] splat
+    inputs=flagship`)."""
     pos = state.position
     rec = {}
     _query_job(rec, "query_frame", field, pos[:, 0], pos[:, 1], pos[:, 2],
                _tolerance(field.maps_c), inputs="frame",
                live=int(state.live_count()))
+    _splat_row(rec, "splat_flagship", (
+        raster_config, pos[:, 0], pos[:, 1], state.render_color,
+        state.render_data[:, 0], state.live_mask()), inputs="flagship",
+        live=int(state.live_count()))
+    return rec
+
+
+def splat_work(cfg, x, y, color, size, live, terms):
+    """(bytes, operations) of one K5 call: x, y, size (float32), live (a
+    byte) and the C colour floats of every particle read once and the
+    image written once; the operations the splat needs for this data:
+    one profile for each nonzero row and each nonzero column of each live
+    on-screen particle's footprint inside its tile's window, and for each
+    nonzero (particle, pixel) term (`terms`, `tiled.splat_terms`) the
+    weight product and C products and sums. A profile's operations are
+    its plain version's (`pointwise_ops`). The taps of weight 0 that the
+    kernel walks, and the column profiles it recomputes in every row, are
+    not needed and not counted."""
+    from illuminant_tpu_torch.raster import tiled
+
+    n, ch = x.shape[0], cfg.channels
+    nbytes = n * (4.0 * 3 + 1.0 + 4.0 * ch) + 4.0 * cfg.height * cfg.width * ch
+    sel, xs, ys, radius = tiled._splat_selection(cfg, x, y, size, live)
+    if sel.numel() == 0:
+        return nbytes, 0.0
+    (_, wx), (_, wy) = tiled._footprints(cfg, xs, ys, radius)
+    profiles = float((wx != 0.0).sum() + (wy != 0.0).sum())
+    one = torch.ones(1, device=x.device)
+    prof = pointwise_ops(lambda: tiled._profile(cfg.kernel, one * 0.3, one))
+    return nbytes, float(terms.sum()) * (1 + 2 * ch) + profiles * prof
+
+
+def _splat_row(rec, key, args, **fields):
+    """K5 on a recorded call (cfg, x, y, color, size, live) against its
+    plain version on the same inputs (max |d| within n_max x 2^-23 x the
+    image's largest value: each pixel's sum of n terms reordered by the
+    atomics, n_max from `tiled.splat_terms`), both timed, beside the
+    bound; one [kernel] line, the record under rec[key]."""
+    from illuminant_tpu_torch.raster import splat_kernel, tiled
+
+    cfg, x, y, color, size, live = args
+    out = splat_kernel.splat_cuda(*args)
+    (ref, _), plain_ms = timed_once(
+        lambda: tiled.rasterize_tiled_reference(*args))
+    err = _max_err(out, ref)
+    terms = tiled.splat_terms(cfg, x, y, size, live)
+    n_max = int(terms.max())
+    tol = n_max * 2.0 ** -23 * float(ref.abs().max())
+    _require("splat", err, tol, **fields)
+    nbytes, ops = splat_work(*args, terms)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    ms = device_ms(lambda: splat_kernel.splat_cuda(*args), KERNEL_REPS)
+    say("kernel", name="splat", **fields, kernel=cfg.kernel,
+        particles=x.shape[0], max_abs_err=err, tol=tol,
+        terms_per_pixel_max=n_max, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=f"{bound_ms / ms:.3f}", bytes=int(nbytes),
+        operations=int(ops), library_ms=None)
+    rec[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                    bound=(bound_ms, bound_by), library_ms=None)
+
+
+def _unique_bytes(view) -> float:
+    """Bytes of the distinct elements a strided view reads (a dimension of
+    stride 0 counts once)."""
+    n = 1
+    for size, stride in zip(view.shape, view.stride()):
+        n *= size if stride else 1
+    return float(n * view.element_size())
+
+
+# K12's agreement with its plain version beyond the march bound: the
+# share of the rays whose step count may differ (0-3 of 16,588,800 on an
+# H100 80GB HBM3) and the largest |d| of a ray whose steps agree, as a
+# share of 1 + the largest value (1.1e-4 - 1.7e-4 there, on outputs in
+# [0, 1]).
+MARCH_STEPS_DIFFER_MAX = 1e-5
+MARCH_AGREE_TOL = 2.5e-4
+# The plain loop's masking, per ray and step, that the kernel does not
+# need (a dead ray leaves its loop): the three torch.where (steps, vis,
+# offset) and the `live &` of the liveness update.
+MARCH_MASK_OPS = 4
+
+
+def exact_sqrt(fn):
+    """fn() with every float32 aten sqrt correctly rounded, as the
+    kernel's sqrtf is: taken in float64 and rounded once (53 bits are
+    enough for the double rounding of a square root to be exact)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Exact(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.sqrt.default and \
+                    args[0].dtype == torch.float32:
+                return torch.sqrt(args[0].double()).float()
+            return func(*args, **(kwargs or {}))
+
+    with Exact():
+        return fn()
+
+
+def _cone_trace_row(rec, key, call, **fields):
+    """K12 on a recorded call (`cone_trace_cuda`'s (args, kwargs)) against
+    its plain version `cone_trace_reference` on the same CUDA tensors,
+    under the march bound (mean |d| <= 1e-3, 99% of the rays within 1e-3 x
+    (1 + max)) and two tighter gates: at most MARCH_STEPS_DIFFER_MAX of
+    the rays take another step count, and every ray whose steps agree is
+    within MARCH_AGREE_TOL x (1 + max). The rays whose steps differ are
+    counted again against the plain version with correctly rounded roots
+    (`exact_sqrt`), printed, not gated. Both timed; the bound: the rays'
+    distinct input bytes, the field and the output once, or the
+    operations this data needs (the plain version's `pointwise_ops`
+    without a step and with one, the difference less its masking
+    (MARCH_MASK_OPS) a ray's step, times the steps the rays took; on a
+    ColumnField the column query's per point, `columns.query_reference`);
+    the warps' efficiency (the steps a warp's rays take over 32 x its
+    slowest ray's: each warp runs as long as its slowest ray); the
+    launch's block."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+    from illuminant_tpu_torch.lighting.cone_trace import cone_trace_reference
+    from illuminant_tpu_torch.sdf import columns
+    from illuminant_tpu_torch.sdf.columns import ColumnField
+
+    args, kwargs = call
+    volume, quality = args[0], args[6]
+    raw = kwargs.get("raw", args[7] if len(args) > 7 else False)
+    a6 = tuple(args[:6])
+    out, steps = ctk.cone_trace_cuda(*a6, quality, raw, with_steps=True)
+    (ref, ref_steps), plain_ms = timed_once(lambda: cone_trace_reference(
+        *a6, quality, raw, with_steps=True))
+    d = (out - ref).abs()
+    scale = 1.0 + float(ref.abs().max())
+    tol = 1e-3 * scale
+    err, err_mean = float(d.max()), float(d.mean())
+    within = float((d <= tol).float().mean())
+    agree = steps == ref_steps
+    differ = int((~agree).sum())
+    err_agree = float(torch.where(agree, d, 0.0).max())
+    if not (err_mean <= 1e-3 and within >= 0.99):
+        raise AssertionError(f"cone_trace disagrees with its plain version "
+                             f"({fields}): mean {err_mean}, {within} of the "
+                             f"rays within {tol}")
+    if not (differ <= MARCH_STEPS_DIFFER_MAX * d.numel()
+            and err_agree <= MARCH_AGREE_TOL * scale):
+        raise AssertionError(f"cone_trace disagrees with its plain version "
+                             f"({fields}): {differ} rays' steps differ, "
+                             f"{err_agree} where they agree")
+    _, exact_steps = exact_sqrt(lambda: cone_trace_reference(
+        *a6, quality, raw, with_steps=True))
+    differ_exact = int((steps != exact_steps).sum())
+    plan = ctk.launch_plan(*a6, quality, raw)
+    n = plan["lights"] * plan["points"]
+    enable = plan["views"]["enable"].reshape(-1)
+    taken = torch.where(enable, quality.max_step_count
+                        - steps.reshape(-1), 0.0).double()
+    q0 = dataclasses.replace(quality, max_step_count=0)
+    q1 = dataclasses.replace(quality, max_step_count=1)
+    ops0 = pointwise_ops(lambda: cone_trace_reference(*a6, q0, raw))
+    per_step = (pointwise_ops(lambda: cone_trace_reference(*a6, q1, raw))
+                - ops0) / n - MARCH_MASK_OPS
+    if isinstance(volume, ColumnField):
+        probe = plan["views"]["origin"].reshape(-1, 3)[:1 << 20]
+        per_step += pointwise_ops(lambda: columns.query_reference(
+            volume, probe[:, 0], probe[:, 1], probe[:, 2])) / probe.shape[0]
+    ops = ops0 + per_step * float(taken.sum())
+    nbytes = sum(_unique_bytes(v) for v in plan["views"].values()) \
+        + sum(4.0 * t.numel() for t in plan["field_tensors"]
+              if t is not None) + 4.0 * n
+    bound_ms, bound_by = _bound(nbytes, ops)
+    ms = device_ms(lambda: ctk.cone_trace_cuda(*a6, quality, raw),
+                   KERNEL_REPS)
+    pad = (-n) % 32
+    warps = torch.cat([taken, taken.new_zeros(pad)]).reshape(-1, 32)
+    busy = float(warps.amax(dim=1).sum()) * 32.0
+    efficiency = float(taken.sum()) / busy if busy else 1.0
+    live = taken[enable]
+    say("kernel", name="cone_trace", **fields,
+        field=type(volume).__name__, rays=n, lights=plan["lights"],
+        raw=raw, max_abs_err=err, mean_abs_err=err_mean,
+        share_within_1e3=f"{within:.6f}", tol=tol,
+        rays_whose_steps_differ=differ, max_abs_err_steps_agree=err_agree,
+        rays_whose_steps_differ_exact_sqrt=differ_exact,
+        mean_steps=f"{float(live.mean()) if live.numel() else 0.0:.2f}",
+        warp_efficiency=f"{efficiency:.3f}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.3f}",
+        bytes=int(nbytes), operations=int(ops), library_ms=None,
+        **ctk.block_plan(volume))
+    rec[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                    bound=(bound_ms, bound_by), library_ms=None)
+
+
+def phase_voxel_march_kernel(field, scene):
+    """K12 on the voxel flagship's ColumnField at 1080p (the voxel slice's
+    loaded static field and its maps): the sphere lights' rays as the
+    march pass makes them (`accumulate_sphere_lights(shadow_mode="march")`
+    on the slice's G-buffer and lights, its K12 call kept)."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+    from illuminant_tpu_torch.lighting.sphere import accumulate_sphere_lights
+
+    env_u = scene.environment.uniforms(device=scene.device)
+    with KernelInputs("cone_trace_cuda", ctk) as spy:
+        accumulate_sphere_lights(field, scene.gbuffer, scene.sphere_lights,
+                                 env_u, scene.config.quality,
+                                 with_specular=False, shadow_mode="march",
+                                 with_ao=False, with_alpha=False)
+    rec = {}
+    _cone_trace_row(rec, "cone_trace_voxel", spy.calls[0],
+                    inputs="voxel_flagship")
     return rec
 
 
@@ -522,12 +771,36 @@ def _run_frames(scene, n, i0, generator, state, avg, spawn_uniforms=None):
     return img, state, avg
 
 
+def flagship_render_reads_nothing(scene, state):
+    """The frame's splat (`_FlagshipFrame.raster`'s call) on `state` under
+    torch.cuda.set_sync_debug_mode("error"): a synchronizing operation in
+    it (a `nonzero`, an `item`) raises. -> the image."""
+    from illuminant_tpu_torch.raster.tiled import rasterize_tiled
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, _ = rasterize_tiled(
+            scene.raster_config, state.position[:, 0], state.position[:, 1],
+            state.render_color, state.render_data[:, 0], state.live_mask())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return img
+
+
 def phase_slice(name, scene, warmup: int, frames: int):
     """One flagship frame at full width: warm-up, then the timed frames
-    that the launch counters watch. The voxel slice launches the fused
-    query and its pack twice a frame (the initial distance, and the step
-    sample with its unit gradient, particles/integrate.py) and the
-    sampler never; the analytic slices launch none of them."""
+    that the launch counters watch, then one frame under the host-read
+    counter (its K12 calls kept) and its splat once more under the sync
+    debug mode. The voxel slice launches the fused query and its pack
+    twice a frame (the initial distance, and the step sample with its
+    unit gradient, particles/integrate.py) and the sampler never; the
+    analytic slices launch none of them. K5 launches once a frame, K12
+    K12_PER_FRAME[name] times; a frame reads the device
+    FLAGSHIP_READS_PER_FRAME times. Returns (launches, state,
+    ms_per_frame, the extra frame's K12 calls)."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+    from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     dev = scene.device
@@ -538,14 +811,21 @@ def phase_slice(name, scene, warmup: int, frames: int):
     img, state, avg = _run_frames(scene, warmup, 0, gen, state, avg)
     torch.cuda.synchronize()
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    ctk.LAUNCHES = k5.LAUNCHES = 0
     t0 = time.perf_counter()
     img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(column_query=ck.QUERY_LAUNCHES,
                     column_maps_pack=ck.PACK_LAUNCHES,
-                    column_maps_sample=ck.LAUNCHES)
+                    column_maps_sample=ck.LAUNCHES,
+                    cone_trace=ctk.LAUNCHES, splat=k5.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as k12:
+        _, state, avg = _run_frames(scene, 1, warmup + frames, gen, state,
+                                    avg)
+    torch.cuda.synchronize()
+    flagship_render_reads_nothing(scene, state)
     live = int(state.live_count())
     img_np = img.cpu().numpy()
     avg_f = float(avg)
@@ -554,7 +834,8 @@ def phase_slice(name, scene, warmup: int, frames: int):
         ms_per_frame=f"{ms_per_frame:.3f}", live_particles=live,
         avg_lum=f"{avg_f:.5f}", peak_mem_gb=f"{peak_gb:.3f}",
         image=f"{img_np.shape}/{img_np.dtype}",
-        **{f"{k}_launches": v for k, v in launches.items()})
+        **{f"{k}_launches": v for k, v in launches.items()},
+        host_reads_per_frame=reads.n, render_sync_debug="error: none")
     if img_np.shape != (FULL["height"], FULL["width"], 3):
         raise AssertionError(f"{name}: image shape {img_np.shape}")
     if not img_np.astype(np.float64).var() > 0.0:
@@ -566,27 +847,35 @@ def phase_slice(name, scene, warmup: int, frames: int):
     per_frame = 2 if SLICES[name]["field"] == "voxel" else 0
     expected = dict(column_query=per_frame * frames,
                     column_maps_pack=per_frame * frames,
-                    column_maps_sample=0)
+                    column_maps_sample=0,
+                    cone_trace=K12_PER_FRAME[name] * frames, splat=frames)
     if launches != expected:
-        raise AssertionError(f"{name}: column kernels launched {launches} "
-                             f"times in {frames} frames, expected {expected}")
-    return launches, state, ms_per_frame
+        raise AssertionError(f"{name}: kernels launched {launches} times in "
+                             f"{frames} frames, expected {expected}")
+    if reads.n != FLAGSHIP_READS_PER_FRAME or \
+            len(k12.calls) != K12_PER_FRAME[name]:
+        raise AssertionError(f"{name}: a frame read the device {reads.n} "
+                             f"times and launched K12 {len(k12.calls)} "
+                             f"times, expected {FLAGSHIP_READS_PER_FRAME} "
+                             f"and {K12_PER_FRAME[name]}")
+    return launches, state, ms_per_frame, k12.calls
 
 
 def _small_frames(device, draws, **kw):
     """Three frames of the small flagship on `device` from the same state
     with the given spawn draws -> (images int32, positions, avg_lum,
-    fused-query launches, pack launches)."""
+    fused-query launches, pack launches, K12 launches)."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.scenes import build_flagship
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     scene = build_flagship(device=device, **SMALL, **kw)
-    ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = ctk.LAUNCHES = 0
     img, state, avg = _run_frames(
         scene, 3, 0, None, scene.system.state,
         torch.tensor(0.5, device=device), spawn_uniforms=draws)
     return (img.cpu().numpy().astype(np.int32), state.position.cpu().numpy(),
-            float(avg), ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES)
+            float(avg), ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES, ctk.LAUNCHES)
 
 
 def _compare_small(phase, cpu, cuda, **fields):
@@ -669,7 +958,8 @@ def phase_reference_analytic():
 # projector's AO sample (lighting/projector.py; its cone march runs no
 # step: the flagship's projector has no origin). The sun's and the line
 # light's AO are gated off on the host, the particle lights' template has
-# no AO radius, and every grid query samples the volume itself.
+# no AO radius, and every grid query samples the volume itself. The
+# projector's march is one K12 launch, which packs the maps once more.
 FAMILY_VOXEL_QUERIES_PER_FRAME = 4
 
 
@@ -684,23 +974,119 @@ def phase_reference_family():
                dict(field="voxel", preset="fast", full_family=True)):
         out = {dev: _small_frames(dev, draws, **kw)
                for dev in ("cpu", "cuda")}
-        queries, packs = out["cuda"][3:5]
+        queries, packs, k12 = out["cuda"][3:6]
         within, within_1e3 = _compare_small(
             "reference_family", out["cpu"], out["cuda"], **kw,
-            column_query_launches=queries, column_maps_pack_launches=packs)
+            column_query_launches=queries, column_maps_pack_launches=packs,
+            cone_trace_launches=k12)
         if kw["field"] == "voxel":
             expected = 3 * FAMILY_VOXEL_QUERIES_PER_FRAME
             ok = within >= 0.99
         else:
             expected = 0
             ok = within == 1.0 and within_1e3 >= 0.999
-        if (queries, packs) != (expected, expected):
+        voxel_k12 = k12 if kw["field"] == "voxel" else 0
+        if (queries, packs, k12) != (expected, expected + voxel_k12, 3):
             raise AssertionError(
                 f"reference_family ({kw}): the fused query launched "
-                f"{queries} times and its pack {packs} times in 3 frames, "
-                f"expected {expected}")
+                f"{queries} times, its pack {packs} times and K12 {k12} "
+                f"times in 3 frames, expected {expected}, {expected} + "
+                "K12's and 3")
         if not ok:
             raise AssertionError(f"reference_family ({kw}): particles "
+                                 "moved apart")
+
+
+def _to_device(obj, device):
+    """A copy of a field (a tensor dataclass, nested ones and tuples of
+    tensors included) or tensor on `device`."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(_to_device(o, device) for o in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def _march_against_cpu(call, **fields):
+    """A recorded K12 call on the card against the plain march on CPU
+    copies of its arguments, under the march bound: mean |d| <= 1e-3 and
+    99% of the rays within 1e-3 x (1 + max)."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+    from illuminant_tpu_torch.lighting.cone_trace import cone_trace_reference
+
+    args, kwargs = call
+    out = ctk.cone_trace_cuda(*args, **kwargs).cpu()
+    ref = cone_trace_reference(*_to_device(tuple(args), "cpu"), **kwargs)
+    d = (out - ref).abs()
+    tol = 1e-3 * (1.0 + float(ref.abs().max()))
+    mean, within = float(d.mean()), float((d <= tol).float().mean())
+    if not (mean <= 1e-3 and within >= 0.99):
+        raise AssertionError(f"reference_march ({fields}): the card's march "
+                             f"against the CPU's: mean {mean}, {within} "
+                             f"within {tol}")
+    return dict(march_mean_abs=f"{mean:.2e}", march_max_abs=float(d.max()),
+                march_within_1e3=f"{within:.5f}")
+
+
+# K12 launches a small march frame: the sphere pass, and with the families
+# the sun's march and the projector's.
+MARCH_K12_PER_FRAME = {False: 1, True: 3}
+
+
+def phase_reference_march():
+    """The flagship with shadow_mode="march" at 96 x 160 on the card
+    against the port's plain CPU path (held to the JAX package by
+    tests/test_torch_march_flagship.py): three frames from the same draws
+    on the analytic and the voxel field, without and with the families,
+    to the bounds of `reference_analytic` and `reference` (voxel); K12
+    launched MARCH_K12_PER_FRAME times a frame (on the voxel field each
+    launch packs the maps once more); the first frame's sphere march on
+    the card against the plain march on the CPU under the march bound.
+    Then the analytic scan frame under `scan_refine_mode="carried_all"`
+    and at `shadow_scale=0.25`, to `reference_analytic`'s bounds."""
+    from illuminant_tpu_torch.core.config import QualitySettings
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+
+    draws = _draws()
+    for field in ("analytic", "voxel"):
+        for family in (False, True):
+            kw = dict(field=field, preset="fast", shadow_mode="march",
+                      full_family=family)
+            cpu = _small_frames("cpu", draws, **kw)
+            with KernelInputs("cone_trace_cuda", ctk) as spy:
+                cuda = _small_frames("cuda", draws, **kw)
+            queries, packs, k12 = cuda[3:6]
+            march = _march_against_cpu(spy.calls[0], **kw)
+            within, within_1e3 = _compare_small(
+                "reference_march", cpu, cuda, **kw, cone_trace_launches=k12,
+                column_query_launches=queries,
+                column_maps_pack_launches=packs, **march)
+            voxel_k12 = k12 if field == "voxel" else 0
+            ok = (within >= 0.99 if field == "voxel"
+                  else within == 1.0 and within_1e3 >= 0.999)
+            if k12 != 3 * MARCH_K12_PER_FRAME[family] or \
+                    packs != queries + voxel_k12:
+                raise AssertionError(
+                    f"reference_march ({kw}): K12 launched {k12} times, the "
+                    f"pack {packs} times for {queries} queries")
+            if not ok:
+                raise AssertionError(f"reference_march ({kw}): particles "
+                                     "moved apart")
+    for q_kw in (dict(scan_refine_mode="carried_all"),
+                 dict(shadow_scale=0.25)):
+        kw = dict(field="analytic", preset="fast",
+                  quality=QualitySettings(**q_kw))
+        out = {dev: _small_frames(dev, draws, **kw)
+               for dev in ("cpu", "cuda")}
+        within, within_1e3 = _compare_small(
+            "reference_march", out["cpu"], out["cuda"], field="analytic",
+            shadow_mode="scan", **q_kw)
+        if not (within == 1.0 and within_1e3 >= 0.999):
+            raise AssertionError(f"reference_march ({q_kw}): particles "
                                  "moved apart")
 
 
@@ -929,6 +1315,9 @@ RENDERER_FRAMES = {
     "slice_renderer": (renderer_25d_scene, "scan", None),
     "slice_renderer_march": (renderer_march_scene, "march", 2),
 }
+# K12 launches a renderer frame: one a light pass under the march (the
+# march frame's 8 ring lights are one additive pass); the scan frame none.
+RENDERER_K12_PER_FRAME = {"slice_renderer": 0, "slice_renderer_march": 1}
 
 
 def renderer_frame(renderer, hdr, move, i, shadow_mode, budget):
@@ -1059,7 +1448,10 @@ def gates_march(renderer, budget):
 def phase_slice_renderer(name):
     """One full-width LightingRenderer frame: warm-up, the timed frames
     (each fenced by a synchronize), the device-to-host reads of one more
-    frame, then the frame's gates."""
+    frame (gated 0; its K12 call kept), then the frame's gates: K12 once a
+    light pass under the march. Returns (ms/frame, the extra frame's last
+    K12 call or None)."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     renderer, hdr, move, shadow_mode, budget = _build_renderer(
@@ -1071,6 +1463,7 @@ def phase_slice_renderer(name):
         n += 1
     torch.cuda.synchronize()
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    ctk.LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(RENDERER_TIMED_FRAMES):
         image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
@@ -1079,8 +1472,9 @@ def phase_slice_renderer(name):
         n += 1
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / RENDERER_TIMED_FRAMES
     launches = ck.LAUNCHES + ck.QUERY_LAUNCHES + ck.PACK_LAUNCHES
+    k12 = ctk.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with HostReads() as reads:
+    with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as spy:
         image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
                                          budget)
     img = image.cpu().numpy()
@@ -1102,8 +1496,13 @@ def phase_slice_renderer(name):
         ms_per_frame=f"{ms_per_frame:.3f}", peak_mem_gb=f"{peak_gb:.3f}",
         image_mean=f"{img[..., :3].mean():.3f}",
         image=f"{img.shape}/{img.dtype}", host_reads_per_frame=reads.n,
-        column_kernel_launches=launches, **gates)
-    return ms_per_frame
+        column_kernel_launches=launches, cone_trace_launches=k12, **gates)
+    if reads.n or k12 != RENDERER_K12_PER_FRAME[name] * RENDERER_TIMED_FRAMES:
+        raise AssertionError(
+            f"{name}: {reads.n} host reads a frame, K12 launched {k12} "
+            f"times in {RENDERER_TIMED_FRAMES} frames; expected 0 and "
+            f"{RENDERER_K12_PER_FRAME[name]} a frame")
+    return ms_per_frame, (spy.calls[-1] if spy.calls else None)
 
 
 def _small_renderer_frames(name, device):
@@ -1514,8 +1913,11 @@ def _particle_cell(field, warmup):
 def phase_slice_particles(field, warmup: int):
     """The particle cell at full width: `warmup` frames, then the timed
     frames, each fenced by a synchronize, with CUDA events splitting the
-    tick from the render; then one more tick under the host-read counter,
-    and the gates. Returns (launches, ms_per_frame)."""
+    tick from the render; then one more tick and one more render under
+    the host-read counter (the render also under the sync debug mode), and
+    the gates: K5 once a render, 0 reads. Returns (launches, ms_per_frame,
+    the checked render's K5 call)."""
+    from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
     from illuminant_tpu_torch.sdf import columns_kernel as ck
     from illuminant_tpu_torch.sdf.analytic import scene_sample_p
@@ -1523,6 +1925,7 @@ def phase_slice_particles(field, warmup: int):
     torch.cuda.reset_peak_memory_stats()
     system, sensor, raster, hdr = _particle_cell(field, warmup)
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    k5.LAUNCHES = 0
     tick_ms, render_ms = [], []
     t0 = time.perf_counter()
     for _ in range(PARTICLE_TIMED_FRAMES):
@@ -1539,11 +1942,20 @@ def phase_slice_particles(field, warmup: int):
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / PARTICLE_TIMED_FRAMES
     launches = dict(column_query=ck.QUERY_LAUNCHES,
                     column_maps_pack=ck.PACK_LAUNCHES,
-                    column_maps_sample=ck.LAUNCHES)
+                    column_maps_sample=ck.LAUNCHES, splat=k5.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads:
         system.update(DT)
     torch.cuda.synchronize()
+    # A render under the host-read counter and the sync debug mode: a
+    # synchronizing operation in it raises.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with HostReads() as render_reads, \
+                KernelInputs("splat_cuda", k5) as splat_call:
+            system.render(raster)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     state = system.state
     live = system.live_count
     inside = sensor.measure(state)
@@ -1566,7 +1978,9 @@ def phase_slice_particles(field, warmup: int):
         column_maps_pack_per_tick=launches["column_maps_pack"]
         / PARTICLE_TIMED_FRAMES,
         column_maps_sample_launches=launches["column_maps_sample"],
-        host_reads_per_tick=reads.n, sensor=inside, sensor_direct=direct,
+        splat_launches=launches["splat"], host_reads_per_tick=reads.n,
+        host_reads_per_render=render_reads.n, sensor=inside,
+        sensor_direct=direct,
         sensor_edge=edge, deeper_than_collision_distance=f"{deep:.5f}")
     if img_np.shape != (PARTICLE_FULL["height"], PARTICLE_FULL["width"], 4) \
             or img_np.dtype != np.uint8:
@@ -1583,7 +1997,7 @@ def phase_slice_particles(field, warmup: int):
                              f"the ring filled, expected {full}")
     expected = dict(column_query=5 * PARTICLE_TIMED_FRAMES,
                     column_maps_pack=5 * PARTICLE_TIMED_FRAMES,
-                    column_maps_sample=0)
+                    column_maps_sample=0, splat=PARTICLE_TIMED_FRAMES)
     if launches != expected:
         raise AssertionError(f"slice_particles: column kernels launched "
                              f"{launches} times in {PARTICLE_TIMED_FRAMES} "
@@ -1591,10 +2005,10 @@ def phase_slice_particles(field, warmup: int):
     if abs(inside - direct) > edge:
         raise AssertionError(f"slice_particles: the sensor counted {inside}, "
                              f"a direct count {direct} (+-{edge})")
-    if reads.n:
+    if reads.n or render_reads.n:
         raise AssertionError(f"slice_particles: a tick read the device "
-                             f"{reads.n} times")
-    return launches, ms_per_frame
+                             f"{reads.n} times, a render {render_reads.n}")
+    return launches, ms_per_frame, splat_call.calls[-1][0]
 
 
 def phase_profile_particles(field, warmup, frame_ms, out_dir):
@@ -1665,11 +2079,14 @@ class KernelInputs:
     """Inside it, the arguments and result of the last call of the kernel
     wrapper `name` (the tile kernels' `composite_over_tiles`,
     `sprite_accumulate`, or a wrapper of `module`) are kept as .args and
-    .out; the wrapper still runs and counts as before."""
+    .out, and every call's arguments in .calls; the wrapper still runs
+    and counts as before."""
 
     def __init__(self, name, module=None):
         self.name, self.args, self.out = name, None, None
         self._mod = module
+        # Every call's (args, kwargs), in order.
+        self.calls = []
 
     def __enter__(self):
         if self._mod is None:
@@ -1681,6 +2098,7 @@ class KernelInputs:
         def spy(*args, **kwargs):
             self.args, self.out = args, self._orig(*args, **kwargs)
             self.kwargs = kwargs
+            self.calls.append((args, kwargs))
             return self.out
 
         setattr(self._mod, self.name, spy)
@@ -1770,6 +2188,7 @@ def kernel_work(name, args):
     else:
         r = records[ids, 6:7]
         reach = (torch.clamp(r * 0.5, min=0.3) * 4.0 if args[3] == "gauss"
+                 else torch.ones_like(r) if args[3] == "point"
                  else r + 0.5)
         lo, hi = torch.ceil(c - reach - 0.5), torch.floor(c + reach - 0.5)
     if accumulate:
@@ -1964,6 +2383,16 @@ def phase_sprite_kernels(device="cuda", parent=None):
                        inputs="steady", particles=x.shape[0],
                        entries=int(quad_args[1][1][-1]),
                        **entry_stats(quad_args[1][1]))
+    # The "point" kind (the bilinear 2-tap), untextured, alone.
+    with KernelInputs("composite_over_tiles") as spy:
+        tiled.rasterize_tiled_alpha(dataclasses.replace(cfg, kernel="point"),
+                                    x, y, color, size, live, background=bg)
+    point_args = spy.args
+    _sprite_kernel_row(rec, "composite_point", "composite_over_tiles",
+                       point_args, 0.0, parent, coverage="point",
+                       inputs="steady", particles=x.shape[0],
+                       entries=int(point_args[1][1][-1]),
+                       **entry_stats(point_args[1][1]))
     with KernelInputs("sprite_accumulate") as spy:
         sprites.rasterize_sprites(cfg, table, x, y, color, size, live,
                                   rotation=rot)
@@ -2504,10 +2933,20 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
     with KernelInputs("composite_over_tiles") as alpha_spy, \
             KernelInputs("sprite_accumulate") as add_spy:
         for sv in sorted(view.systems, key=lambda v: v.model.draw_order):
-            with HostReads() as reads:
-                img, _ = sv.system.render(
-                    raster, appearance=sv.appearance,
-                    additive_blend=sv.model.additive_blend, background=img)
+            # The untextured splat (K5) under the sync debug mode too.
+            splat = ((sv.appearance is None
+                      or sv.appearance.texture is None)
+                     and sv.model.additive_blend)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if splat else 0)
+            try:
+                with HostReads() as reads:
+                    img, _ = sv.system.render(
+                        raster, appearance=sv.appearance,
+                        additive_blend=sv.model.additive_blend,
+                        background=img)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
             render_reads[sv.model.name] = reads.n
         image = to_uint8(resolve(img, hdr))
     torch.cuda.synchronize()
@@ -2556,17 +2995,17 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
         column_query=QUERIES_PER_TICK * system_ticks,
         column_maps_pack=QUERIES_PER_TICK * system_ticks,
         column_maps_sample=0, composite_over_tiles=MODEL_TIMED_FRAMES,
-        sprite_accumulate=MODEL_TIMED_FRAMES, tiled_lights_fused=0)
+        sprite_accumulate=MODEL_TIMED_FRAMES, tiled_lights_fused=0,
+        cone_trace=0, splat=MODEL_TIMED_FRAMES)
     if launches != expected or system_ticks != 3 * MODEL_TIMED_FRAMES:
         raise AssertionError(f"slice_model: launches {launches} in "
                              f"{system_ticks} system ticks, expected "
                              f"{expected} in {3 * MODEL_TIMED_FRAMES}")
-    # The untextured additive splat (raster/tiled.py:rasterize_tiled) reads
-    # its largest radius back once a call: ROADMAP Queue 3, K5.
-    if tick_reads.n or render_reads != dict(sparks=1, embers=0, smoke=0):
+    # The untextured additive splat is K5: no read.
+    if tick_reads.n or render_reads != dict(sparks=0, embers=0, smoke=0):
         raise AssertionError(f"slice_model: {tick_reads.n} host reads in an "
                              f"update, {render_reads} in the renders; "
-                             "expected 0 and the splat's 1")
+                             "expected 0")
     if not alpha_max <= 1.0 + 1e-5:
         raise AssertionError(f"slice_model: accumulated alpha {alpha_max}")
     if not (bool(torch.isfinite(img).all())
@@ -2842,21 +3281,26 @@ def lights_frame(cell, events=None):
 
 
 def _reset_launches():
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+    from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster import tile_kernel as tk
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
-    k10.LAUNCHES = 0
+    k10.LAUNCHES = ctk.LAUNCHES = k5.LAUNCHES = 0
     tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
 
 
 def _launches():
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+    from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster import tile_kernel as tk
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
-    return dict(tiled_lights_fused=k10.LAUNCHES,
+    return dict(tiled_lights_fused=k10.LAUNCHES, cone_trace=ctk.LAUNCHES,
+                splat=k5.LAUNCHES,
                 column_query=ck.QUERY_LAUNCHES,
                 column_maps_pack=ck.PACK_LAUNCHES,
                 column_maps_sample=ck.LAUNCHES,
@@ -2939,7 +3383,7 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
     expected = dict(tiled_lights_fused=LIGHTS_TIMED_FRAMES,
                     column_query=0, column_maps_pack=LIGHTS_TIMED_FRAMES,
                     column_maps_sample=0, composite_over_tiles=0,
-                    sprite_accumulate=0)
+                    sprite_accumulate=0, cone_trace=0, splat=0)
     if launches != expected:
         raise AssertionError(f"slice_particle_lights: launches {launches} "
                              f"in {LIGHTS_TIMED_FRAMES} frames, expected "
@@ -3413,29 +3857,31 @@ def phase_profile_renderer(name, frame_ms, out_dir):
 
 def _traced(name, out_dir, frame_ms, two_frames):
     """Run `two_frames` under torch.profiler; write the per-kernel and
-    per-stage tables under out_dir/name and print the [profile*] line."""
+    per-stage tables under out_dir/name (none with out_dir None) and print
+    the [profile*] line."""
     from torch.profiler import ProfilerActivity, profile
 
-    out_dir = os.path.join(out_dir, name)
-    os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         two_frames()
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
-        f.write(ka.table(sort_by="cuda_time_total", row_limit=40))
     # The host-side stage ranges: their host time, and the device time of
     # the kernels they launched. (Their device-side twins, with no host
     # time, span the GPU timeline and are not busy time.)
     stages = [e for e in ka
               if e.key.startswith("illuminant/") and e.cpu_time_total > 0]
-    with open(os.path.join(out_dir, "profile_stages.txt"), "w") as f:
-        for e in sorted(stages, key=lambda e: -e.cpu_time_total):
-            f.write(f"{e.key} calls={e.count} "
-                    f"host_ms_per_frame={e.cpu_time_total / 2e3:.3f} "
-                    f"device_ms_per_frame={e.device_time_total / 2e3:.3f}"
-                    "\n")
+    if out_dir is not None:
+        out_dir = os.path.join(out_dir, name)
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "profile_kernels.txt"), "w") as f:
+            f.write(ka.table(sort_by="cuda_time_total", row_limit=40))
+        with open(os.path.join(out_dir, "profile_stages.txt"), "w") as f:
+            for e in sorted(stages, key=lambda e: -e.cpu_time_total):
+                f.write(f"{e.key} calls={e.count} "
+                        f"host_ms_per_frame={e.cpu_time_total / 2e3:.3f} "
+                        f"device_ms_per_frame="
+                        f"{e.device_time_total / 2e3:.3f}\n")
     union, total, events = _busy_us(prof.events())
     busy_ms = union / 2e3
     # Device-to-host reads of a scalar (a march's "any ray live?" check,
@@ -3500,17 +3946,29 @@ def main(argv=None) -> int:
             phase_families()
         if scene is None:
             scene = build_flagship(device=cuda, **FULL, **kw)
-        launches[name], state, frame_ms[name] = phase_slice(
+        launches[name], state, frame_ms[name], k12_calls = phase_slice(
             name, scene, warmup, TIMED_FRAMES)
         if name == "slice":
-            kernel.update(phase_frame_points(field, state))
-        scene = state = None
+            kernel.update(phase_frame_points(field, state,
+                                             scene.raster_config))
+            kernel.update(phase_voxel_march_kernel(field, scene))
+        if name == "slice_family_march":
+            # The frame's first K12 call: the sphere pass's rays.
+            _cone_trace_row(kernel, "cone_trace_family", k12_calls[0],
+                            inputs="family_march_sphere")
+        scene = state = k12_calls = None
         torch.cuda.empty_cache()
     for name in RENDERER_FRAMES:
-        frame_ms[name] = phase_slice_renderer(name)
+        frame_ms[name], k12_call = phase_slice_renderer(name)
+        if k12_call is not None:
+            _cone_trace_row(kernel, "cone_trace_renderer", k12_call,
+                            inputs="renderer_march")
+        k12_call = None
         torch.cuda.empty_cache()
-    particle_launches, frame_ms["slice_particles"] = phase_slice_particles(
-        field, warmup)
+    particle_launches, frame_ms["slice_particles"], splat_args = \
+        phase_slice_particles(field, warmup)
+    _splat_row(kernel, "splat_particles", splat_args, inputs="particles")
+    splat_args = None
     torch.cuda.empty_cache()
     sprite_launches = {}
     for additive in (False, True):
@@ -3528,8 +3986,9 @@ def main(argv=None) -> int:
     del light_call
     torch.cuda.empty_cache()
     # Profiled after every slice is timed: a profiler session slows the
-    # launches that follow it in the process.
-    for name in SLICES if args.profile else ():
+    # launches that follow it in the process. The march cell's device busy
+    # time is measured in every run (its tables only with --profile).
+    for name in SLICES if args.profile else ("slice_family_march",):
         phase_profile(name, warmup, frame_ms[name], args.profile)
         torch.cuda.empty_cache()
     for name in RENDERER_FRAMES if args.profile else ():
@@ -3552,6 +4011,7 @@ def main(argv=None) -> int:
     phase_reference_models()
     phase_reference_particle_lights()
     phase_reference_probes()
+    phase_reference_march()
     # Each kernel at the heavier of the frame's calls: the query with the
     # unit gradient, the sampler with the derivative rows; the other calls
     # are in the [kernel] lines above. "ms" is one call of the wrapper the
@@ -3611,6 +4071,27 @@ def main(argv=None) -> int:
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": None})
+    # K12 at the new cell's sphere rays (its launches: the cell's timed
+    # frames; the renderer march's and the scan flagships' beside them);
+    # K5 at the voxel flagship's steady particles (launches: its timed
+    # frames; the particle and model cells' beside them).
+    for name, source, replaces, r, counts in (
+            ("cone_trace", "illuminant_tpu_torch/csrc/cone_trace.cu",
+             "illuminant_tpu/lighting/cone_trace.py:42",
+             kernel["cone_trace_family"],
+             dict(launches=launches["slice_family_march"]["cone_trace"],
+                  launches_family=launches["slice_family"]["cone_trace"])),
+            ("splat", "illuminant_tpu_torch/csrc/splat.cu",
+             "illuminant_tpu/raster/tiled.py:589", kernel["splat_flagship"],
+             dict(launches=launches["slice"]["splat"],
+                  launches_particles=particle_launches["splat"],
+                  launches_model=model_launches["splat"]))):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **counts, "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,348 @@
+// The port's distance fields as device functions: the exact trilinear
+// sample of an SdfVolume, the closed-form AnalyticScene (the five
+// obstruction primitives with their quaternion rotation, and the extruded
+// polygons of its height volumes), and the ColumnField reconstruction,
+// which is column_query.cuh's `column_distance` (shared with K7 and K10).
+// The cone-trace march (cone_trace.cu, K12) samples them once a step.
+//
+// Each function keeps the operation order of its plain PyTorch version:
+// sdf/sampling.py:sample, ops/sdf_primitives.py's planar forms (`*_p`)
+// through sdf/analytic.py:AnalyticScene.distance_p (or, above its unroll
+// limit, `_distance_vectorized`'s batched forms), and sdf/height_volume.py:
+// extruded_polygon_distance_p. Every file that includes this header is
+// compiled with -fmad=false, so products and sums round one by one as in
+// PyTorch; sqrtf and the division are IEEE.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "column_query.cuh"
+
+namespace illum_fields {
+
+__device__ __forceinline__ float clamp01(float x) {
+  return fminf(fmaxf(x, 0.0f), 1.0f);
+}
+
+// torch.sign: -1, 0 or 1.
+__device__ __forceinline__ float sgn(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// ---------------------------------------------------------------- volume
+
+// An SdfVolume: (S, H, W) float32 raw distances and the constants of
+// sdf/sampling.py:sample, float32 as PyTorch rounds its Python scalars.
+struct Volume {
+  const float* data;
+  const float* max_valid_z;  // the volume's 0-d tensor, on the device
+  float ex, ey, ez, z_offset, z_to_slice, scale_x, scale_y;
+  int slices, height, width;
+};
+
+__device__ __forceinline__ int clip_index(float fl, int n) {
+  // torch's .long() of a floor, then clamp(0, n - 1).
+  const int i = __float2int_rz(fl);
+  return min(max(i, 0), n - 1);
+}
+
+// sampling.sample: clamp into the box, bilinear xy on two slices, linear
+// z, plus the distance from the query to the box.
+__device__ __forceinline__ float volume_distance(const Volume& v, float px,
+                                                 float py, float pz_in) {
+  const float pz = pz_in - v.z_offset;
+  const float cx = fminf(fmaxf(px, 0.0f), v.ex);
+  const float cy = fminf(fmaxf(py, 0.0f), v.ey);
+  const float cz = fminf(fmaxf(pz, 0.0f), v.ez);
+  const float dx = -fminf(px, 0.0f) + fmaxf(px - v.ex, 0.0f);
+  const float dy = -fminf(py, 0.0f) + fmaxf(py - v.ey, 0.0f);
+  const float dz = -fminf(pz, 0.0f) + fmaxf(pz - v.ez, 0.0f);
+  const float to_volume = sqrtf(dx * dx + dy * dy + dz * dz);
+
+  const float slice_pos = fminf(cz, __ldg(v.max_valid_z)) * v.z_to_slice;
+  const float s0 = floorf(slice_pos);
+  const float sw = slice_pos - s0;
+  const int s0i = clip_index(s0, v.slices);
+  const int s1i = min(s0i + 1, v.slices - 1);
+
+  const float tx = cx * v.scale_x - 0.5f;
+  const float ty = cy * v.scale_y - 0.5f;
+  const float x0 = floorf(tx);
+  const float y0 = floorf(ty);
+  const float wx = tx - x0;
+  const float wy = ty - y0;
+  const int x0i = clip_index(x0, v.width);
+  const int x1i = min(x0i + 1, v.width - 1);
+  const int y0i = clip_index(y0, v.height);
+  const int y1i = min(y0i + 1, v.height - 1);
+
+  const long long plane = (long long)v.height * v.width;
+  float slab[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float* s = v.data + (k == 0 ? s0i : s1i) * plane;
+    const float v00 = __ldg(s + (long long)y0i * v.width + x0i);
+    const float v01 = __ldg(s + (long long)y0i * v.width + x1i);
+    const float v10 = __ldg(s + (long long)y1i * v.width + x0i);
+    const float v11 = __ldg(s + (long long)y1i * v.width + x1i);
+    const float top = v00 + (v01 - v00) * wx;
+    const float bot = v10 + (v11 - v10) * wx;
+    slab[k] = top + (bot - top) * wy;
+  }
+  return slab[0] + (slab[1] - slab[0]) * sw + to_volume;
+}
+
+// -------------------------------------------------------------- analytic
+
+enum PrimitiveType {
+  kEllipsoid = 1,
+  kBox = 2,
+  kCylinder = 3,
+  kSpheroid = 4,
+  kOctagon = 5
+};
+
+// One primitive record of 12 floats (analytic.py's type-grouped SoA,
+// flattened by the wrapper): type, rotated (0 / 1), center xyz, size
+// xyz, quaternion xyzw.
+constexpr int kPrimitiveRecord = 12;
+
+// Height volumes (sdf/height_volume.py:HeightVolumes): vertices and
+// next_vertices (P, E, 2), z_range (P, 2), active (P,).
+struct Polygons {
+  const float* vertices;
+  const float* next_vertices;
+  const float* z_range;
+  const float* active;
+  int count, edges;
+};
+
+struct Analytic {
+  const float* records;  // (n, kPrimitiveRecord)
+  int count;
+  // 1: `_distance_vectorized`'s batched forms (more primitives than the
+  // unroll limit); they differ from the planar ones in the octagon only.
+  int batched;
+  float maximum_distance;
+  Polygons polygons;  // count 0: none
+};
+
+__device__ __forceinline__ float len3(float x, float y, float z) {
+  return sqrtf(x * x + y * y + z * z + 1e-12f);
+}
+
+__device__ __forceinline__ float len2(float x, float y) {
+  return sqrtf(x * x + y * y + 1e-12f);
+}
+
+__device__ __forceinline__ float sd_box(float px, float py, float pz,
+                                        float sx, float sy, float sz) {
+  const float dx = fabsf(px) - sx;
+  const float dy = fabsf(py) - sy;
+  const float dz = fabsf(pz) - sz;
+  const float inside = fminf(fmaxf(dx, fmaxf(dy, dz)), 0.0f);
+  const float outside = len3(fmaxf(dx, 0.0f), fmaxf(dy, 0.0f),
+                             fmaxf(dz, 0.0f));
+  return inside + outside;
+}
+
+__device__ __forceinline__ float sd_ellipsoid(float px, float py, float pz,
+                                              float sx, float sy, float sz) {
+  sx = fmaxf(sx, 1e-6f);
+  sy = fmaxf(sy, 1e-6f);
+  sz = fmaxf(sz, 1e-6f);
+  const float k0 = len3(px / sx, py / sy, pz / sz);
+  const float k1 = len3(px / (sx * sx), py / (sy * sy), pz / (sz * sz));
+  const float rmin = fminf(sx, fminf(sy, sz));
+  const float near_ = (k0 - 1.0f) * rmin;
+  const float far_ = k0 * (k0 - 1.0f) / fmaxf(k1, 1e-12f);
+  return k0 < 1.0f ? near_ : far_;
+}
+
+// opElongate: q and the interior term w.
+__device__ __forceinline__ float elongate(float px, float py, float pz,
+                                          float hx, float hy, float hz,
+                                          float* qx, float* qy, float* qz) {
+  const float ax = fabsf(px) - hx;
+  const float ay = fabsf(py) - hy;
+  const float az = fabsf(pz) - hz;
+  const float w = fminf(fmaxf(ax, fmaxf(ay, az)), 0.0f);
+  *qx = sgn(px) * fmaxf(ax, 0.0f);
+  *qy = sgn(py) * fmaxf(ay, 0.0f);
+  *qz = sgn(pz) * fmaxf(az, 0.0f);
+  return w;
+}
+
+__device__ __forceinline__ float sd_spheroid(float px, float py, float pz,
+                                             float sx, float sy, float sz) {
+  const float ms = fminf(sx, fminf(sy, sz));
+  float qx, qy, qz;
+  const float w = elongate(px, py, pz, sx - ms, sy - ms, sz - ms, &qx, &qy,
+                           &qz);
+  return w + (len3(qx, qy, qz) - ms);
+}
+
+__device__ __forceinline__ float sd_cylinder(float px, float py, float pz,
+                                             float sx, float sy, float sz) {
+  const float r = len2(sx, sy);
+  const float d_xy = len2(px, py) - r;
+  const float d_z = fabsf(pz) - sz;
+  const float inside = fminf(fmaxf(d_xy, d_z), 0.0f);
+  const float outside = len2(fmaxf(d_xy, 0.0f), fmaxf(d_z, 0.0f));
+  return inside + outside;
+}
+
+// The octagon prism elongated over xy. The planar form (sd_octagon_p)
+// takes the 2D root with +1e-12 and sums (w + inside) + outside; the
+// batched one (sd_octagon) has no +1e-12 there and sums
+// w + (inside + outside).
+__device__ __forceinline__ float sd_octagon(float px, float py, float pz,
+                                            float sx, float sy, float sz,
+                                            bool batched) {
+  const float ms = fminf(sx, sy);
+  float qx, qy, qz;
+  const float w = elongate(px, py, pz, sx - ms, sy - ms, 0.0f, &qx, &qy,
+                           &qz);
+  const float kx = -0.9238795325f;
+  const float ky = 0.3826834323f;
+  const float kz = 0.4142135623f;
+  float ax = fabsf(qx);
+  float ay = fabsf(qy);
+  const float az = fabsf(qz);
+  const float m1 = 2.0f * fminf(kx * ax + ky * ay, 0.0f);
+  ax = ax - m1 * kx;
+  ay = ay - m1 * ky;
+  const float m2 = 2.0f * fminf(-kx * ax + ky * ay, 0.0f);
+  ax = ax - m2 * -kx;
+  ay = ay - m2 * ky;
+  ax = ax - fminf(fmaxf(ax, -kz * ms), kz * ms);
+  ay = ay - ms;
+  const float root = batched ? sqrtf(ax * ax + ay * ay)
+                             : sqrtf(ax * ax + ay * ay + 1e-12f);
+  const float dxo = root * sgn(ay);
+  const float dzo = az - sz;
+  const float inside = fminf(fmaxf(dxo, dzo), 0.0f);
+  const float outside = len2(fmaxf(dxo, 0.0f), fmaxf(dzo, 0.0f));
+  return batched ? w + (inside + outside) : w + inside + outside;
+}
+
+// rotateLocalPosition (rotate_by_quaternion_p).
+__device__ __forceinline__ void rotate(float* px, float* py, float* pz,
+                                       float qx, float qy, float qz,
+                                       float qw) {
+  const float x = *px, y = *py, z = *pz;
+  const float tx = 2.0f * (qy * z - qz * y);
+  const float ty = 2.0f * (qz * x - qx * z);
+  const float tz = 2.0f * (qx * y - qy * x);
+  *px = x + qw * tx + (qy * tz - qz * ty);
+  *py = y + qw * ty + (qz * tx - qx * tz);
+  *pz = z + qw * tz + (qx * ty - qy * tx);
+}
+
+// iq's signed polygon distance (polygon_sdf_2d_p) of polygon p.
+__device__ __forceinline__ float polygon_sdf(const Polygons& g, int p,
+                                             float px, float py) {
+  const float* a = g.vertices + (long long)p * g.edges * 2;
+  const float* b = g.next_vertices + (long long)p * g.edges * 2;
+  float dist2 = 0.0f;
+  int flips = 0;
+  for (int e = 0; e < g.edges; ++e) {
+    const float ax = __ldg(a + 2 * e), ay = __ldg(a + 2 * e + 1);
+    const float bx = __ldg(b + 2 * e), by = __ldg(b + 2 * e + 1);
+    const float ex = bx - ax, ey = by - ay;
+    const float wx = px - ax, wy = py - ay;
+    const float ee = fmaxf(ex * ex + ey * ey, 1e-12f);
+    const float t = clamp01((wx * ex + wy * ey) / ee);
+    const float qx = wx - ex * t;
+    const float qy = wy - ey * t;
+    const float q2 = qx * qx + qy * qy;
+    dist2 = e == 0 ? q2 : fminf(dist2, q2);
+    const bool c1 = py >= ay;
+    const bool c2 = py < by;
+    const bool c3 = ex * wy > ey * wx;
+    flips += ((c1 && c2 && c3) || (!c1 && !c2 && !c3)) ? 1 : 0;
+  }
+  const float odd = (float)(flips % 2);
+  return (1.0f - 2.0f * odd) * sqrtf(fmaxf(dist2, 0.0f));
+}
+
+// extruded_polygon_distance_p: the min over the volumes (1e9 for an
+// inactive one) of the finalEval composition with PolygonXyBias 1.5.
+__device__ __forceinline__ float polygons_distance(const Polygons& g,
+                                                   float x, float y,
+                                                   float z) {
+  float best = 0.0f;
+  for (int p = 0; p < g.count; ++p) {
+    const float distance_xy = polygon_sdf(g, p, x, y) + 1.5f;
+    const float z0 = __ldg(g.z_range + 2 * p);
+    const float z1 = __ldg(g.z_range + 2 * p + 1);
+    const bool inside_z = (z >= z0) && (z <= z1);
+    const float distance_z =
+        inside_z ? fmaxf(z - z1, z0 - z) : (z > z1 ? z - z1 : z0 - z);
+    float d = distance_xy <= 0.0f
+                  ? (distance_z <= 0.0f ? distance_xy + distance_z
+                                        : distance_z)
+                  : fmaxf(distance_xy, 0.0f) + fmaxf(distance_z, 0.0f);
+    d = __ldg(g.active + p) > 0.5f ? d : 1e9f;
+    best = p == 0 ? d : fminf(best, d);
+  }
+  return best;
+}
+
+// AnalyticScene.distance_p: maximum_distance min every primitive, then
+// the polygons.
+__device__ __forceinline__ float analytic_distance(const Analytic& s,
+                                                   float x, float y,
+                                                   float z) {
+  float d = s.maximum_distance;
+  const bool batched = s.batched != 0;
+  for (int i = 0; i < s.count; ++i) {
+    const float* r = s.records + (long long)i * kPrimitiveRecord;
+    const int type = (int)__ldg(r);
+    float px = x - __ldg(r + 2), py = y - __ldg(r + 3), pz = z - __ldg(r + 4);
+    if (__ldg(r + 1) > 0.5f) {
+      rotate(&px, &py, &pz, __ldg(r + 8), __ldg(r + 9), __ldg(r + 10),
+             __ldg(r + 11));
+    }
+    const float sx = __ldg(r + 5), sy = __ldg(r + 6), sz = __ldg(r + 7);
+    float di;
+    switch (type) {
+      case kEllipsoid:
+        di = sd_ellipsoid(px, py, pz, sx, sy, sz);
+        break;
+      case kBox:
+        di = sd_box(px, py, pz, sx, sy, sz);
+        break;
+      case kCylinder:
+        di = sd_cylinder(px, py, pz, sx, sy, sz);
+        break;
+      case kSpheroid:
+        di = sd_spheroid(px, py, pz, sx, sy, sz);
+        break;
+      default:
+        di = sd_octagon(px, py, pz, sx, sy, sz, batched);
+        break;
+    }
+    d = fminf(d, di);
+  }
+  if (s.polygons.count > 0) {
+    d = fminf(d, polygons_distance(s.polygons, x, y, z));
+  }
+  return d;
+}
+
+// ---------------------------------------------------------------- column
+
+struct Column {
+  const float* pack;  // columns_kernel.pack_maps of the 5 maps
+  int hc, wc;
+  illum_columns::Geometry g;
+};
+
+__device__ __forceinline__ float column_distance(const Column& c, float x,
+                                                 float y, float z) {
+  return illum_columns::column_distance(c.pack, c.hc, c.wc, c.g, x, y, z);
+}
+
+}  // namespace illum_fields

@@ -5,10 +5,14 @@ shaded point toward the light, shrinking visibility by the ratio of the
 scene distance to the local cone radius, with a step budget and early-out
 thresholds (fxh:141-191). It is the oracle the scan shadows are held to,
 and the `shadow_mode="march"` of the light accumulators and of
-`LightingRenderer.render_lighting` (its default). The JAX `while_loop`
-over the whole ray tensor becomes a Python loop of at most
-`max_step_count` steps that stops once no ray is live: one device-to-host
-read per step (its Hopper kernel is ROADMAP K12).
+`LightingRenderer.render_lighting` (its default).
+
+`cone_trace` dispatches by device: CUDA tensors go to the Hopper kernel
+K12 (`cone_trace_kernel.cone_trace_cuda`: one thread a ray, the field
+sampled in the kernel, no host read), CPU tensors to the plain version,
+`cone_trace_reference`, in which the JAX `while_loop` over the whole ray
+tensor becomes a Python loop of at most `max_step_count` steps that stops
+once no ray is live (one device-to-host read per step).
 
 Constants (ConeTrace.fxh:1-29):
 """
@@ -42,7 +46,26 @@ def cone_trace(volume, light_center, light_radius, light_ramp_length,
     light_ramp_length broadcastable tensors (...); enable (...) bool —
     disabled rays return 1.0 (fxh:190). `raw` returns the pre-threshold
     visibility min(vis, step window) (fxh:175-180), which the line
-    light's 3-ray average thresholds once (LineLightCore.fxh:52-65)."""
+    light's 3-ray average thresholds once (LineLightCore.fxh:52-65).
+    On the card one K12 launch; on the CPU `cone_trace_reference`."""
+    if volume is None or shaded_position.device.type == "cpu":
+        return cone_trace_reference(volume, light_center, light_radius,
+                                    light_ramp_length, shaded_position,
+                                    enable, quality, raw)
+    from .cone_trace_kernel import cone_trace_cuda
+
+    return cone_trace_cuda(volume, light_center, light_radius,
+                           light_ramp_length, shaded_position, enable,
+                           quality, raw)
+
+
+def cone_trace_reference(volume, light_center, light_radius,
+                         light_ramp_length, shaded_position, enable,
+                         quality: QualitySettings, raw: bool = False,
+                         with_steps: bool = False):
+    """The plain version of K12: the march as a loop over the whole ray
+    tensor, the arguments as `cone_trace`'s. `with_steps` also returns
+    each ray's steps left (float32), which the kernel can report too."""
     dev = shaded_position.device
     f32 = torch.float32
     light_radius = torch.as_tensor(light_radius, dtype=f32, device=dev)
@@ -53,7 +76,10 @@ def cone_trace(volume, light_center, light_radius, light_ramp_length,
                                    light_center.shape[:-1], enable.shape,
                                    light_radius.shape)
     if volume is None:
-        return torch.ones(shape, dtype=f32, device=dev)
+        ones = torch.ones(shape, dtype=f32, device=dev)
+        return (ones, torch.full(shape, float(quality.max_step_count),
+                                 dtype=f32, device=dev)) \
+            if with_steps else ones
 
     trace_vector = light_center - shaded_position
     trace_length = torch.sqrt(torch.clamp(
@@ -104,8 +130,11 @@ def cone_trace(volume, light_center, light_radius, light_ramp_length,
     # Ramp visibility to 0 when the step budget ran out (fxh:175-180).
     visibility = torch.minimum(vis, steps / MAX_STEP_RAMP_WINDOW)
     if raw:
-        return torch.where(enable, visibility, 1.0)
-    final = _saturate(_saturate(visibility - FULLY_SHADOWED_THRESHOLD)
-                      / (UNSHADOWED_THRESHOLD - FULLY_SHADOWED_THRESHOLD)) \
-        ** quality.occlusion_to_opacity_power
-    return torch.where(enable, final, 1.0)
+        out = torch.where(enable, visibility, 1.0)
+    else:
+        final = _saturate(
+            _saturate(visibility - FULLY_SHADOWED_THRESHOLD)
+            / (UNSHADOWED_THRESHOLD - FULLY_SHADOWED_THRESHOLD)) \
+            ** quality.occlusion_to_opacity_power
+        out = torch.where(enable, final, 1.0)
+    return (out, steps) if with_steps else out

@@ -11,10 +11,11 @@ mode, `scan_refine_samples=0`).
     `scan_refine_mode="exact"` on a ColumnField, which samples its
     volume) evaluates the field at each candidate's 3D point.
   * The carried refine (a ColumnField under "carried" / "carried_all",
-    the library default for voxel fields) has the walk also carry the
-    nominated blocker column's interval (h_top, h_bot) and the running
-    footprint minimum, and reconstructs the candidate distances
-    elementwise.
+    the library default for voxel fields, and an AnalyticScene under the
+    opt-in "carried_all", from `analytic.scene_column_images`) has the
+    walk also carry the nominated blocker column's interval (h_top,
+    h_bot) and the running footprint minimum, and reconstructs the
+    candidate distances elementwise.
 
 Deviations from the JAX package:
   * the column walk is a Python loop over columns in eager PyTorch (a
@@ -23,9 +24,9 @@ Deviations from the JAX package:
     walk outputs and the nominated fields in float16 and upsamples the
     visibility in bfloat16 (scan_shadows.py:343-347, 876-890, 933); with
     float32 the f16 range offsets it needs (`k_off`) are dropped;
-  * not ported: `carried_all` on an analytic scene (ROADMAP M3, its
-    `scene_column_images`), isotropic shadow scales other than 0.5 and
-    1 and visibility resizes other than 1x and 2x (ROADMAP M3).
+  * shadow scales other than 0.5 and 1 and visibility resizes other than
+    1x and 2x take `utils.image.resize_linear`, the port's copy of
+    jax.image.resize(..., "linear"), in float32.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ import torch
 
 from ..core.config import QualitySettings
 from ..core.pytree import named_scope
-from ..sdf.analytic import AnalyticScene, scene_sample_p
+from ..sdf.analytic import (AnalyticScene, scene_column_images,
+                            scene_sample_p)
 from ..sdf.columns import (ColumnField, reconstruct_profile,
                            resample_map_to_grid)
+from ..utils.image import resize_linear
 from .cone_trace import (FULLY_SHADOWED_THRESHOLD, HACK_DISTANCE_OFFSET,
                          MIN_CONE_RADIUS, UNSHADOWED_THRESHOLD)
 
@@ -211,12 +214,6 @@ def scan_visibility(scene, height: int, width: int, light_position,
     also keeps the exact per-candidate refine on a ColumnField;
     `light_active` (L,) 0/1 masks padded slots out of the default trace
     plane."""
-    if (isinstance(scene, AnalyticScene)
-            and quality.scan_refine_mode == "carried_all"
-            and quality.scan_refine_samples > 0):
-        raise NotImplementedError(
-            "scan_refine_mode='carried_all' on an AnalyticScene (ROADMAP "
-            "M3: scene_column_images)")
     f32 = torch.float32
     dev = light_position.device
     windowed_eval = world_offset is not None
@@ -253,18 +250,31 @@ def scan_visibility(scene, height: int, width: int, light_position,
     # Windowed evaluations keep the exact per-candidate sampling: their
     # grids are small, and the carried maps' grid quantization made
     # windowed lights resolution-dependent (scan_shadows.py:477-489).
-    use_cols = (isinstance(scene, ColumnField)
-                and quality.scan_refine_samples > 0
-                and quality.scan_refine_mode in ("carried", "carried_all")
-                and not windowed_eval)
+    want_carried = (quality.scan_refine_samples > 0
+                    and quality.scan_refine_mode in ("carried",
+                                                     "carried_all")
+                    and not windowed_eval)
+    use_cols = isinstance(scene, ColumnField) and want_carried
     if isinstance(scene, ColumnField) and \
             quality.scan_refine_mode == "exact":
         # The exact refine samples the underlying volume.
         scene = scene.volume
+    ana_cols = None
+    if (want_carried and isinstance(scene, AnalyticScene)
+            and quality.scan_refine_mode == "carried_all"):
+        # The analytic carried refine, an explicit opt-in: closed-form
+        # column images on the nomination grid (None for rotated groups,
+        # polygons or many primitives: those keep the exact refine).
+        ana_cols = scene_column_images(scene, nh, nw, nscale)
+        use_cols = ana_cols is not None
     if use_cols:
-        t_img = resample_map_to_grid(scene, scene.h_top, nh, nw, nscale)
-        b_img = resample_map_to_grid(scene, scene.h_bot, nh, nw, nscale)
-        f_img = resample_map_to_grid(scene, scene.flat_d, nh, nw, nscale)
+        if ana_cols is not None:
+            t_img, b_img, f_img = ana_cols
+        else:
+            t_img = resample_map_to_grid(scene, scene.h_top, nh, nw, nscale)
+            b_img = resample_map_to_grid(scene, scene.h_bot, nh, nw, nscale)
+            f_img = resample_map_to_grid(scene, scene.flat_d, nh, nw,
+                                         nscale)
         extra, extra_t = (t_img, b_img), (t_img.T, b_img.T)
         fp, fp_t = f_img, f_img.T
     else:
@@ -451,17 +461,15 @@ def _upsample_nominated(min_d, k_frac, exit_frac, halvings: int, extras=(),
 
 def resize_visibility(vis, target_hw):
     """Resize (L, h, w) visibility to (L, H, W): identity when the shapes
-    match, the 2x bilinear upsample for an exact halving. The JAX package
-    upsamples in bfloat16; the port keeps float32. Other ratios (the JAX
-    package's jax.image.resize fallback) are ROADMAP M3."""
+    match, the 2x bilinear upsample for an exact halving, otherwise
+    `resize_linear` (jax.image.resize's linear method). The JAX package
+    upsamples the 2x case in bfloat16; the port keeps float32."""
     th, tw = target_hw
     if tuple(vis.shape[1:]) == (th, tw):
         return vis
     if (vis.shape[1] * 2, vis.shape[2] * 2) == (th, tw):
         return upsample2x_bilinear(vis)
-    raise NotImplementedError(
-        f"visibility resize {tuple(vis.shape[1:])} -> {(th, tw)} "
-        "(ROADMAP M3)")
+    return resize_linear(vis, (vis.shape[0], th, tw))
 
 
 def downsample2x_linear(x, axis: int):
@@ -527,24 +535,26 @@ def scan_cone_visibility(scene, gbuffer, light_position, light_radius,
         sh, sw = h // 2, w // 2
     elif ss != 1.0:
         sh, sw = max(int(h * ss), 8), max(int(w * ss), 8)
-        if sh * w == sw * h:
-            raise NotImplementedError(
-                f"shadow_scale {ss} on a {h}x{w} buffer (ROADMAP M3: of the "
-                "isotropic scales only the exact halving and full "
-                "resolution are ported)")
-        # Anisotropic rounding (odd dims, the min-8 clamp) would give the
-        # two axes different scales; the scan's ray geometry assumes
-        # square pixels, so the JAX package falls back to full resolution.
-        sh, sw = h, w
+        if sh * w != sw * h:
+            # Anisotropic rounding (odd dims, the min-8 clamp) would give
+            # the two axes different scales; the scan's ray geometry
+            # assumes square pixels, so the JAX package falls back to full
+            # resolution.
+            sh, sw = h, w
     else:
         sh, sw = h, w
-    halve = (sh, sw) != (h, w)
 
     def resize(arr, axis):
-        """Exact 2x downsample of the two spatial axes from `axis`."""
-        if not halve:
+        """The two spatial axes from `axis` to (sh, sw): the exact 2x
+        downsample for a halving, `resize_linear` for other scales."""
+        ah, aw = arr.shape[axis], arr.shape[axis + 1]
+        if (ah, aw) == (sh, sw):
             return arr
-        return downsample2x_linear(downsample2x_linear(arr, axis), axis + 1)
+        if (ah, aw) == (2 * sh, 2 * sw):
+            return downsample2x_linear(downsample2x_linear(arr, axis),
+                                       axis + 1)
+        return resize_linear(arr, arr.shape[:axis] + (sh, sw)
+                             + arr.shape[axis + 2:])
 
     # Lifting then resizing equals resizing then lifting (both linear). A
     # scalar lift goes first (3 planes through the resize); an array lift

@@ -11,10 +11,10 @@ ramp, AOCommon.fxh:1-20, SphereLightCore.fxh:58-158 sequencing,
 LightCommon.fxh:212-222 specular) and sum into the lightmap as
 sum_l color_l.rgb * color_l.a * opacity_l (SphereLight.fx:42-45). The JAX
 package sums that contraction and the opacity from bfloat16 operands
-(sphere.py:366-370, :395); the port sums in float32. The march is the
-plain `cone_trace` loop, walked a few lights at a time so that its
-(lights, H, W, 3) ray tensors stay bounded (its Hopper kernel is ROADMAP
-K12).
+(sphere.py:366-370, :395); the port sums in float32. On the card the march
+is one launch of K12 for every (light, pixel) ray; on the CPU its plain
+loop walks a few lights at a time so that its (lights, H, W, 3) ray
+tensors stay bounded.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ DOT_OFFSET = 0.15  # LightCommon.fxh:1-10
 DOT_RAMP_RANGE = 0.15
 DOT_EXPONENT = 0.85
 
-# Rays (lights x pixels) one march call walks: the march holds some forty
-# float32 temporaries of that size and five of three times it, about 220
-# bytes a ray. 2 lights of a 1080 x 1920 frame.
+# Rays (lights x pixels) one call of the plain march walks: it holds some
+# forty float32 temporaries of that size and five of three times it, about
+# 220 bytes a ray. 2 lights of a 1080 x 1920 frame. K12 holds none.
 MARCH_CHUNK_RAYS = 1 << 22
 
 
@@ -323,12 +323,14 @@ def _march_visibility(volume, gbuffer: GBuffer, lights: SphereLights,
                       trace_enable, quality: QualitySettings):
     """The exact cone march of every (light, pixel) ray -> (L, H, W), from
     the shaded point lifted 1.6 along its normal (SphereLightCore.fxh:151).
-    The lights are walked MARCH_CHUNK_RAYS rays at a time, in light order:
-    each chunk's loop ends when its own last ray does."""
+    On the card one K12 launch marches every ray; on the CPU the plain
+    loop walks MARCH_CHUNK_RAYS rays at a time, in light order, each
+    chunk's loop ending when its own last ray does."""
     h, w = gbuffer.shape
     origin = (gbuffer.world_position()
               + SELF_OCCLUSION_HACK * gbuffer.normal)[None]
-    per_chunk = max(1, MARCH_CHUNK_RAYS // max(h * w, 1))
+    per_chunk = (max(1, lights.capacity) if origin.device.type == "cuda"
+                 else max(1, MARCH_CHUNK_RAYS // max(h * w, 1)))
     enable = trace_enable.expand(lights.capacity, h, w)
     parts = []
     for l0 in range(0, lights.capacity, per_chunk):

@@ -8,9 +8,13 @@ matmuls on the MXU, overlap-adding tile windows that reach `apron` pixels
 past their tile. The port computes the same additive image as a direct
 splat: each live on-screen particle adds color x wy(row) x wx(col) of the
 same coverage profile (`_profile`) to every pixel of its footprint that
-lies inside its tile's window. The sort-key packing, rgba8 / compact
-payloads, the int8 splat and the overflow level are TPU machinery and are
-not ported, so colors, positions and sizes stay float32 (the JAX fast
+lies inside its tile's window. `rasterize_tiled` dispatches by device: on
+the card one launch of the Hopper kernel K5 (`splat_kernel.splat_cuda`,
+one thread a particle over its own support, float atomics, no host
+read), on the CPU its plain version `rasterize_tiled_reference`. The
+sort-key packing, rgba8 / compact payloads, the int8 splat and the
+overflow level are TPU machinery and are not ported, so colors,
+positions and sizes stay float32 (the JAX fast
 preset quantizes them: tiled.py:544, 659, 693) and no particle is ever
 dropped for bin capacity. The parity preset (the round kernel with float
 colours, scenes.py:544-550) is the same splat with `kernel="round"`; the
@@ -33,6 +37,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from ..ops.coords import stipple_keep
 
 KERNEL_POINT = "point"
 KERNEL_QUAD = "quad"
@@ -104,29 +110,71 @@ def _support(kernel: str, radius: float) -> float:
     return radius + 0.5
 
 
-def rasterize_tiled(cfg: TiledRasterConfig, x, y, color, size, live):
+def rasterize_tiled(cfg: TiledRasterConfig, x, y, color, size, live,
+                    stipple_factor: float = 1.0):
     """Additive rasterization. x, y (N,) screen positions; color (N, >=C)
     premultiplied HDR; size (N,) quad edge in pixels; live (N,) bool.
     Returns (image (H, W, C) float32, {"dropped": 0}) with C =
-    cfg.channels.
+    cfg.channels. `stipple_factor` below 1 (or a tensor) keeps that
+    golden-ratio fraction of the slots (StippleReject,
+    RasterizeParticleSystem.fx:101-110, phase `cfg.stipple_offset`), a
+    mask on `live` before the splat.
+
+    On the card one K5 launch, no host read; on the CPU the plain
+    version."""
+    if not (isinstance(stipple_factor, (int, float))
+            and stipple_factor >= 1.0):
+        live = live & stipple_keep(x.shape[0], stipple_factor,
+                                   cfg.stipple_offset, device=x.device)
+    if x.device.type == "cpu":
+        return rasterize_tiled_reference(cfg, x, y, color, size, live)
+    from .splat_kernel import splat_cuda
+
+    return splat_cuda(cfg, x, y, color, size, live), dict(dropped=0)
+
+
+def rasterize_tiled_reference(cfg: TiledRasterConfig, x, y, color, size,
+                              live):
+    """The plain version of K5, `rasterize_tiled`'s splat in PyTorch.
 
     Live on-screen particles are gathered first and the footprint extent
     is read from their largest radius: two device-to-host reads per
     call."""
-    H, W, T, A = cfg.height, cfg.width, cfg.tile, cfg.apron
-    gy, gx = cfg.grid
+    H, W = cfg.height, cfg.width
     ch = cfg.channels
-    dev = x.device
-    onscreen = ((x > -(A + 1.0)) & (x < W + A + 1.0)
-                & (y > -(A + 1.0)) & (y < H + A + 1.0))
-    sel = torch.nonzero(live & onscreen).squeeze(1)
-    img = torch.zeros((H * W, ch), dtype=torch.float32, device=dev)
+    sel, x, y, radius = _splat_selection(cfg, x, y, size, live)
+    img = torch.zeros((H * W, ch), dtype=torch.float32, device=x.device)
     if sel.numel() == 0:
         return img.reshape(H, W, ch), dict(dropped=0)
-    x, y, rgb = x[sel], y[sel], color[sel, :ch]
-    radius = torch.clamp(size[sel] * 0.5, 0.5, A + 0.5)
+    rgb = color[sel, :ch]
+    (px, wx), (py, wy) = _footprints(cfg, x, y, radius)
+    for j in range(wy.shape[1]):
+        w = wy[:, j:j + 1] * wx                                # (n, 2k+1)
+        idx = py[:, j:j + 1] * W + px
+        img.index_add_(0, idx.reshape(-1),
+                       (w[..., None] * rgb[:, None, :]).reshape(-1, ch))
+    return img.reshape(H, W, ch), dict(dropped=0)
+
+
+def _splat_selection(cfg: TiledRasterConfig, x, y, size, live):
+    """The live on-screen particles (a `nonzero`, one host read) -> (their
+    indices, x, y, radius clip(size / 2, 0.5, apron + 0.5))."""
+    A = cfg.apron
+    onscreen = ((x > -(A + 1.0)) & (x < cfg.width + A + 1.0)
+                & (y > -(A + 1.0)) & (y < cfg.height + A + 1.0))
+    sel = torch.nonzero(live & onscreen).squeeze(1)
+    return sel, x[sel], y[sel], torch.clamp(size[sel] * 0.5, 0.5, A + 0.5)
+
+
+def _footprints(cfg: TiledRasterConfig, x, y, radius):
+    """Each particle's footprint taps on both axes: ((pixel x, wx), (pixel
+    y, wy)), (n, 2k + 1) each, k sized by the largest radius (an `amax`,
+    one host read); a tap outside the particle's tile window has weight 0
+    and a pixel clamped into the image."""
+    T, A = cfg.tile, cfg.apron
+    gy, gx = cfg.grid
     k = int(math.ceil(_support(cfg.kernel, float(torch.amax(radius))))) + 1
-    offsets = torch.arange(-k, k + 1, device=dev)
+    offsets = torch.arange(-k, k + 1, device=x.device)
 
     def axis(p, g, extent):
         """Footprint pixels of each particle along one axis, their
@@ -143,14 +191,26 @@ def rasterize_tiled(cfg: TiledRasterConfig, x, y, color, size, live):
         return (torch.clamp(pix, 0, extent - 1),
                 torch.where(inside, w, 0.0))
 
-    px, wx = axis(x, gx, W)
-    py, wy = axis(y, gy, H)
-    for j in range(offsets.shape[0]):
-        w = wy[:, j:j + 1] * wx                                # (n, 2k+1)
-        idx = py[:, j:j + 1] * W + px
-        img.index_add_(0, idx.reshape(-1),
-                       (w[..., None] * rgb[:, None, :]).reshape(-1, ch))
-    return img.reshape(H, W, ch), dict(dropped=0)
+    return axis(x, gx, cfg.width), axis(y, gy, cfg.height)
+
+
+def splat_terms(cfg: TiledRasterConfig, x, y, size, live):
+    """(H, W) int64: how many particles add a nonzero term to each pixel
+    in the splat (its footprints' nonzero taps), the count a float sum
+    over the pixel rounds. The library never calls it: it serves K5's
+    checks, whose tolerance it sizes and whose operation bound it counts
+    (chip_smoke.py, the card tests)."""
+    H, W = cfg.height, cfg.width
+    sel, x, y, radius = _splat_selection(cfg, x, y, size, live)
+    count = torch.zeros(H * W, dtype=torch.int64, device=x.device)
+    if sel.numel() == 0:
+        return count.reshape(H, W)
+    (px, wx), (py, wy) = _footprints(cfg, x, y, radius)
+    for j in range(wy.shape[1]):
+        nonzero = (wy[:, j:j + 1] * wx) != 0.0
+        count.index_add_(0, (py[:, j:j + 1] * W + px).reshape(-1),
+                         nonzero.reshape(-1).to(torch.int64))
+    return count.reshape(H, W)
 
 
 def bin_footprints(cfg: TiledRasterConfig, x, y, live, support_size=None):

@@ -13,7 +13,8 @@ two presets:
     Gaussian glow; preset="parity": full-resolution shadows with quarter-
     resolution nomination, three collision substeps, the round kernel.
 On that field the frame runs
-  * 8 sphere lights with scan shadows over a flat G-buffer, radius pulse
+  * 8 sphere lights with scan shadows (or, `shadow_mode="march"`, the
+    exact cone march: K12 on the card) over a flat G-buffer, radius pulse
     and orbit animated by beziers;
   * a 1M-particle system: bezier-path spawner, gravity attractors, SDF
     collision against the moving occluders;
@@ -22,9 +23,10 @@ On that field the frame runs
 With `full_family` (True, or a set of family names) the frame also shades
 the full "Lumined scene" light set (scenes.py:259-372, 593-799): a
 directional sun and a line light whose shadows ride the sphere lights'
-scan as extra lanes, a shadowed volumetric light and a projector
-evaluated on windows, and particle lights from the incoming particle
-state.
+scan as extra lanes (under the march, the sun marches and the line light
+takes its own scan, as in the JAX frame), a shadowed volumetric light
+and a projector evaluated on windows, and particle lights from the
+incoming particle state.
 
 JAX's jit, buffer donation and fori_loop have no counterpart here: `frame`
 runs the stages eagerly, and `frame_loop` is a Python loop over `frame`.
@@ -151,8 +153,9 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
     if spawn_sub_rings != 1:
         raise _unported(f"spawn_sub_rings={spawn_sub_rings} (the spawner's "
                         "per-device sub-rings)", "M15")
-    if shadow_mode != "scan":
-        raise _unported(f"shadow_mode={shadow_mode!r}", "K12")
+    if shadow_mode not in ("scan", "march", "none"):
+        raise ValueError(f"unknown shadow_mode {shadow_mode!r} (expected "
+                         "'scan', 'march' or 'none')")
     if raster_preset not in (None, preset):
         raise _unported(f"raster_preset={raster_preset!r} under "
                         f"preset={preset!r} (the mixed presets)", "M8")
@@ -288,7 +291,7 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
         su=system.system_uniforms(DT), rd=system.render_data,
         grav_u=grav.uniforms(0.0, device=device),
         spawn_u=spawner.uniforms(0.0, device=device), spawner=spawner,
-        raster_config=raster_config, extra=extra)
+        raster_config=raster_config, extra=extra, shadow_mode=shadow_mode)
     return FlagshipScene(
         config=config, environment=env, sdf_config=sdf_config,
         volume=volume, gbuffer=gbuffer, sphere_lights=sphere_lights,
@@ -456,7 +459,7 @@ class _FlagshipFrame:
 
     def __init__(self, *, device, cx, cy, ring, config, animate_field,
                  substeps, su, rd, grav_u, spawn_u, spawner, raster_config,
-                 extra=None):
+                 extra=None, shadow_mode="scan"):
         f32 = torch.float32
         self.device = device
         self.quality = config.quality
@@ -469,6 +472,10 @@ class _FlagshipFrame:
         self.spawner = spawner
         self.raster_config = raster_config
         self.extra = extra
+        # "scan": the sphere lights' radial scan, fused with the sun's and
+        # the line light's lanes; "march": the exact cone march (K12 on
+        # the card) for the sphere lights and the sun.
+        self.shadow_mode = shadow_mode
         self.light_radius_bezier = pack_bezier(
             [[10.0], [16.0], [11.0], [10.0]], min_value=0.0, max_value=2.0,
             device=device)
@@ -514,10 +521,10 @@ class _FlagshipFrame:
         Returns (sphere, directional, line) visibilities, the first at the
         G-buffer's resolution, the others at the scan's; None for a
         family that is absent, all None when neither extra family
-        scans."""
+        scans or the frame does not run the scan (scenes.py:604)."""
         extra = self.extra or {}
         fuse_dir, fuse_line = "directional" in extra, "line" in extra
-        if not (fuse_dir or fuse_line):
+        if not (fuse_dir or fuse_line) or self.shadow_mode != "scan":
             return None, None, None
         f32 = torch.float32
         dev = self.device
@@ -574,20 +581,24 @@ class _FlagshipFrame:
         ex = torch.zeros(gb_ex.shape + (3,), dtype=torch.float32,
                          device=self.device)
         if "directional" in extra:
+            # The fused scan's visibility, or without it the standalone
+            # march (scenes.py:731-734).
             with rf("illuminant/lighting/directional"):
                 ex = ex + accumulate_directional_lights(
                     field, gb_ex, extra["directional"], env_u, quality,
-                    shadow_mode="scan",
-                    scan_visibility_precomputed=resize_visibility(
-                        dir_vis, gb_ex.shape),
+                    shadow_mode="march" if dir_vis is None else "scan",
+                    scan_visibility_precomputed=None if dir_vis is None
+                    else resize_visibility(dir_vis, gb_ex.shape),
                     with_ao=extra["directional_ao"])[..., :3]
         if "line" in extra:
+            # The fused scan's visibility, or without it the line light's
+            # own scan, as in the JAX frame.
             with rf("illuminant/lighting/line"):
                 ex = ex + accumulate_line_lights(
                     field, gb_ex, extra["line"], env_u, quality,
                     shadow_mode="scan",
-                    scan_visibility_precomputed=resize_visibility(
-                        line_vis, gb_ex.shape),
+                    scan_visibility_precomputed=None if line_vis is None
+                    else resize_visibility(line_vis, gb_ex.shape),
                     with_ao=extra["line_ao"])[..., :3]
         if "volumetric" in extra:
             vl = extra["volumetric"]
@@ -623,7 +634,7 @@ class _FlagshipFrame:
                 field, gbuffer, lights, env_u)
         lightmap = ambient + accumulate_sphere_lights(
             field, gbuffer, lights, env_u, self.quality,
-            with_specular=False, shadow_mode="scan", with_ao=False,
+            with_specular=False, shadow_mode=self.shadow_mode, with_ao=False,
             with_alpha=False, scan_visibility_precomputed=sphere_vis)
         if not self.extra:
             return lightmap

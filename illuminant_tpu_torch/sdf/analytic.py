@@ -18,10 +18,11 @@ Counterpart of illuminant_tpu/sdf/analytic.py:
     `sampling.sample_grid`, never to the column kernel; scattered queries
     on a ColumnField go to the fused column query (`columns.query`), one
     launch each on the card.
+  * `scene_column_images`: closed-form column-interval images of the
+    scene on a pixel-center grid, which the opt-in `carried_all` scan
+    refine carries (lighting/scan_shadows.py).
 Not ported: the TPU dispatch gates `set_interp_dispatch` / `_use_interp`
-(the port has no MXU interpolation path to gate) and
-`scene_column_images`, which only the opt-in `carried_all` refine reads
-(ROADMAP M3).
+(the port has no MXU interpolation path to gate).
 """
 
 from __future__ import annotations
@@ -339,6 +340,80 @@ def scene_sample_grad_p(field, x, y, z):
     if not isinstance(field, ColumnField):
         return None
     return column_query(field, x, y, z, want_grad=True, normalize=True)
+
+
+def scene_column_images(field: AnalyticScene, nh: int, nw: int, nscale):
+    """Closed-form column-interval images (h_top, h_bot, footprint) of an
+    analytic scene on an (nh, nw) pixel-center grid (centers at
+    (i + 0.5) / nscale world units, the convention of
+    `columns.resample_map_to_grid`), or None when the scene has content
+    without a column form: rotated groups, polygons, no primitive, or
+    more than the unroll limit (illuminant_tpu/sdf/analytic.py:461-600).
+
+    Boxes, cylinders and octagon prisms are z-extruded ([cz - sz,
+    cz + sz]); ellipsoids and spheroids take per-column caps from their
+    cross-section. Overlapping columns merge into one interval (min
+    bottom, max top); an empty column carries the footprint-nearest
+    primitive's interval. The footprint image is the min over the
+    primitives of their centre-plane cross-section distance. The JAX
+    package's `world_offset` is left out: a windowed scan keeps the exact
+    refine and never asks for column images (lighting/scan_shadows.py)."""
+    counts = field._counts()
+    if sum(counts) == 0 or sum(counts) > field._UNROLL_LIMIT:
+        return None
+    if field.polygons is not None or any(field.group_rotated):
+        return None
+    if any(t not in sp.KNOWN_TYPES for t in field.group_types):
+        return None
+    f32 = torch.float32
+    dev = field.centers[0].device
+    xs = (torch.arange(nw, dtype=f32, device=dev) + 0.5) / nscale
+    ys = (torch.arange(nh, dtype=f32, device=dev) + 0.5) / nscale
+    xg = xs[None, :]
+    yg = ys[:, None]
+
+    big_h = 4096.0  # the neutral fill of scan_shadows._upsample_nominated
+    t_occ = torch.full((nh, nw), -big_h, dtype=f32, device=dev)
+    b_occ = torch.full((nh, nw), big_h, dtype=f32, device=dev)
+    best_f = torch.full((nh, nw), _FAR, dtype=f32, device=dev)
+    best_t = torch.full((nh, nw), big_h, dtype=f32, device=dev)
+    best_b = torch.full((nh, nw), -big_h, dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    for gi, type_id in enumerate(field.group_types):
+        centers, sizes = field.centers[gi], field.sizes[gi]
+        fn = sp.PLANAR_EVALUATORS[type_id]
+        for i in range(counts[gi]):
+            px = xg - centers[i, 0]
+            py = yg - centers[i, 1]
+            sx, sy, sz = sizes[i, 0], sizes[i, 1], sizes[i, 2]
+            # The footprint: the cross-section at the centre plane.
+            f2 = fn(px, py, zero, sx, sy, sz)
+            cz = centers[i, 2]
+            if type_id in (sp.TYPE_BOX, sp.TYPE_CYLINDER, sp.TYPE_OCTAGON):
+                half = sz.expand(f2.shape)
+            elif type_id == sp.TYPE_ELLIPSOID:
+                sxs = torch.clamp(sx, min=1e-6)
+                sys_ = torch.clamp(sy, min=1e-6)
+                rr = (px / sxs) ** 2 + (py / sys_) ** 2
+                half = sz * torch.sqrt(torch.clamp(1.0 - rr, min=0.0))
+            else:  # spheroid: a rounded box's cross-section along z
+                ms = torch.minimum(sx, torch.minimum(sy, sz))
+                ax = torch.clamp(torch.abs(px) - (sx - ms), min=0.0)
+                ay = torch.clamp(torch.abs(py) - (sy - ms), min=0.0)
+                half = (sz - ms) + torch.sqrt(
+                    torch.clamp(ms * ms - (ax * ax + ay * ay), min=0.0))
+            occupied = f2 < 0.0
+            ti = cz + half
+            bi = cz - half
+            t_occ = torch.where(occupied, torch.maximum(t_occ, ti), t_occ)
+            b_occ = torch.where(occupied, torch.minimum(b_occ, bi), b_occ)
+            nearer = f2 < best_f
+            best_t = torch.where(nearer, ti, best_t)
+            best_b = torch.where(nearer, bi, best_b)
+            best_f = torch.minimum(best_f, f2)
+    any_occ = t_occ > -big_h
+    return (torch.where(any_occ, t_occ, best_t),
+            torch.where(any_occ, b_occ, best_b), best_f)
 
 
 def scene_normal_p(field, x, y, z, fast: bool = False):

@@ -789,15 +789,17 @@ def test_precomputed_visibility_matches_jax(fields, family, field):
 
 
 def test_unported_shadow_scale_raises(fields):
-    """An isotropic shadow scale other than 0.5 and 1 needs the linear
-    resize, which is not ported."""
-    _, ft = fields
-    _, gt = _gbuffers("flat")
-    with pytest.raises(NotImplementedError, match="ROADMAP M3"):
-        tscan.scan_cone_visibility(
-            ft["analytic"], gt, torch.as_tensor(SCAN_LIGHTS),
-            torch.as_tensor(SCAN_RADIUS), torch.as_tensor(SCAN_RAMP),
-            QualitySettings(shadow_scale=0.25))
+    """An isotropic shadow scale other than 0.5 and 1 (it raised until the
+    port had the linear resize, `utils.image.resize_linear`): the scan at
+    quarter resolution on the analytic field, resized back, matches the
+    JAX package's under the bound of
+    test_scan_cone_visibility_arguments_match_jax."""
+    out, ref = _scan_pair(fields, "analytic", "tilted", trace_z=12.0,
+                          quality_kw=dict(shadow_scale=0.25))
+    assert out.shape == ref.shape == (3, H, W) and np.isfinite(out).all()
+    d = np.abs(out - ref).mean(axis=(1, 2))
+    assert (d <= 0.01).all(), d
+    assert ((ref < 0.5).mean(axis=(1, 2)) > 0.005).all()
 
 
 def test_trace_budget_lights_far_blockers(fields):

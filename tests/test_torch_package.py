@@ -22,7 +22,8 @@ NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
     "lighting.tiled_lights_kernel", "lighting.probes",
     "lighting.spherical_harmonics", "utils.jumpflood", "utils.mapgen",
     "utils.visualize", "models.parameter", "models.model", "models.view",
-    "models.codegen", "models.editor")]
+    "models.codegen", "models.editor", "lighting.cone_trace_kernel",
+    "raster.splat_kernel")]
 
 
 def test_import_leaves_jax_out():
@@ -53,12 +54,16 @@ def test_kernel_modules_load_nothing_at_import():
         "import illuminant_tpu_torch.raster.tile_kernel as t\n"
         "import illuminant_tpu_torch.sdf.columns_kernel as c\n"
         "import illuminant_tpu_torch.lighting.tiled_lights_kernel as k\n"
+        "import illuminant_tpu_torch.lighting.cone_trace_kernel as m\n"
+        "import illuminant_tpu_torch.raster.splat_kernel as s\n"
         "import illuminant_tpu_torch.raster.render\n"
         "import illuminant_tpu_torch.lighting.particle_light\n"
         "from illuminant_tpu_torch.core.cuda_build import BUILD_LOGS\n"
         "assert t._lib is None, 'tile_raster'\n"
         "assert k._lib is None and k.LAUNCHES == 0, 'tiled_lights'\n"
         "assert c._lib is None, 'column_maps'\n"
+        "assert m._lib is None and m.LAUNCHES == 0, 'cone_trace'\n"
+        "assert s._lib is None and s.LAUNCHES == 0, 'splat'\n"
         "assert not BUILD_LOGS\n"
         "assert t.COMPOSITE_LAUNCHES == t.ACCUMULATE_LAUNCHES == 0\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -73,14 +78,15 @@ def test_quality_rejects_unknown_refine_mode():
         QualitySettings(scan_refine_mode="carry")
 
 
-# Both fields, both presets and the extra light families are ported. A
-# raster preset other than the frame's own, a collision substep count
-# outside 1-3 and the march are not, also with the families on.
+# Both fields, both presets, the extra light families and the march are
+# ported. A raster preset other than the frame's own, a collision substep
+# count outside 1-3, the mesh and the spawner's sub-rings are not, also
+# with the families and the march on.
 @pytest.mark.parametrize("kwargs", [
     dict(raster_preset="parity"),
     dict(preset="parity", raster_preset="fast"),
-    dict(full_family=True, shadow_mode="march"),
-    dict(mesh=object()), dict(shadow_mode="march"),
+    dict(full_family=True, shadow_mode="march", collision_substeps=4),
+    dict(mesh=object()), dict(shadow_mode="march", raster_preset="parity"),
     dict(collision_substeps=0), dict(spawn_sub_rings=2),
     dict(collision_substeps=4),
 ])
@@ -90,6 +96,12 @@ def test_unported_arguments_raise(kwargs):
     kw.update(kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_flagship(**kw)
+
+
+def test_unknown_shadow_mode_raises():
+    with pytest.raises(ValueError, match="unknown shadow_mode"):
+        build_flagship(height=32, width=48, capacity=64, spawn_max=16,
+                       n_lights=2, shadow_mode="marsh")
 
 
 @pytest.mark.parametrize("families", [{"nope"}, ("line", "sun"), "line"])

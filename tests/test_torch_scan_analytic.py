@@ -327,11 +327,15 @@ def test_integrate_on_analytic_scene_matches_jax(substeps):
     dict(quality=QualitySettings(scan_refine_mode="carried_all")),
 ])
 def test_unported_scan_options_raise(scenes, kwargs):
-    """The analytic carried refine (scene_column_images) is not ported; it
-    raises."""
-    _, scene_t = scenes
+    """The analytic carried refine (`scene_column_images`; it raised
+    until the port had it) runs on the box scene and matches the JAX
+    package under test_scan_visibility_matches_jax's bound."""
+    scene_j, scene_t = scenes
     kw = {"quality": QualitySettings(), "trace_z": TRACE_Z, **kwargs}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scan.scan_visibility(scene_t, 32, 32, torch.as_tensor(LIGHT),
-                             torch.tensor([RADIUS]), torch.tensor([RAMP]),
-                             **kw)
+    out = scan.scan_visibility(scene_t, H, W, torch.as_tensor(LIGHT),
+                               torch.tensor([RADIUS]), torch.tensor([RAMP]),
+                               **kw)[0].numpy()
+    ref = _jax_scan(scene_j, JQuality(scan_refine_mode="carried_all"))
+    d = np.abs(out - ref)
+    assert d.mean() <= 0.01, d.mean()
+    assert (ref < 0.05).mean() > 0.01
