@@ -171,10 +171,16 @@ The march and the splat (`csrc/cone_trace.cu`: K12, every cone march;
     reads a frame and K12 once a light pass under the march; the
     particle and model cells 0 reads a render;
   * `[kernel] name=cone_trace` on renderer-voxel-march's rays
-    (SdfVolume), the march cell's sphere rays (AnalyticScene) and the
-    voxel flagship's ColumnField; `[kernel] name=splat` on the voxel
-    flagship's and the particle cell's particles; each against its plain
-    version, timed beside its bound;
+    (SdfVolume, read from its packed taps: `[kernel] name=volume_pack`,
+    bit for bit, once a new volume), the march cell's sphere, sun and
+    projector rays (AnalyticScene) and the voxel flagship's ColumnField;
+    `[kernel] name=splat` (three launches a splat) on the voxel
+    flagship's, the particle cell's and the model's sparks' particles
+    and on a clustered cloud (`clustered_cloud`: 16,384 of 131,072 in
+    one tile); each against its plain version, timed beside its bound;
+    the `[build]` line of K12 gives the SASS instructions of each
+    instance's march loop body (`march_loop_sass`, from `cuobjdump
+    -sass`) and each kernel's registers and spills;
   * `reference_march`: the march flagship at 96 x 160 on both fields,
     with and without the families, a `carried_all` frame and one at
     `shadow_scale=0.25`, card against CPU.
@@ -192,10 +198,13 @@ particles; 131,072 in the sprite cells and in each model system); the
 default times it at 20k-33k (1,024-5,120 in the sprite cells, 5,632 a
 model system).
 
-`--parent DIR` builds the tile kernels and K10 of another checkout at DIR
-(an earlier commit unpacked with `git archive`) and times them beside
-these in the `[kernel]` rows of the sprite kernels and of K10, on the same
-inputs, in turns (parent_ms).
+`--parent DIR` builds the tile kernels, K10, K5 and K12 of another
+checkout at DIR (an earlier commit unpacked with `git archive`), holds
+K5's and K12's outputs to the same plain versions and gates, and times
+them beside these in the `[kernel]` rows of the sprite kernels, K10, K5
+and K12, on the same inputs, in turns (parent, this, this, parent:
+parent_ms, parent_share_of_bound); the parent K12's march loop SASS is
+printed on its `[build]` line.
 
 `--profile DIR` additionally traces two frames of each slice and of each
 renderer frame with
@@ -214,6 +223,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -267,6 +278,9 @@ TIMED_FRAMES = 4
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 KERNEL_REPS = 100
+# The earlier checkout's kernel modules under `--parent` ("splat",
+# "cone_trace"), which the [kernel] rows of K5 and K12 time beside these.
+PARENT = {}
 
 
 def say(phase: str, **fields):
@@ -303,6 +317,107 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+
+
+def sass_functions(library) -> dict:
+    """{mangled kernel name: [(address, instruction text)]} from
+    `cuobjdump -sass` of a built library."""
+    proc = subprocess.run([cuobjdump(), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120)
+    return parse_sass(proc.stdout)
+
+
+def parse_sass(text: str) -> dict:
+    funcs, ins = {}, None
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith("Function :"):
+            ins = funcs.setdefault(s.split(":", 1)[1].strip(), [])
+        elif ins is not None and s.startswith("/*") and "*/" in s:
+            head, _, rest = s[2:].partition("*/")
+            body = rest.split("/*")[0].strip().rstrip(";").strip()
+            if body and re.fullmatch(r"[0-9a-fA-F]+", head):
+                ins.append((int(head, 16), body))
+    return funcs
+
+
+def sass_loops(library, text=None) -> dict:
+    """For each kernel of a built library (or of `cuobjdump -sass` output
+    `text`): its SASS instruction count, and its loops as the address
+    spans of its backward branches (a `BRA` to an address at or before
+    its own), outermost first, each with the instructions it spans. A
+    march kernel's outermost loop is the march loop; its body's count is
+    the static number of instructions a step issues (a primitive or edge
+    loop nested in it counts once)."""
+    funcs = parse_sass(text) if text is not None else sass_functions(library)
+    out = {}
+    for name, ins in funcs.items():
+        spans = []
+        for addr, body in ins:
+            words = body.replace(",", " ").split()
+            op = words[1] if words[0].startswith("@") and len(words) > 1 \
+                else words[0]
+            if op.split(".")[0] != "BRA" or not words[-1].startswith("0x"):
+                continue
+            first = int(words[-1], 16)
+            if first <= addr:
+                spans.append(dict(first=first, last=addr, instructions=sum(
+                    1 for a, _ in ins if first <= a <= addr)))
+        spans.sort(key=lambda s: s["first"] - s["last"])
+        out[name] = dict(instructions=len(ins), loops=spans)
+    return out
+
+
+def march_loop_sass(library, text=None) -> dict:
+    """{field instance: instructions of K12's march loop body} of a built
+    cone_trace library (`sass_loops`: each instance's outermost loop),
+    with the loops nested in it."""
+    kinds = {"ILi0E": "volume", "ILi1E": "analytic", "ILi2E": "column",
+             "ILi3E": "analytic_global"}
+    out = {}
+    for name, info in sass_loops(library, text).items():
+        if "cone_trace_kernel" not in name or not info["loops"]:
+            continue
+        kind = next((v for k, v in kinds.items() if k in name), name)
+        outer = info["loops"][0]
+        inner = [s["instructions"] for s in info["loops"][1:]
+                 if outer["first"] <= s["first"] and
+                 s["last"] <= outer["last"]]
+        out[kind] = dict(loop=outer["instructions"], nested=inner,
+                         kernel=info["instructions"])
+    return out
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: "registers / spill stores / spill loads"} from a `-Xptxas
+    -v` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    short = {}
+    for name, v in out.items():
+        m = re.search(r"([a-z_]+_kernel)(?:ILi(\d)E)?", name)
+        short[m.group(1) + (f"<{m.group(2)}>" if m and m.group(2) else "")
+              if m else name] = v
+    return short
+
+
 def phase_build():
     """Build every kernel library from the checkout's sources, one nvcc
     for each source, all started together."""
@@ -326,8 +441,15 @@ def phase_build():
         secs = dict(zip(mods, pool.map(timed, mods.values())))
     for name, mod in mods.items():
         log = BUILD_LOGS.get(mod._LIBRARY, "").strip().replace("\n", " | ")
+        extra = {}
+        if name == "cone_trace":
+            # K12's yardstick: the SASS instructions of each instance's
+            # march loop body, and every instance's registers and spills.
+            extra = dict(march_loop_sass=json.dumps(
+                march_loop_sass(mod._LIBRARY)), ptxas_all=json.dumps(
+                    ptxas_summary(BUILD_LOGS.get(mod._LIBRARY, ""))))
         say("build", kernel=name, seconds=f"{secs[name]:.2f}",
-            ptxas=json.dumps(log[-400:]))
+            ptxas=json.dumps(log[-400:]), **extra)
 
 
 def _slice_field(device):
@@ -578,12 +700,28 @@ def splat_work(cfg, x, y, color, size, live, terms):
     return nbytes, float(terms.sum()) * (1 + 2 * ch) + profiles * prof
 
 
+def _in_turns(call, parent_call, bound_ms) -> tuple:
+    """(ms, the parent's fields): `call` timed alone, or with a parent
+    call in turns (parent, this, this, parent), each the least of its
+    two."""
+    if parent_call is None:
+        return device_ms(call, KERNEL_REPS), {}
+    times = [device_ms(f, KERNEL_REPS)
+             for f in (parent_call, call, call, parent_call)]
+    ms, old_ms = min(times[1:3]), min(times[0], times[3])
+    return ms, dict(parent_ms=f"{old_ms:.4f}",
+                    parent_share_of_bound=f"{bound_ms / old_ms:.3f}",
+                    turns=json.dumps([round(v, 4) for v in times]))
+
+
 def _splat_row(rec, key, args, **fields):
     """K5 on a recorded call (cfg, x, y, color, size, live) against its
     plain version on the same inputs (max |d| within n_max x 2^-23 x the
     image's largest value: each pixel's sum of n terms reordered by the
     atomics, n_max from `tiled.splat_terms`), both timed, beside the
-    bound; one [kernel] line, the record under rec[key]."""
+    bound; with `--parent` the earlier commit's K5 too (held to the same
+    bound, timed in turns); one [kernel] line with the accumulation's
+    block and the largest tile's count, the record under rec[key]."""
     from illuminant_tpu_torch.raster import splat_kernel, tiled
 
     cfg, x, y, color, size, live = args
@@ -597,15 +735,48 @@ def _splat_row(rec, key, args, **fields):
     _require("splat", err, tol, **fields)
     nbytes, ops = splat_work(*args, terms)
     bound_ms, bound_by = _bound(nbytes, ops)
-    ms = device_ms(lambda: splat_kernel.splat_cuda(*args), KERNEL_REPS)
+    parent = PARENT.get("splat")
+    parent_call = None
+    if parent is not None:
+        _require("parent splat", _max_err(parent.splat_cuda(*args), ref),
+                 tol, **fields)
+        parent_call = lambda: parent.splat_cuda(*args)  # noqa: E731
+    ms, before = _in_turns(lambda: splat_kernel.splat_cuda(*args),
+                           parent_call, bound_ms)
+    counts = splat_kernel.bin_plan(cfg, x, y, live)["counts"]
     say("kernel", name="splat", **fields, kernel=cfg.kernel,
-        particles=x.shape[0], max_abs_err=err, tol=tol,
+        particles=x.shape[0], binned=int(counts.sum()),
+        tile_max=int(counts.max()), max_abs_err=err, tol=tol,
         terms_per_pixel_max=n_max, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
         share_of_bound=f"{bound_ms / ms:.3f}", bytes=int(nbytes),
-        operations=int(ops), library_ms=None)
+        operations=int(ops), library_ms=None, **before,
+        launches_per_splat=splat_kernel.LAUNCHES_PER_SPLAT,
+        **splat_kernel.block_plan(cfg))
     rec[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
                     bound=(bound_ms, bound_by), library_ms=None)
+
+
+def clustered_cloud(device, n=131072, hot=16384, seed=13):
+    """A 1080p cloud that piles `hot` of its `n` live particles into one
+    32-px tile (a Gaussian blob of sigma 5 px around (1003, 517), as a
+    model's emitter or an explosion does) and spreads the rest over the
+    frame; sizes 1-8 px, colours in [0, 1]: K5's (cfg, x, y, color, size,
+    live) for the gauss kernel at 3 channels."""
+    from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
+
+    rng = np.random.default_rng(seed)
+    h, w = FULL["height"], FULL["width"]
+    xy = np.empty((n, 2), np.float32)
+    xy[:hot] = rng.normal((1003.0, 517.0), 5.0, (hot, 2))
+    xy[hot:, 0] = rng.uniform(0, w, n - hot)
+    xy[hot:, 1] = rng.uniform(0, h, n - hot)
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    cfg = TiledRasterConfig(height=h, width=w, kernel="gauss", channels=3)
+    return (cfg, t(xy[:, 0].copy()), t(xy[:, 1].copy()),
+            t(rng.uniform(0, 1, (n, 4)).astype(np.float32)),
+            t(rng.uniform(1, 8, n).astype(np.float32)),
+            t(np.ones(n, bool)))
 
 
 def _unique_bytes(view) -> float:
@@ -647,35 +818,11 @@ def exact_sqrt(fn):
         return fn()
 
 
-def _cone_trace_row(rec, key, call, **fields):
-    """K12 on a recorded call (`cone_trace_cuda`'s (args, kwargs)) against
-    its plain version `cone_trace_reference` on the same CUDA tensors,
-    under the march bound (mean |d| <= 1e-3, 99% of the rays within 1e-3 x
-    (1 + max)) and two tighter gates: at most MARCH_STEPS_DIFFER_MAX of
-    the rays take another step count, and every ray whose steps agree is
-    within MARCH_AGREE_TOL x (1 + max). The rays whose steps differ are
-    counted again against the plain version with correctly rounded roots
-    (`exact_sqrt`), printed, not gated. Both timed; the bound: the rays'
-    distinct input bytes, the field and the output once, or the
-    operations this data needs (the plain version's `pointwise_ops`
-    without a step and with one, the difference less its masking
-    (MARCH_MASK_OPS) a ray's step, times the steps the rays took; on a
-    ColumnField the column query's per point, `columns.query_reference`);
-    the warps' efficiency (the steps a warp's rays take over 32 x its
-    slowest ray's: each warp runs as long as its slowest ray); the
-    launch's block."""
-    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
-    from illuminant_tpu_torch.lighting.cone_trace import cone_trace_reference
-    from illuminant_tpu_torch.sdf import columns
-    from illuminant_tpu_torch.sdf.columns import ColumnField
-
-    args, kwargs = call
-    volume, quality = args[0], args[6]
-    raw = kwargs.get("raw", args[7] if len(args) > 7 else False)
-    a6 = tuple(args[:6])
-    out, steps = ctk.cone_trace_cuda(*a6, quality, raw, with_steps=True)
-    (ref, ref_steps), plain_ms = timed_once(lambda: cone_trace_reference(
-        *a6, quality, raw, with_steps=True))
+def _march_gates(out, steps, ref, ref_steps, what, fields) -> dict:
+    """The march bound (mean |d| <= 1e-3, 99% of the rays within 1e-3 x
+    (1 + max)), at most MARCH_STEPS_DIFFER_MAX of the rays with another
+    step count, every ray whose steps agree within MARCH_AGREE_TOL x (1 +
+    max); raises unless all hold. -> the statistics."""
     d = (out - ref).abs()
     scale = 1.0 + float(ref.abs().max())
     tol = 1e-3 * scale
@@ -685,14 +832,61 @@ def _cone_trace_row(rec, key, call, **fields):
     differ = int((~agree).sum())
     err_agree = float(torch.where(agree, d, 0.0).max())
     if not (err_mean <= 1e-3 and within >= 0.99):
-        raise AssertionError(f"cone_trace disagrees with its plain version "
+        raise AssertionError(f"{what} disagrees with its plain version "
                              f"({fields}): mean {err_mean}, {within} of the "
                              f"rays within {tol}")
     if not (differ <= MARCH_STEPS_DIFFER_MAX * d.numel()
             and err_agree <= MARCH_AGREE_TOL * scale):
-        raise AssertionError(f"cone_trace disagrees with its plain version "
+        raise AssertionError(f"{what} disagrees with its plain version "
                              f"({fields}): {differ} rays' steps differ, "
                              f"{err_agree} where they agree")
+    return dict(err=err, err_mean=err_mean, within=within, tol=tol,
+                differ=differ, err_agree=err_agree)
+
+
+def parent_field(volume):
+    """`volume` (an SdfVolume, AnalyticScene or ColumnField) as an instance
+    of the parent package's class of the same name, sharing its tensors,
+    so that the parent's K12 wrapper dispatches on it."""
+    import importlib
+
+    mod = importlib.import_module(type(volume).__module__.replace(
+        "illuminant_tpu_torch", "parent_illuminant_tpu_torch", 1))
+    obj = object.__new__(getattr(mod, type(volume).__name__))
+    obj.__dict__.update(volume.__dict__)
+    return obj
+
+
+def _cone_trace_row(rec, key, call, **fields):
+    """K12 on a recorded call (`cone_trace_cuda`'s (args, kwargs)) against
+    its plain version `cone_trace_reference` on the same CUDA tensors,
+    under `_march_gates`. The rays whose steps differ are counted again
+    against the plain version with correctly rounded roots
+    (`exact_sqrt`), printed, not gated. Both timed; with `--parent` the
+    earlier commit's K12 too (held to the same gates, timed in turns);
+    the bound: the rays' distinct input bytes, the field and the output
+    once, or the operations this data needs (the plain version's
+    `pointwise_ops` without a step and with one, the difference less its
+    masking (MARCH_MASK_OPS) a ray's step, times the steps the rays took;
+    on a ColumnField the column query's per point,
+    `columns.query_reference`); the warps' efficiency (the steps a warp's
+    rays take over 32 x its slowest ray's, rays in launch order: each warp
+    runs as long as its slowest ray); the launch's block. On an SdfVolume
+    the pack of its taps is timed too (`pack_ms`: once a new volume)."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+    from illuminant_tpu_torch.lighting.cone_trace import cone_trace_reference
+    from illuminant_tpu_torch.sdf import columns
+    from illuminant_tpu_torch.sdf.columns import ColumnField
+    from illuminant_tpu_torch.sdf.volume import SdfVolume
+
+    args, kwargs = call
+    volume, quality = args[0], args[6]
+    raw = kwargs.get("raw", args[7] if len(args) > 7 else False)
+    a6 = tuple(args[:6])
+    out, steps = ctk.cone_trace_cuda(*a6, quality, raw, with_steps=True)
+    (ref, ref_steps), plain_ms = timed_once(lambda: cone_trace_reference(
+        *a6, quality, raw, with_steps=True))
+    g = _march_gates(out, steps, ref, ref_steps, "cone_trace", fields)
     _, exact_steps = exact_sqrt(lambda: cone_trace_reference(
         *a6, quality, raw, with_steps=True))
     differ_exact = int((steps != exact_steps).sum())
@@ -715,25 +909,73 @@ def _cone_trace_row(rec, key, call, **fields):
         + sum(4.0 * t.numel() for t in plan["field_tensors"]
               if t is not None) + 4.0 * n
     bound_ms, bound_by = _bound(nbytes, ops)
-    ms = device_ms(lambda: ctk.cone_trace_cuda(*a6, quality, raw),
-                   KERNEL_REPS)
+    parent = PARENT.get("cone_trace")
+    parent_call, parent_gates = None, {}
+    if parent is not None:
+        pa = (parent_field(volume),) + a6[1:]
+        p_out, p_steps = parent.cone_trace_cuda(*pa, quality, raw,
+                                                with_steps=True)
+        pg = _march_gates(p_out, p_steps, ref, ref_steps,
+                          "parent cone_trace", fields)
+        parent_gates = dict(parent_max_abs_err=pg["err"],
+                            parent_rays_whose_steps_differ=pg["differ"])
+        parent_call = lambda: parent.cone_trace_cuda(  # noqa: E731
+            *pa, quality, raw)
+    ms, before = _in_turns(lambda: ctk.cone_trace_cuda(*a6, quality, raw),
+                           parent_call, bound_ms)
+    pack = {}
+    if isinstance(volume, SdfVolume):
+        data = volume.data
+        pack_ms = device_ms(lambda: ctk.pack_volume(data), KERNEL_REPS)
+        pack = dict(pack_ms=f"{pack_ms:.4f}")
     pad = (-n) % 32
     warps = torch.cat([taken, taken.new_zeros(pad)]).reshape(-1, 32)
     busy = float(warps.amax(dim=1).sum()) * 32.0
     efficiency = float(taken.sum()) / busy if busy else 1.0
+    blocks = ctk.ray_blocks(plan)
+    per_ray = torch.cat([taken, taken.new_zeros(1)])
+    bw = per_ray[torch.where(blocks >= 0, blocks, n)].reshape(-1, 32)
+    busy_b = float(bw.amax(dim=1).sum()) * 32.0
+    efficiency_b = float(taken.sum()) / busy_b if busy_b else 1.0
     live = taken[enable]
     say("kernel", name="cone_trace", **fields,
         field=type(volume).__name__, rays=n, lights=plan["lights"],
-        raw=raw, max_abs_err=err, mean_abs_err=err_mean,
-        share_within_1e3=f"{within:.6f}", tol=tol,
-        rays_whose_steps_differ=differ, max_abs_err_steps_agree=err_agree,
+        shape=json.dumps(list(plan["shape"])),
+        raw=raw, max_abs_err=g["err"], mean_abs_err=g["err_mean"],
+        share_within_1e3=f"{g['within']:.6f}", tol=g["tol"],
+        rays_whose_steps_differ=g["differ"],
+        max_abs_err_steps_agree=g["err_agree"],
         rays_whose_steps_differ_exact_sqrt=differ_exact,
         mean_steps=f"{float(live.mean()) if live.numel() else 0.0:.2f}",
-        warp_efficiency=f"{efficiency:.3f}", ms=f"{ms:.4f}",
+        warp_efficiency=f"{efficiency:.3f}",
+        warp_efficiency_launched=f"{efficiency_b:.3f}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.3f}",
-        bytes=int(nbytes), operations=int(ops), library_ms=None,
-        **ctk.block_plan(volume))
+        bytes=int(nbytes), operations=int(ops), library_ms=None, **before,
+        **parent_gates, **pack, **ctk.block_plan(volume))
+    rec[key] = dict(ms=ms, plain_ms=plain_ms, err=g["err"],
+                    bound=(bound_ms, bound_by), library_ms=None)
+
+
+def _pack_row(rec, key, volume, **fields):
+    """The volume pack (the SdfVolume's taps as 16-byte records, rebuilt
+    once a new volume, before its first march) against its plain version
+    bit for bit, both timed, beside its byte bound (the volume read once,
+    the pack written once)."""
+    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+
+    data = volume.data
+    out = ctk.pack_volume(data)
+    ref, plain_ms = timed_once(lambda: ctk.pack_volume_reference(data))
+    err = _max_err(out, ref)
+    _require("volume_pack", err, 0.0, **fields)
+    bound_ms, bound_by = _bound(4.0 * data.numel() * 5, 0)
+    ms = device_ms(lambda: ctk.pack_volume(data), KERNEL_REPS)
+    say("kernel", name="volume_pack", **fields,
+        shape=json.dumps(list(data.shape)), max_abs_err=err, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, share_of_bound=f"{bound_ms / ms:.3f}",
+        library_ms=None)
     rec[key] = dict(ms=ms, plain_ms=plain_ms, err=err,
                     bound=(bound_ms, bound_by), library_ms=None)
 
@@ -848,7 +1090,8 @@ def phase_slice(name, scene, warmup: int, frames: int):
     expected = dict(column_query=per_frame * frames,
                     column_maps_pack=per_frame * frames,
                     column_maps_sample=0,
-                    cone_trace=K12_PER_FRAME[name] * frames, splat=frames)
+                    cone_trace=K12_PER_FRAME[name] * frames,
+                    splat=k5.LAUNCHES_PER_SPLAT * frames)
     if launches != expected:
         raise AssertionError(f"{name}: kernels launched {launches} times in "
                              f"{frames} frames, expected {expected}")
@@ -1449,8 +1692,9 @@ def phase_slice_renderer(name):
     """One full-width LightingRenderer frame: warm-up, the timed frames
     (each fenced by a synchronize), the device-to-host reads of one more
     frame (gated 0; its K12 call kept), then the frame's gates: K12 once a
-    light pass under the march. Returns (ms/frame, the extra frame's last
-    K12 call or None)."""
+    light pass under the march, the volume pack once a frame there.
+    Returns (ms/frame, the extra frame's last K12 call or None, the pack's
+    launches in the timed frames)."""
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
@@ -1463,7 +1707,7 @@ def phase_slice_renderer(name):
         n += 1
     torch.cuda.synchronize()
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
-    ctk.LAUNCHES = 0
+    ctk.LAUNCHES = ctk.PACK_LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(RENDERER_TIMED_FRAMES):
         image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
@@ -1472,7 +1716,7 @@ def phase_slice_renderer(name):
         n += 1
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / RENDERER_TIMED_FRAMES
     launches = ck.LAUNCHES + ck.QUERY_LAUNCHES + ck.PACK_LAUNCHES
-    k12 = ctk.LAUNCHES
+    k12, packs = ctk.LAUNCHES, ctk.PACK_LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as spy:
         image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
@@ -1496,13 +1740,20 @@ def phase_slice_renderer(name):
         ms_per_frame=f"{ms_per_frame:.3f}", peak_mem_gb=f"{peak_gb:.3f}",
         image_mean=f"{img[..., :3].mean():.3f}",
         image=f"{img.shape}/{img.dtype}", host_reads_per_frame=reads.n,
-        column_kernel_launches=launches, cone_trace_launches=k12, **gates)
+        column_kernel_launches=launches, cone_trace_launches=k12,
+        volume_pack_launches=packs, **gates)
     if reads.n or k12 != RENDERER_K12_PER_FRAME[name] * RENDERER_TIMED_FRAMES:
         raise AssertionError(
             f"{name}: {reads.n} host reads a frame, K12 launched {k12} "
             f"times in {RENDERER_TIMED_FRAMES} frames; expected 0 and "
             f"{RENDERER_K12_PER_FRAME[name]} a frame")
-    return ms_per_frame, (spy.calls[-1] if spy.calls else None)
+    # A frame's field is a new volume: its taps are packed once, before
+    # its first march.
+    if packs != (RENDERER_TIMED_FRAMES if RENDERER_K12_PER_FRAME[name]
+                 else 0):
+        raise AssertionError(f"{name}: the volume pack launched {packs} "
+                             f"times in {RENDERER_TIMED_FRAMES} frames")
+    return ms_per_frame, (spy.calls[-1] if spy.calls else None), packs
 
 
 def _small_renderer_frames(name, device):
@@ -1997,7 +2248,8 @@ def phase_slice_particles(field, warmup: int):
                              f"the ring filled, expected {full}")
     expected = dict(column_query=5 * PARTICLE_TIMED_FRAMES,
                     column_maps_pack=5 * PARTICLE_TIMED_FRAMES,
-                    column_maps_sample=0, splat=PARTICLE_TIMED_FRAMES)
+                    column_maps_sample=0,
+                    splat=k5.LAUNCHES_PER_SPLAT * PARTICLE_TIMED_FRAMES)
     if launches != expected:
         raise AssertionError(f"slice_particles: column kernels launched "
                              f"{launches} times in {PARTICLE_TIMED_FRAMES} "
@@ -2903,7 +3155,10 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
     bound, each timed as a `[kernel] inputs=model_frame` row), the alpha
     system's accumulated alpha, then `refresh_variables` with half the
     rate: the live state carries over and the sparks spawn half as many a
-    tick. Returns (launches in the timed frames, ms/frame)."""
+    tick; the checked frame's untextured splat (the sparks) is K5's
+    `[kernel] inputs=model_sparks` row. Returns (launches in the timed
+    frames, ms/frame)."""
+    from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
 
     torch.cuda.reset_peak_memory_stats()
@@ -2931,7 +3186,8 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
     render_reads = {}
     img = None
     with KernelInputs("composite_over_tiles") as alpha_spy, \
-            KernelInputs("sprite_accumulate") as add_spy:
+            KernelInputs("sprite_accumulate") as add_spy, \
+            KernelInputs("splat_cuda", k5) as splat_spy:
         for sv in sorted(view.systems, key=lambda v: v.model.draw_order):
             # The untextured splat (K5) under the sync debug mode too.
             splat = ((sv.appearance is None
@@ -2960,6 +3216,9 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
                            live=json.dumps(live),
                            entries=int(spy.args[1][1][-1]),
                            **entry_stats(spy.args[1][1]))
+    _splat_row(kernel_rec, "splat_model", splat_spy.args,
+               inputs="model_sparks", live=live["sparks"])
+    splat_spy = None
     smoke = next(sv for sv in view.systems if not sv.model.additive_blend)
     bare, _ = smoke.system.render(raster, appearance=smoke.appearance,
                                   additive_blend=False)
@@ -2996,7 +3255,7 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
         column_maps_pack=QUERIES_PER_TICK * system_ticks,
         column_maps_sample=0, composite_over_tiles=MODEL_TIMED_FRAMES,
         sprite_accumulate=MODEL_TIMED_FRAMES, tiled_lights_fused=0,
-        cone_trace=0, splat=MODEL_TIMED_FRAMES)
+        cone_trace=0, splat=k5.LAUNCHES_PER_SPLAT * MODEL_TIMED_FRAMES)
     if launches != expected or system_ticks != 3 * MODEL_TIMED_FRAMES:
         raise AssertionError(f"slice_model: launches {launches} in "
                              f"{system_ticks} system ticks, expected "
@@ -3488,15 +3747,21 @@ def light_kernel_work(args):
     return nbytes, ops, counts
 
 
-def parent_k10_call(parent, args):
+def parent_k10_call(parent, args, kwargs):
     """The earlier checkout's K10 on this frame -> (that call, the
-    route's whole device work). That K10 shades alone
+    route's whole device work). A checkout of PR 10 or later fuses the
+    route into `tiled_lights_fused`, which takes this frame's arguments as
+    they are (both are that call, its image). An earlier K10 shades alone
     (`tiled_light_accumulate` of the checkout module `parent`): it takes
     the frame's own bins, records and factor as its route computed them
     in PyTorch (`tiled_lights_kernel.fused_inputs`), and the route is those
     PyTorch pieces and that K10."""
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
 
+    if hasattr(parent, "tiled_lights_fused"):
+        call = lambda: parent.tiled_lights_fused(  # noqa: E731
+            *args, **kwargs)[0]
+        return call, call
     sh, mode = args[8], args[9]
     column = args[10] if len(args) > 10 else None
 
@@ -3534,7 +3799,7 @@ def phase_light_kernel(call, parent=None):
     fused = lambda: k10.tiled_lights_fused(*args, **kwargs)  # noqa: E731
     before = {}
     if parent is not None:
-        old, old_route = parent_k10_call(parent, args)
+        old, old_route = parent_k10_call(parent, args, kwargs)
         _require("parent tiled_light_accumulate", _max_err(old(), ref[0]),
                  tol, inputs="frame")
         times = [device_ms(f, KERNEL_REPS) for f in (old, fused, fused, old)]
@@ -3909,8 +4174,8 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables")
     ap.add_argument("--parent", default=None,
                     help="root of an earlier commit's checkout (`git "
-                    "archive`): its tile kernels are timed beside these on "
-                    "the same inputs")
+                    "archive`): its tile kernels, K10, K5 and K12 are "
+                    "timed beside these on the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3940,6 +4205,11 @@ def main(argv=None) -> int:
     if args.parent:
         parent_lights = parent_module(args.parent,
                                       "lighting.tiled_lights_kernel")
+        PARENT["splat"] = parent_module(args.parent, "raster.splat_kernel")
+        PARENT["cone_trace"] = parent_module(args.parent,
+                                             "lighting.cone_trace_kernel")
+        say("build", kernel="parent cone_trace", march_loop_sass=json.dumps(
+            march_loop_sass(PARENT["cone_trace"]._LIBRARY)))
     launches, frame_ms = {}, {}
     for name, kw in SLICES.items():
         if name == "slice_family":
@@ -3953,22 +4223,33 @@ def main(argv=None) -> int:
                                              scene.raster_config))
             kernel.update(phase_voxel_march_kernel(field, scene))
         if name == "slice_family_march":
-            # The frame's first K12 call: the sphere pass's rays.
-            _cone_trace_row(kernel, "cone_trace_family", k12_calls[0],
-                            inputs="family_march_sphere")
+            # The frame's K12 calls: the sphere pass's rays, the sun's,
+            # the projector's.
+            for key, call in zip(("family", "family_sun",
+                                  "family_projector"), k12_calls):
+                _cone_trace_row(kernel, "cone_trace_" + key, call,
+                                inputs="march_cell_" + key.split("_")[-1]
+                                if key != "family"
+                                else "family_march_sphere")
         scene = state = k12_calls = None
         torch.cuda.empty_cache()
+    pack_launches = 0
     for name in RENDERER_FRAMES:
-        frame_ms[name], k12_call = phase_slice_renderer(name)
+        frame_ms[name], k12_call, packs = phase_slice_renderer(name)
+        pack_launches += packs
         if k12_call is not None:
             _cone_trace_row(kernel, "cone_trace_renderer", k12_call,
                             inputs="renderer_march")
+            _pack_row(kernel, "volume_pack", k12_call[0][0],
+                      inputs="renderer_march")
         k12_call = None
         torch.cuda.empty_cache()
     particle_launches, frame_ms["slice_particles"], splat_args = \
         phase_slice_particles(field, warmup)
     _splat_row(kernel, "splat_particles", splat_args, inputs="particles")
     splat_args = None
+    _splat_row(kernel, "splat_clustered", clustered_cloud(cuda),
+               inputs="clustered")
     torch.cuda.empty_cache()
     sprite_launches = {}
     for additive in (False, True):
@@ -4075,12 +4356,16 @@ def main(argv=None) -> int:
     # frames; the renderer march's and the scan flagships' beside them);
     # K5 at the voxel flagship's steady particles (launches: its timed
     # frames; the particle and model cells' beside them).
+    # The volume pack: renderer-voxel-march's frames (once a new volume).
     for name, source, replaces, r, counts in (
             ("cone_trace", "illuminant_tpu_torch/csrc/cone_trace.cu",
              "illuminant_tpu/lighting/cone_trace.py:42",
              kernel["cone_trace_family"],
              dict(launches=launches["slice_family_march"]["cone_trace"],
                   launches_family=launches["slice_family"]["cone_trace"])),
+            ("volume_pack", "illuminant_tpu_torch/csrc/cone_trace.cu",
+             "illuminant_tpu/lighting/cone_trace.py:42",
+             kernel["volume_pack"], dict(launches=pack_launches)),
             ("splat", "illuminant_tpu_torch/csrc/splat.cu",
              "illuminant_tpu/raster/tiled.py:589", kernel["splat_flagship"],
              dict(launches=launches["slice"]["splat"],

@@ -11,11 +11,13 @@
 // array with an element stride per light and per point (0 where it is
 // broadcast), so the sphere lights' (L, H, W) rays, the line light's and
 // the directional lights' per-point centers and the projector's single
-// light all launch once, without copies. The thread computes the trace
-// config (fxh:122-139), then marches: sample the field, shrink the
-// visibility by the ratio of the distance to the local cone radius, step
-// by max(|d| * long_step_factor, min_step), until the step budget, the
-// threshold or the ray's end stops it (fxh:73-82, 141-191). The whole
+// light all launch once, without copies. Where the rays are (L, H, W), a
+// block takes a 16 x 16 square of one light's points (neighbouring rays
+// sample neighbouring texels); else 256 rays in order. The thread computes
+// the trace config (fxh:122-139), then marches: sample the field, shrink
+// the visibility by the ratio of the distance to the local cone radius,
+// step by max(|d| * long_step_factor, min_step), until the step budget,
+// the threshold or the ray's end stops it (fxh:73-82, 141-191). The whole
 // loop lives in registers; a dead ray leaves its loop, and nothing is
 // read back to the host. The epilogue ramps the visibility by the steps
 // left and, unless `raw`, thresholds and raises it to the opacity power.
@@ -23,17 +25,33 @@
 // The field is sampled by the device functions of sdf_fields.cuh: the
 // exact trilinear SdfVolume, the closed-form AnalyticScene (primitives
 // and extruded polygons), or the ColumnField reconstruction
-// (column_query.cuh, shared with K7 and K10), one kernel instance each.
+// (column_query.cuh, shared with K7 and K10), one kernel instance each
+// (two for the scene: the Instance enum).
 //
-// What bounds it on an H100: the field's samples. At renderer-voxel-
-// march-1080p 16.6M rays take up to 64 steps of an 8-tap trilinear
-// sample (~40 float operations and 8 cached 4-byte loads each); the
-// rays' own bytes (origin, centre, radius, ramp, enable in; visibility
-// out) are small beside that. This first cut reads the field through the
-// read-only cache and keeps each ray's loop in registers; a warp runs as
-// long as its slowest ray (the divergence chip_smoke.py measures).
-// Staging the field in shared memory and compacting live rays are later
-// work.
+// What bounds it on an H100: instruction issue, not bytes or divergence.
+// Its warps are 84-91% efficient and nothing spills, yet the first cut
+// (PR 12) ran ~0.8 ray-steps an SM clock on renderer-voxel-march-1080p:
+// ~150 SASS instructions a step against the ~37 operations the bound
+// counts. `cuobjdump -sass` of that build (chip_smoke.py's [build] line,
+// `march_loop_sass`) gives the march loop bodies: 196 instructions
+// (SdfVolume), 802 (AnalyticScene, its primitive loop 493), 194
+// (ColumnField); a third of the volume's went to 64-bit tap addresses
+// and eight loads, and the scene's records were 12 global loads a
+// primitive a step. This design cuts the work a step, every rounding
+// unchanged:
+//   * 32-bit offsets (the wrapper refuses arrays that reach 2^31);
+//   * the volume's max_valid_z read once a ray, not once a step;
+//   * the volume's 2 x 2 xy taps packed into one 16-byte record a texel,
+//     the edge clamp baked in (pack_volume_kernel, once a new volume):
+//     two loads a sample, not eight; its loop is 139 instructions;
+//   * the scene's records (and polygons) staged in shared memory once a
+//     block: three 16-byte loads a primitive;
+//   * the root of the distance to the box skipped inside it, where it is
+//     +0 exactly;
+//   * 16 x 16 ray tiles, and __launch_bounds__ raised where it keeps the
+//     instance free of spills (tools/torch_march_study.py times each
+//     choice).
+// PERF.md section 6 gives the times against the parent's.
 //
 // The file is compiled with -fmad=false and every formula keeps the plain
 // version's operation order. Its sqrtf is correctly rounded, where
@@ -48,11 +66,21 @@
 
 #include "sdf_fields.cuh"
 
+// __launch_bounds__' minimum blocks an SM; 0: each instance's own
+// (min_blocks below, chosen by tools/torch_march_study.py).
+#ifndef K12_MIN_BLOCKS
+#define K12_MIN_BLOCKS 0
+#endif
+
 namespace {
 
 using namespace illum_fields;
 
 constexpr int kThreads = 256;
+constexpr int kTile = 16;  // a block's square of one light's image points
+static_assert(kTile * kTile == kThreads, "one ray tile a block");
+// The AnalyticScene's arrays go to shared memory up to this size.
+constexpr int kAnalyticSmemMax = 48 * 1024;
 
 // ConeTrace.fxh:1-29.
 constexpr float kMinConeRadius = 0.33f;
@@ -62,20 +90,24 @@ constexpr float kFullyShadowed = 0.075f;
 constexpr float kUnshadowed = 0.95f;
 constexpr float kHackDistanceOffset = 1.5f;
 
-// An argument array: element (l, p, c) at ptr[l * sl + p * sp + c * sc].
+// An argument array: element (l, p, c) at ptr[l * sl + p * sp + c * sc],
+// in 32-bit offsets (the wrapper refuses a view that reaches 2^31).
 struct Strided {
   const void* ptr;
-  long long sl, sp, sc;
+  int sl, sp, sc;
 };
 
-__device__ __forceinline__ float at(const Strided& a, long long l,
-                                    long long p, int c = 0) {
-  return __ldg((const float*)a.ptr + l * a.sl + p * a.sp + c * a.sc);
+__device__ __forceinline__ float at(const Strided& a, int l, int p,
+                                    int c = 0) {
+  return __ldg((const float*)a.ptr + (l * a.sl + p * a.sp + c * a.sc));
 }
 
 struct Rays {
   Strided center, radius, ramp, origin, enable;
-  long long lights, points;
+  int lights, points;
+  // The points' image (height, width) when a block takes a kTile x kTile
+  // square of one light's points; width 0: a block takes 256 rays in order.
+  int height, width;
   float* out;
   float* steps_out;  // null unless the caller asks for the steps left
 };
@@ -86,21 +118,19 @@ struct Quality {
   int max_steps, raw;
 };
 
-enum FieldKind { kVolume = 0, kAnalytic = 1, kColumn = 2 };
+// The kernel's instances: the field kind, and how its data is read.
+enum Instance {
+  kVolume = 0,          // SdfVolume, 2 packed 16-byte loads a sample
+  kAnalytic = 1,        // AnalyticScene, its arrays in shared memory
+  kColumn = 2,          // ColumnField (column_query.cuh)
+  kAnalyticGlobal = 3   // AnalyticScene too large for shared memory
+};
 
 struct Fields {
   Volume volume;
   Analytic analytic;
   Column column;
 };
-
-template <int F>
-__device__ __forceinline__ float field_sample(const Fields& f, float x,
-                                              float y, float z) {
-  if (F == kVolume) return volume_distance(f.volume, x, y, z);
-  if (F == kAnalytic) return analytic_distance(f.analytic, x, y, z);
-  return column_distance(f.column, x, y, z);
-}
 
 // x ** power as torch.pow(tensor, scalar) computes it for the powers it
 // special-cases, powf otherwise.
@@ -111,13 +141,80 @@ __device__ __forceinline__ float scalar_pow(float x, float p) {
   return powf(x, p);
 }
 
+// Floats of an AnalyticScene's arrays: records, vertices and next
+// vertices, z ranges, active flags (each run starts 8-byte aligned).
+__host__ __device__ __forceinline__ int analytic_floats(const Analytic& a) {
+  const int pe = a.polygons.count * a.polygons.edges;
+  return a.count * kPrimitiveRecord + 4 * pe + 3 * a.polygons.count;
+}
+
+// The block's copy of the scene in shared memory: the same arrays, the
+// pointers moved there.
+__device__ __forceinline__ Analytic stage_analytic(const Analytic& a,
+                                                   float* sm) {
+  Analytic s = a;
+  const int n_rec = a.count * kPrimitiveRecord;
+  const int pe2 = 2 * a.polygons.count * a.polygons.edges;
+  const int np = a.polygons.count;
+  const float* src[5] = {a.records, a.polygons.vertices,
+                         a.polygons.next_vertices, a.polygons.z_range,
+                         a.polygons.active};
+  const int len[5] = {n_rec, pe2, pe2, 2 * np, np};
+  float* dst[5];
+  int off = 0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    dst[k] = sm + off;
+    for (int j = threadIdx.x; j < len[k]; j += kThreads)
+      dst[k][j] = __ldg(src[k] + j);
+    off += len[k];
+  }
+  s.records = dst[0];
+  s.polygons.vertices = dst[1];
+  s.polygons.next_vertices = dst[2];
+  s.polygons.z_range = dst[3];
+  s.polygons.active = dst[4];
+  __syncthreads();
+  return s;
+}
+
+// Each instance's: the most that keeps it free of spills (the analytic
+// instances spill at 5).
 template <int F>
-__global__ void __launch_bounds__(kThreads)
+constexpr int min_blocks() {
+  return K12_MIN_BLOCKS ? K12_MIN_BLOCKS
+                        : (F == kColumn ? 5 : F == kVolume ? 6 : 1);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads, min_blocks<F>())
     cone_trace_kernel(Rays r, Quality q, Fields f) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= r.lights * r.points) return;
-  const long long l = i / r.points;
-  const long long p = i - l * r.points;
+  extern __shared__ float4 smem4[];
+  int l, p;
+  bool valid;
+  if (r.width > 0) {
+    const int tiles_x = (r.width + kTile - 1) / kTile;
+    const int per_light = tiles_x * ((r.height + kTile - 1) / kTile);
+    l = blockIdx.x / per_light;
+    const int t = blockIdx.x - l * per_light;
+    const int ty = t / tiles_x;
+    const int y = ty * kTile + threadIdx.x / kTile;
+    const int x = (t - ty * tiles_x) * kTile + threadIdx.x % kTile;
+    valid = y < r.height && x < r.width;
+    p = y * r.width + x;
+  } else {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    valid = i < r.lights * r.points;
+    l = i / r.points;
+    p = i - l * r.points;
+  }
+  Analytic scene = f.analytic;
+  if (F == kAnalytic) scene = stage_analytic(f.analytic, (float*)smem4);
+  if (!valid) return;
+  const int i = l * r.points + p;
+  // The volume's max_valid_z, read once a ray rather than once a step.
+  float max_valid_z = 0.0f;
+  if (F == kVolume) max_valid_z = __ldg(f.volume.max_valid_z);
 
   const bool enable =
       __ldg((const unsigned char*)r.enable.ptr + l * r.enable.sl +
@@ -149,8 +246,17 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < q.max_steps && live; ++k) {
     steps = steps - 1.0f;
     // coneTraceAdvance (fxh:73-82).
-    const float d = field_sample<F>(f, ox + dx * offset, oy + dy * offset,
-                                    oz + dz * offset);
+    const float sx = ox + dx * offset, sy = oy + dy * offset,
+                sz = oz + dz * offset;
+    float d;
+    if (F == kVolume)
+      d = volume_distance(f.volume, max_valid_z, sx, sy, sz);
+    else if (F == kAnalytic)
+      d = analytic_distance<true>(scene, sx, sy, sz);
+    else if (F == kAnalyticGlobal)
+      d = analytic_distance<false>(scene, sx, sy, sz);
+    else
+      d = column_distance(f.column, sx, sy, sz);
     const float local_radius =
         fminf(growth * offset + kMinConeRadius, max_radius);
     vis = fminf(vis, (d + kHackDistanceOffset) / local_radius);
@@ -178,28 +284,62 @@ __global__ void __launch_bounds__(kThreads)
   if (r.steps_out) r.steps_out[i] = steps;
 }
 
-unsigned int blocks_for(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
+// Each texel's 2 x 2 xy taps of an (S, H, W) volume as one float4:
+// (s, y, x), (s, y, x1), (s, y1, x), (s, y1, x1) with x1 = min(x + 1,
+// W - 1) and y1 = min(y + 1, H - 1), as sampling.sample clamps them.
+__global__ void __launch_bounds__(kThreads)
+    pack_volume_kernel(const float* data, int slices, int height, int width,
+                       float4* out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= slices * height * width) return;
+  const int x = i % width;
+  const int sy = i / width;
+  const int y = sy % height;
+  const float* d = data + (sy / height) * height * width;
+  const int x1 = min(x + 1, width - 1), y1 = min(y + 1, height - 1);
+  out[i] = make_float4(__ldg(d + y * width + x), __ldg(d + y * width + x1),
+                       __ldg(d + y1 * width + x), __ldg(d + y1 * width + x1));
+}
+
+const void* instance_fn(int instance) {
+  switch (instance) {
+    case kVolume:
+      return (const void*)cone_trace_kernel<kVolume>;
+    case kAnalytic:
+      return (const void*)cone_trace_kernel<kAnalytic>;
+    case kColumn:
+      return (const void*)cone_trace_kernel<kColumn>;
+    case kAnalyticGlobal:
+      return (const void*)cone_trace_kernel<kAnalyticGlobal>;
+    default:
+      return nullptr;
+  }
 }
 
 Strided strided(const void* ptr, const long long* s) {
-  return Strided{ptr, s[0], s[1], s[2]};
+  return Strided{ptr, (int)s[0], (int)s[1], (int)s[2]};
 }
 
 }  // namespace
 
 // ptrs: center, radius, ramp, origin, enable, out, steps_out (or null),
-//       then the field's: volume data, max_valid_z | primitive records,
-//       polygon vertices, next vertices, z range, active | column pack.
+//       then the field's: volume pack, max_valid_z |
+//       primitive records, polygon vertices, next vertices, z range,
+//       active | column pack.
 // strides: (sl, sp, sc) for center, radius, ramp, origin, enable.
-// ints: lights, points, field kind, max_steps, raw, then the field's:
-//       slices, height, width | count, batched, polygons, edges | hc, wc.
+// ints: lights, points, field kind (0 volume, 1 analytic, 2 column),
+//       max_steps, raw, image height, image width (0: rays in order),
+//       then the field's: slices, height, width | count, batched,
+//       polygons, edges | hc, wc.
 // floats: min_step, long_step_factor, max_cone_radius, cone_growth_factor,
 //       power, then the field's: ex, ey, ez, z_offset, z_to_slice,
 //       scale_x, scale_y | maximum_distance | the 12 column geometry.
+// `instance`: the kernel instance to launch (the Instance enum), one of
+// the field kind's; kAnalytic needs a scene whose arrays fit in a block's
+// shared memory.
 extern "C" int cone_trace(const void* const* ptrs, const long long* strides,
                           const long long* ints, const float* floats,
-                          void* stream) {
+                          void* stream, int instance) {
   Rays r;
   r.center = strided(ptrs[0], strides + 0);
   r.radius = strided(ptrs[1], strides + 3);
@@ -208,24 +348,29 @@ extern "C" int cone_trace(const void* const* ptrs, const long long* strides,
   r.enable = strided(ptrs[4], strides + 12);
   r.out = (float*)ptrs[5];
   r.steps_out = (float*)ptrs[6];
-  r.lights = ints[0];
-  r.points = ints[1];
+  r.lights = (int)ints[0];
+  r.points = (int)ints[1];
   const int kind = (int)ints[2];
   Quality q;
   q.max_steps = (int)ints[3];
   q.raw = (int)ints[4];
+  r.height = (int)ints[5];
+  r.width = (int)ints[6];
   q.min_step = floats[0];
   q.long_step_factor = floats[1];
   q.max_cone_radius = floats[2];
   q.cone_growth_factor = floats[3];
   q.power = floats[4];
-  const long long* fi = ints + 5;
+  const long long* fi = ints + 7;
   const float* ff = floats + 5;
   const void* const* fp = ptrs + 7;
+  if (ints[0] * ints[1] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
 
   Fields f = {};
+  const int inst = instance;
+  size_t smem = 0;
   if (kind == kVolume) {
-    f.volume.data = (const float*)fp[0];
+    f.volume.pack = (const float4*)fp[0];
     f.volume.max_valid_z = (const float*)fp[1];
     f.volume.slices = (int)fi[0];
     f.volume.height = (int)fi[1];
@@ -237,6 +382,7 @@ extern "C" int cone_trace(const void* const* ptrs, const long long* strides,
     f.volume.z_to_slice = ff[4];
     f.volume.scale_x = ff[5];
     f.volume.scale_y = ff[6];
+    if (inst != kVolume) return (int)cudaErrorInvalidValue;
   } else if (kind == kAnalytic) {
     f.analytic.records = (const float*)fp[0];
     f.analytic.count = (int)fi[0];
@@ -248,24 +394,43 @@ extern "C" int cone_trace(const void* const* ptrs, const long long* strides,
     f.analytic.polygons.z_range = (const float*)fp[3];
     f.analytic.polygons.active = (const float*)fp[4];
     f.analytic.maximum_distance = ff[0];
+    if (inst == kAnalytic) {
+      smem = sizeof(float) * (size_t)analytic_floats(f.analytic);
+      if (smem > (size_t)kAnalyticSmemMax) return (int)cudaErrorInvalidValue;
+    } else if (inst != kAnalyticGlobal) {
+      return (int)cudaErrorInvalidValue;
+    }
   } else if (kind == kColumn) {
     f.column.pack = (const float*)fp[0];
     f.column.hc = (int)fi[0];
     f.column.wc = (int)fi[1];
     f.column.g = illum_columns::geometry_from(ff);
+    if (inst != kColumn) return (int)cudaErrorInvalidValue;
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  const long long n = r.lights * r.points;
+  const long long n = (long long)r.lights * r.points;
   if (n <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks = blocks_for(n);
-  switch (kind) {
+  unsigned int blocks;
+  if (r.width > 0) {
+    if ((long long)r.height * r.width != r.points)
+      return (int)cudaErrorInvalidValue;
+    blocks = (unsigned int)(r.lights * ((r.height + kTile - 1) / kTile) *
+                            ((r.width + kTile - 1) / kTile));
+  } else {
+    blocks = (unsigned int)((n + kThreads - 1) / kThreads);
+  }
+  switch (inst) {
     case kVolume:
       cone_trace_kernel<kVolume><<<blocks, kThreads, 0, st>>>(r, q, f);
       break;
     case kAnalytic:
-      cone_trace_kernel<kAnalytic><<<blocks, kThreads, 0, st>>>(r, q, f);
+      cone_trace_kernel<kAnalytic><<<blocks, kThreads, smem, st>>>(r, q, f);
+      break;
+    case kAnalyticGlobal:
+      cone_trace_kernel<kAnalyticGlobal><<<blocks, kThreads, 0, st>>>(r, q,
+                                                                       f);
       break;
     default:
       cone_trace_kernel<kColumn><<<blocks, kThreads, 0, st>>>(r, q, f);
@@ -274,20 +439,32 @@ extern "C" int cone_trace(const void* const* ptrs, const long long* strides,
   return (int)cudaGetLastError();
 }
 
-// The block a launch of field kind `kind` takes: threads, registers and
-// spilled bytes a thread, and resident blocks an SM.
-extern "C" int cone_trace_plan(int kind, int* out) {
+// The packed volume (Volume::pack) of an (S, H, W) float32 volume into
+// `out`, (S, H, W) float4: one launch.
+extern "C" int cone_trace_pack_volume(const float* data, int slices,
+                                      int height, int width, void* out,
+                                      void* stream) {
+  const long long n = (long long)slices * height * width;
+  if (n <= 0) return 0;
+  if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  pack_volume_kernel<<<(unsigned int)((n + kThreads - 1) / kThreads),
+                       kThreads, 0, (cudaStream_t)stream>>>(
+      data, slices, height, width, (float4*)out);
+  return (int)cudaGetLastError();
+}
+
+// The block of kernel instance `instance` (the Instance enum) with
+// `smem` bytes of dynamic shared memory: threads, registers and spilled
+// bytes a thread, resident blocks an SM.
+extern "C" int cone_trace_plan(int instance, int smem, int* out) {
+  const void* fn = instance_fn(instance);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  const void* fn = kind == kVolume
-                       ? (const void*)cone_trace_kernel<kVolume>
-                       : kind == kAnalytic
-                             ? (const void*)cone_trace_kernel<kAnalytic>
-                             : (const void*)cone_trace_kernel<kColumn>;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
-                                                      0);
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = kThreads;
   out[1] = attr.numRegs;

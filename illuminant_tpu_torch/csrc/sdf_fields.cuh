@@ -32,10 +32,13 @@ __device__ __forceinline__ float sgn(float x) {
 
 // ---------------------------------------------------------------- volume
 
-// An SdfVolume: (S, H, W) float32 raw distances and the constants of
+// An SdfVolume: (S, H, W) float32 raw distances, read as each texel's
+// 2 x 2 xy taps packed into one float4 with the edge clamp baked in
+// (cone_trace.cu:pack_volume_kernel), and the constants of
 // sdf/sampling.py:sample, float32 as PyTorch rounds its Python scalars.
+// Offsets are 32-bit: the wrapper refuses a volume of 2^31 elements.
 struct Volume {
-  const float* data;
+  const float4* pack;        // (S, H, W)
   const float* max_valid_z;  // the volume's 0-d tensor, on the device
   float ex, ey, ez, z_offset, z_to_slice, scale_x, scale_y;
   int slices, height, width;
@@ -48,8 +51,11 @@ __device__ __forceinline__ int clip_index(float fl, int n) {
 }
 
 // sampling.sample: clamp into the box, bilinear xy on two slices, linear
-// z, plus the distance from the query to the box.
-__device__ __forceinline__ float volume_distance(const Volume& v, float px,
+// z, plus the distance from the query to the box. `max_valid_z` is the
+// volume's, read once by the caller. A slice's four taps are one 16-byte
+// record of the pack.
+__device__ __forceinline__ float volume_distance(const Volume& v,
+                                                 float max_valid_z, float px,
                                                  float py, float pz_in) {
   const float pz = pz_in - v.z_offset;
   const float cx = fminf(fmaxf(px, 0.0f), v.ex);
@@ -58,9 +64,11 @@ __device__ __forceinline__ float volume_distance(const Volume& v, float px,
   const float dx = -fminf(px, 0.0f) + fmaxf(px - v.ex, 0.0f);
   const float dy = -fminf(py, 0.0f) + fmaxf(py - v.ey, 0.0f);
   const float dz = -fminf(pz, 0.0f) + fmaxf(pz - v.ez, 0.0f);
-  const float to_volume = sqrtf(dx * dx + dy * dy + dz * dz);
+  // Inside the box dx = dy = dz = +0 and the root is +0: skipped there.
+  const float d2 = dx * dx + dy * dy + dz * dz;
+  const float to_volume = d2 == 0.0f ? 0.0f : sqrtf(d2);
 
-  const float slice_pos = fminf(cz, __ldg(v.max_valid_z)) * v.z_to_slice;
+  const float slice_pos = fminf(cz, max_valid_z) * v.z_to_slice;
   const float s0 = floorf(slice_pos);
   const float sw = slice_pos - s0;
   const int s0i = clip_index(s0, v.slices);
@@ -73,21 +81,16 @@ __device__ __forceinline__ float volume_distance(const Volume& v, float px,
   const float wx = tx - x0;
   const float wy = ty - y0;
   const int x0i = clip_index(x0, v.width);
-  const int x1i = min(x0i + 1, v.width - 1);
   const int y0i = clip_index(y0, v.height);
-  const int y1i = min(y0i + 1, v.height - 1);
 
-  const long long plane = (long long)v.height * v.width;
+  const int plane = v.height * v.width;
+  const int t = y0i * v.width + x0i;
   float slab[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const float* s = v.data + (k == 0 ? s0i : s1i) * plane;
-    const float v00 = __ldg(s + (long long)y0i * v.width + x0i);
-    const float v01 = __ldg(s + (long long)y0i * v.width + x1i);
-    const float v10 = __ldg(s + (long long)y1i * v.width + x0i);
-    const float v11 = __ldg(s + (long long)y1i * v.width + x1i);
-    const float top = v00 + (v01 - v00) * wx;
-    const float bot = v10 + (v11 - v10) * wx;
+    const float4 q = __ldg(v.pack + (k == 0 ? s0i : s1i) * plane + t);
+    const float top = q.x + (q.y - q.x) * wx;
+    const float bot = q.z + (q.w - q.z) * wx;
     slab[k] = top + (bot - top) * wy;
   }
   return slab[0] + (slab[1] - slab[0]) * sw + to_volume;
@@ -118,8 +121,28 @@ struct Polygons {
   int count, edges;
 };
 
+// A load from the scene's arrays: kShared, a copy the block made in
+// shared memory; else device memory through the read-only cache.
+template <bool kShared>
+__device__ __forceinline__ float ld(const float* p) {
+  if (kShared) return *p;
+  return __ldg(p);
+}
+
+template <bool kShared>
+__device__ __forceinline__ float4 ld4(const float* p) {
+  if (kShared) return *reinterpret_cast<const float4*>(p);
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+template <bool kShared>
+__device__ __forceinline__ float2 ld2(const float* p) {
+  if (kShared) return *reinterpret_cast<const float2*>(p);
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
 struct Analytic {
-  const float* records;  // (n, kPrimitiveRecord)
+  const float* records;  // (n, kPrimitiveRecord), 16-byte aligned
   int count;
   // 1: `_distance_vectorized`'s batched forms (more primitives than the
   // unroll limit); they differ from the planar ones in the octagon only.
@@ -241,15 +264,17 @@ __device__ __forceinline__ void rotate(float* px, float* py, float* pz,
 }
 
 // iq's signed polygon distance (polygon_sdf_2d_p) of polygon p.
+template <bool kShared>
 __device__ __forceinline__ float polygon_sdf(const Polygons& g, int p,
                                              float px, float py) {
-  const float* a = g.vertices + (long long)p * g.edges * 2;
-  const float* b = g.next_vertices + (long long)p * g.edges * 2;
+  const float* a = g.vertices + p * g.edges * 2;
+  const float* b = g.next_vertices + p * g.edges * 2;
   float dist2 = 0.0f;
   int flips = 0;
   for (int e = 0; e < g.edges; ++e) {
-    const float ax = __ldg(a + 2 * e), ay = __ldg(a + 2 * e + 1);
-    const float bx = __ldg(b + 2 * e), by = __ldg(b + 2 * e + 1);
+    const float2 va = ld2<kShared>(a + 2 * e);
+    const float2 vb = ld2<kShared>(b + 2 * e);
+    const float ax = va.x, ay = va.y, bx = vb.x, by = vb.y;
     const float ex = bx - ax, ey = by - ay;
     const float wx = px - ax, wy = py - ay;
     const float ee = fmaxf(ex * ex + ey * ey, 1e-12f);
@@ -269,14 +294,15 @@ __device__ __forceinline__ float polygon_sdf(const Polygons& g, int p,
 
 // extruded_polygon_distance_p: the min over the volumes (1e9 for an
 // inactive one) of the finalEval composition with PolygonXyBias 1.5.
+template <bool kShared>
 __device__ __forceinline__ float polygons_distance(const Polygons& g,
                                                    float x, float y,
                                                    float z) {
   float best = 0.0f;
   for (int p = 0; p < g.count; ++p) {
-    const float distance_xy = polygon_sdf(g, p, x, y) + 1.5f;
-    const float z0 = __ldg(g.z_range + 2 * p);
-    const float z1 = __ldg(g.z_range + 2 * p + 1);
+    const float distance_xy = polygon_sdf<kShared>(g, p, x, y) + 1.5f;
+    const float2 zr = ld2<kShared>(g.z_range + 2 * p);
+    const float z0 = zr.x, z1 = zr.y;
     const bool inside_z = (z >= z0) && (z <= z1);
     const float distance_z =
         inside_z ? fmaxf(z - z1, z0 - z) : (z > z1 ? z - z1 : z0 - z);
@@ -284,28 +310,32 @@ __device__ __forceinline__ float polygons_distance(const Polygons& g,
                   ? (distance_z <= 0.0f ? distance_xy + distance_z
                                         : distance_z)
                   : fmaxf(distance_xy, 0.0f) + fmaxf(distance_z, 0.0f);
-    d = __ldg(g.active + p) > 0.5f ? d : 1e9f;
+    d = ld<kShared>(g.active + p) > 0.5f ? d : 1e9f;
     best = p == 0 ? d : fminf(best, d);
   }
   return best;
 }
 
 // AnalyticScene.distance_p: maximum_distance min every primitive, then
-// the polygons.
+// the polygons. A record is three 16-byte loads: (type, rotated, cx,
+// cy), (cz, sx, sy, sz), the quaternion.
+template <bool kShared>
 __device__ __forceinline__ float analytic_distance(const Analytic& s,
                                                    float x, float y,
                                                    float z) {
   float d = s.maximum_distance;
   const bool batched = s.batched != 0;
   for (int i = 0; i < s.count; ++i) {
-    const float* r = s.records + (long long)i * kPrimitiveRecord;
-    const int type = (int)__ldg(r);
-    float px = x - __ldg(r + 2), py = y - __ldg(r + 3), pz = z - __ldg(r + 4);
-    if (__ldg(r + 1) > 0.5f) {
-      rotate(&px, &py, &pz, __ldg(r + 8), __ldg(r + 9), __ldg(r + 10),
-             __ldg(r + 11));
+    const float* r = s.records + i * kPrimitiveRecord;
+    const float4 r0 = ld4<kShared>(r);
+    const float4 r1 = ld4<kShared>(r + 4);
+    const int type = (int)r0.x;
+    float px = x - r0.z, py = y - r0.w, pz = z - r1.x;
+    if (r0.y > 0.5f) {
+      const float4 q = ld4<kShared>(r + 8);
+      rotate(&px, &py, &pz, q.x, q.y, q.z, q.w);
     }
-    const float sx = __ldg(r + 5), sy = __ldg(r + 6), sz = __ldg(r + 7);
+    const float sx = r1.y, sy = r1.z, sz = r1.w;
     float di;
     switch (type) {
       case kEllipsoid:
@@ -327,7 +357,7 @@ __device__ __forceinline__ float analytic_distance(const Analytic& s,
     d = fminf(d, di);
   }
   if (s.polygons.count > 0) {
-    d = fminf(d, polygons_distance(s.polygons, x, y, z));
+    d = fminf(d, polygons_distance<kShared>(s.polygons, x, y, z));
   }
   return d;
 }

@@ -16,10 +16,16 @@ of the arguments into lights (its first axis, when it has two or more)
 and points (the rest) and gives each argument an element stride per
 light, per point and per component, 0 where it is broadcast, so no
 argument is copied unless its broadcast cannot be written so (then one
-contiguous copy of it). `launch_plan` is pure and runs on the CPU;
-`cone_trace_cuda` launches the kernel or raises, and `block_plan` reports
-the launch's block on the card. The library is compiled from the
-repository's source at first use (`core/cuda_build`).
+contiguous copy of it). Where the rays are (L, H, W), a block takes a
+16 x 16 square of one light's points (`ray_blocks` is that map in
+PyTorch). Each field kind has its kernel instances (`INSTANCES`): the
+SdfVolume read from its packed taps (`packed_volume`, one launch a new
+volume; `pack_volume_reference` is its plain version), the
+AnalyticScene's arrays staged in shared memory or read from device
+memory, the ColumnField. `launch_plan` is pure and runs on
+the CPU; `cone_trace_cuda` launches the kernel or raises, and
+`block_plan` reports the launch's block on the card. The library is
+compiled from the repository's source at first use (`core/cuda_build`).
 """
 
 from __future__ import annotations
@@ -38,8 +44,16 @@ from ..sdf.volume import SdfVolume
 _SOURCE = cuda_build.CSRC / "cone_trace.cu"
 _LIBRARY = cuda_build.library_path(_SOURCE)
 
-# The source's FieldKind.
+# The field kinds of the source's table.
 FIELD_KINDS = {SdfVolume: 0, AnalyticScene: 1, ColumnField: 2}
+# The source's kernel instances (its Instance enum).
+INSTANCES = {"volume": 0, "analytic": 1, "column": 2, "analytic_global": 3}
+# The source's kThreads and kTile.
+THREADS = 256
+TILE = 16
+# The AnalyticScene's arrays go to shared memory up to this many bytes
+# (at most the source's kAnalyticSmemMax), else stay in device memory.
+ANALYTIC_SMEM_MAX = 48 * 1024
 # Floats of a primitive record (the source's kPrimitiveRecord): type,
 # rotated, center xyz, size xyz, quaternion xyzw.
 PRIMITIVE_RECORD = 12
@@ -47,8 +61,10 @@ PRIMITIVE_RECORD = 12
 RAY_ARGS = ("center", "radius", "ramp", "origin", "enable")
 
 # Launches since import (or since a caller reset it): the wrapper adds one
-# where it launches the kernel and nowhere else.
+# where it launches the march and nowhere else; PACK_LAUNCHES counts the
+# volume packs (`packed_volume`).
 LAUNCHES = 0
+PACK_LAUNCHES = 0
 
 _lib = None
 
@@ -63,11 +79,14 @@ def _library():
     if _lib is None:
         ptr = ctypes.c_void_p
         i64p = ctypes.POINTER(ctypes.c_longlong)
+        intp = ctypes.POINTER(ctypes.c_int)
         _lib = cuda_build.load(_SOURCE, _LIBRARY, {
             "cone_trace": [ctypes.POINTER(ctypes.c_void_p), i64p, i64p,
-                           ctypes.POINTER(ctypes.c_float), ptr],
-            "cone_trace_plan": [ctypes.c_int,
-                                ctypes.POINTER(ctypes.c_int)]})
+                           ctypes.POINTER(ctypes.c_float), ptr,
+                           ctypes.c_int],
+            "cone_trace_pack_volume": [ptr, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ptr, ptr],
+            "cone_trace_plan": [ctypes.c_int, ctypes.c_int, intp]})
     return _lib
 
 
@@ -117,10 +136,76 @@ def analytic_records(scene: AnalyticScene):
     return torch.cat(parts, dim=0).contiguous(), batched
 
 
+def pack_volume_reference(data):
+    """The plain version of the volume pack: (S, H, W, 4) float32, each
+    texel's taps (y, x), (y, x1), (y1, x), (y1, x1) of its slice with x1 =
+    min(x + 1, W - 1) and y1 = min(y + 1, H - 1), the four values
+    `sdf/sampling.py:sample` reads for a sample whose clipped floor is
+    (y, x)."""
+    _, h, w = data.shape
+    x1 = torch.clamp(torch.arange(w, device=data.device) + 1, max=w - 1)
+    y1 = torch.clamp(torch.arange(h, device=data.device) + 1, max=h - 1)
+    return torch.stack([data, data[:, :, x1], data[:, y1, :],
+                        data[:, y1][:, :, x1]], dim=-1)
+
+
+def pack_volume(data):
+    """One launch of the source's pack: `pack_volume_reference(data)` on
+    the card, (S, H, W, 4) float32. CUDA tensors only."""
+    global PACK_LAUNCHES
+    if data.device.type != "cuda" or data.dtype != torch.float32 or \
+            data.dim() != 3 or not data.is_contiguous():
+        raise ValueError("pack_volume: a contiguous (S, H, W) float32 CUDA "
+                         "tensor")
+    if data.numel() >= 2 ** 31:
+        raise ValueError(f"pack_volume: {data.numel()} elements reach 2^31")
+    out = torch.empty(tuple(data.shape) + (4,), dtype=torch.float32,
+                      device=data.device)
+    with torch.cuda.device(data.device):
+        err = _library().cone_trace_pack_volume(
+            data.data_ptr(), *data.shape, out.data_ptr(),
+            torch.cuda.current_stream(data.device).cuda_stream)
+    cuda_build.check(err, "cone_trace_pack_volume")
+    PACK_LAUNCHES += 1
+    return out
+
+
+def packed_volume(volume: SdfVolume):
+    """The volume's pack, built at the first march on it and kept on the
+    volume; built again once its data changes (another tensor, or the same
+    one written in place)."""
+    data = volume.data.to(torch.float32).contiguous()
+    key = (data.data_ptr(), data._version, tuple(data.shape))
+    kept = getattr(volume, "_tap_pack", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    pack = pack_volume(data)
+    object.__setattr__(volume, "_tap_pack", (key, pack))
+    return pack
+
+
+def analytic_smem_bytes(ints) -> int:
+    """Bytes of an AnalyticScene's arrays (its `field_scalars` ints:
+    count, batched, polygons, edges), as the source stages them."""
+    count, _, n_poly, edges = ints
+    return 4 * (count * PRIMITIVE_RECORD + 4 * n_poly * edges + 3 * n_poly)
+
+
+def instance_for(kind: int, f_ints) -> int:
+    """The kernel instance a launch on field `kind` takes."""
+    if kind == FIELD_KINDS[SdfVolume]:
+        return INSTANCES["volume"]
+    if kind == FIELD_KINDS[AnalyticScene]:
+        return INSTANCES["analytic" if analytic_smem_bytes(f_ints)
+                         <= ANALYTIC_SMEM_MAX else "analytic_global"]
+    return INSTANCES["column"]
+
+
 def field_scalars(volume):
     """The field's kind, its integer and float constants in the source's
     order, and the tensors whose pointers follow them (the ColumnField's
-    planar maps, which the launch packs first)."""
+    planar maps, which the launch packs first; the SdfVolume's data, whose
+    pack the launch builds or finds)."""
     kind = FIELD_KINDS.get(type(volume))
     if kind is None:
         raise TypeError(f"unsupported field {type(volume).__name__}")
@@ -176,21 +261,53 @@ def launch_plan(volume, light_center, light_radius, light_ramp_length,
     for s in shape:
         n *= int(s)
     points = n // lights if lights else 0
+    if n >= 2 ** 31:
+        raise ValueError(f"cone_trace: {n} rays reach 2^31")
     views, strides = {}, {}
     for name, t, vec in (("center", center, True), ("radius", radius, False),
                          ("ramp", ramp, False), ("origin", origin, True),
                          ("enable", enable, False)):
         views[name], strides[name] = _ray_view(t, shape, lights, points, vec)
+        reach = sum((size - 1) * stride for size, stride
+                    in zip(views[name].shape, views[name].stride()))
+        if reach >= 2 ** 31:
+            raise ValueError(f"cone_trace: {name} reaches 2^31 elements")
     kind, f_ints, f_floats, f_tensors = field_scalars(volume)
+    if any(t is not None and t.numel() >= 2 ** 31 for t in f_tensors):
+        raise ValueError("cone_trace: a field array reaches 2^31 elements")
+    # An (L, H, W) ray shape: a block takes a 16 x 16 square of a light's
+    # (H, W) points (else 256 rays in order).
+    image = (int(shape[1]), int(shape[2])) if len(shape) == 3 else (0, 0)
     q = quality
-    ints = [lights, points, kind, int(q.max_step_count), int(bool(raw))] \
-        + [int(v) for v in f_ints]
+    ints = [lights, points, kind, int(q.max_step_count), int(bool(raw)),
+            *image] + [int(v) for v in f_ints]
     floats = [max(1.0, q.min_step_size), q.long_step_factor,
               q.max_cone_radius, q.cone_growth_factor,
               q.occlusion_to_opacity_power] + f_floats
     return dict(shape=tuple(shape), lights=lights, points=points,
                 views=views, strides=strides, kind=kind, ints=ints,
-                floats=[float(v) for v in floats], field_tensors=f_tensors)
+                floats=[float(v) for v in floats], field_tensors=f_tensors,
+                instance=instance_for(kind, f_ints), image=image)
+
+
+def ray_blocks(plan) -> torch.Tensor:
+    """The rays each block of a launch takes, as the source maps its
+    threads: (blocks, THREADS) int64 ray indices l * points + p, -1 for a
+    thread past the rays or outside the image. With the plan's `image`
+    (H, W) a block takes a 16 x 16 square of one light's points, blocks
+    ordered light, tile row, tile column; else 256 rays in order. Pure."""
+    lights, points = plan["lights"], plan["points"]
+    h, w = plan["image"]
+    if w == 0:
+        i = torch.arange(-(-lights * points // THREADS) * THREADS)
+        return torch.where(i < lights * points, i, -1).reshape(-1, THREADS)
+    tiles_y, tiles_x = -(-h // TILE), -(-w // TILE)
+    b = torch.arange(lights * tiles_y * tiles_x)[:, None]
+    t = torch.arange(THREADS)[None]
+    light, rest = b // (tiles_y * tiles_x), b % (tiles_y * tiles_x)
+    y = rest // tiles_x * TILE + t // TILE
+    x = rest % tiles_x * TILE + t % TILE
+    return torch.where((y < h) & (x < w), light * points + y * w + x, -1)
 
 
 def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
@@ -199,7 +316,8 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
     """One K12 launch on the current stream -> the visibility of the
     broadcast ray shape (and, `with_steps`, each ray's steps left, as
     float32). CUDA tensors only; a ColumnField's maps are packed first
-    (`columns_kernel.pack_maps`, one launch)."""
+    (`columns_kernel.pack_maps`, one launch), an SdfVolume's taps at the
+    first march on it (`packed_volume`, one launch)."""
     global LAUNCHES
     plan = launch_plan(volume, light_center, light_radius, light_ramp_length,
                        shaded_position, enable, quality, raw)
@@ -218,6 +336,8 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
     field_tensors = plan["field_tensors"]
     if plan["kind"] == FIELD_KINDS[ColumnField]:
         field_tensors = [columns_kernel.pack_maps(field_tensors[0])]
+    elif plan["kind"] == FIELD_KINDS[SdfVolume]:
+        field_tensors = [packed_volume(volume), field_tensors[1]]
     ptr_list = [plan["views"][name].data_ptr() for name in RAY_ARGS]
     ptr_list += [out.data_ptr(), None if steps is None else steps.data_ptr()]
     ptr_list += [None if t is None else t.data_ptr() for t in field_tensors]
@@ -229,21 +349,24 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
     with torch.cuda.device(dev):
         err = _library().cone_trace(
             ptrs, strides, ints, floats,
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, plan["instance"])
     cuda_build.check(err, "cone_trace")
     LAUNCHES += 1
     return (out, steps) if with_steps else out
 
 
 def block_plan(volume) -> dict:
-    """The block of a K12 launch on `volume`'s field kind, on the current
-    card: threads, registers and spilled bytes a thread, resident blocks
-    an SM."""
-    kind = FIELD_KINDS.get(type(volume))
-    if kind is None:
-        raise TypeError(f"unsupported field {type(volume).__name__}")
+    """The block of a K12 launch on `volume`, on the current card: the
+    kernel instance, threads, shared memory, registers and spilled bytes
+    a thread, resident blocks an SM."""
+    kind, f_ints, _, _ = field_scalars(volume)
+    instance = instance_for(kind, f_ints)
+    smem = analytic_smem_bytes(f_ints) \
+        if instance == INSTANCES["analytic"] else 0
     out = (ctypes.c_int * 4)()
-    cuda_build.check(_library().cone_trace_plan(kind, out),
+    cuda_build.check(_library().cone_trace_plan(instance, smem, out),
                      "cone_trace_plan")
-    return dict(zip(("threads", "registers", "spill_bytes",
-                     "blocks_per_sm"), out))
+    name = next(k for k, v in INSTANCES.items() if v == instance)
+    return dict(instance=name, smem_bytes=smem,
+                **dict(zip(("threads", "registers", "spill_bytes",
+                            "blocks_per_sm"), out)))

@@ -9,12 +9,12 @@ past their tile. The port computes the same additive image as a direct
 splat: each live on-screen particle adds color x wy(row) x wx(col) of the
 same coverage profile (`_profile`) to every pixel of its footprint that
 lies inside its tile's window. `rasterize_tiled` dispatches by device: on
-the card one launch of the Hopper kernel K5 (`splat_kernel.splat_cuda`,
-one thread a particle over its own support, float atomics, no host
-read), on the CPU its plain version `rasterize_tiled_reference`. The
-sort-key packing, rgba8 / compact payloads, the int8 splat and the
-overflow level are TPU machinery and are not ported, so colors,
-positions and sizes stay float32 (the JAX fast
+the card the Hopper kernel K5 (`splat_kernel.splat_cuda`: the
+particles binned by tile and each tile's window accumulated in shared
+memory, three launches, no host read), on the CPU its plain version
+`rasterize_tiled_reference`. The sort-key packing, rgba8 / compact
+payloads, the int8 splat and the overflow level are TPU machinery and
+are not ported, so colors, positions and sizes stay float32 (the JAX fast
 preset quantizes them: tiled.py:544, 659, 693) and no particle is ever
 dropped for bin capacity. The parity preset (the round kernel with float
 colours, scenes.py:544-550) is the same splat with `kernel="round"`; the
@@ -120,8 +120,8 @@ def rasterize_tiled(cfg: TiledRasterConfig, x, y, color, size, live,
     RasterizeParticleSystem.fx:101-110, phase `cfg.stipple_offset`), a
     mask on `live` before the splat.
 
-    On the card one K5 launch, no host read; on the CPU the plain
-    version."""
+    On the card one K5 splat (three launches), no host read; on the
+    CPU the plain version."""
     if not (isinstance(stipple_factor, (int, float))
             and stipple_factor >= 1.0):
         live = live & stipple_keep(x.shape[0], stipple_factor,

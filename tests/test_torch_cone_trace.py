@@ -34,6 +34,7 @@ from illuminant_tpu_torch.lighting.cone_trace import (cone_trace,
 from illuminant_tpu_torch.ops import sdf_primitives as sp
 from illuminant_tpu_torch.sdf import analytic, columns
 from illuminant_tpu_torch.sdf import height_volume as hv
+from illuminant_tpu_torch.sdf import sampling as vol_sampling
 from illuminant_tpu_torch.sdf.volume import SdfVolume
 from test_torch_columns import sampler_rounding_like_jax
 
@@ -264,6 +265,8 @@ def test_launch_plan_field_scalars(fields, name):
     c, r, ramp, s, e = (torch.as_tensor(a) for a in rays(1, False))
     plan = ctk.launch_plan(ft, c, r, ramp, s, e, q, raw=True)
     assert plan["ints"][:5] == [3, GRID[0] * GRID[1], plan["kind"], 40, 1]
+    # The (L, H, W) rays: a block takes a square of a light's points.
+    assert plan["ints"][5:7] == list(GRID) and plan["image"] == GRID
     # min_step is max(1, min_step_size), as in the plain version.
     assert plan["floats"][:5] == [1.0, q.long_step_factor, q.max_cone_radius,
                                   q.cone_growth_factor, 2.0]
@@ -274,9 +277,9 @@ def test_launch_plan_field_scalars(fields, name):
         batched = sum(ft._counts()) > ft._UNROLL_LIMIT
         n = (sum(int(c_.shape[0]) for c_ in ft.centers) if batched
              else sum(ft._counts()))
-        assert plan["ints"][5:7] == [n, int(batched)]
+        assert plan["ints"][7:9] == [n, int(batched)]
         assert records.shape == (n, ctk.PRIMITIVE_RECORD)
-        assert plan["ints"][7] == (0 if ft.polygons is None
+        assert plan["ints"][9] == (0 if ft.polygons is None
                                    else ft.polygons.capacity)
         assert plan["floats"][5] == ft.maximum_distance
         # The records hold each primitive in `distance_p`'s walk order
@@ -293,8 +296,8 @@ def test_launch_plan_field_scalars(fields, name):
                 assert torch.equal(row[8:12], ft.rotations[gi][i])
     elif kind == 0:
         cfg = ft.config
-        assert plan["ints"][5:8] == [cfg.slice_count, cfg.slice_height,
-                                     cfg.slice_width]
+        assert plan["ints"][7:10] == [cfg.slice_count, cfg.slice_height,
+                                      cfg.slice_width]
     else:
         assert plan["floats"][5:] == [float(v) for v in
                                       columns.query_geometry(ft)]
@@ -324,3 +327,91 @@ def test_plain_march_reports_steps():
     assert steps.shape == vis.shape
     assert (steps[~e] == q.max_step_count).all()
     assert (steps[e] < q.max_step_count).all() and (steps >= 0).all()
+
+
+@pytest.mark.parametrize("case", CASES + ["odd", "flat"])
+def test_ray_blocks_take_every_ray_once(case):
+    """The kernel's thread-to-ray map (`ray_blocks`) on every broadcast
+    pattern, on an odd image whose 16 x 16 ray tiles are partial and on
+    the same rays flattened to (L, H x W): every ray is taken by exactly
+    one thread, a tiled block holds one light's points, and only (L, H, W)
+    rays tile."""
+    if case == "flat":
+        c, r, ramp, s, e = (torch.as_tensor(a) for a in rays(4, True, 2))
+        args = (c.flatten(1, 2), r.flatten(1), ramp.flatten(1),
+                s.flatten(1, 2), e.flatten(1))
+    elif case == "odd":
+        c, r, ramp, s, e = (torch.as_tensor(a) for a in rays(4, False, 2))
+        args = (c, r, ramp, s[:, :23, :37], e[:, :23, :37])
+    else:
+        args = _broadcast_args(case)
+    plan = ctk.launch_plan(analytic_pair("types")[1], *args,
+                           QualitySettings())
+    shape = plan["shape"]
+    tiled_ = len(shape) == 3
+    assert plan["image"] == (tuple(shape[1:]) if tiled_ else (0, 0))
+    blocks = ctk.ray_blocks(plan)
+    assert blocks.shape[1] == ctk.THREADS
+    taken = blocks[blocks >= 0]
+    n = plan["lights"] * plan["points"]
+    assert torch.equal(torch.sort(taken).values, torch.arange(n))
+    if tiled_:
+        light = torch.where(blocks >= 0, blocks // plan["points"], -1)
+        assert bool(((light == light.amax(1, keepdim=True))
+                     | (light < 0)).all())
+
+
+def test_volume_pack_holds_the_taps_sample_reads():
+    """The volume pack's plain version (`pack_volume_reference`) holds, at
+    each sample's clipped floor texel, exactly the four taps
+    `sdf/sampling.py:sample` reads from each of its two slices: points
+    inside, on and past every face and edge of the box."""
+    _, vol = volume_pair("types")
+    c = vol.config
+    data = vol.data
+    pack = ctk.pack_volume_reference(data)
+    assert pack.shape == data.shape + (4,)
+    rng = np.random.default_rng(12)
+    ex, ey, ez = float(c.virtual_width), float(c.virtual_height), \
+        float(c.virtual_depth)
+    pts = rng.uniform((-8, -8, -8), (ex + 8, ey + 8, ez + 8), (4000, 3))
+    edges = np.array([[0, 0, 0], [ex, ey, ez], [ex, 0, 0], [0, ey, ez],
+                      [ex - 1e-4, ey - 1e-4, 0.5], [ex + 3, -3, ez + 3]])
+    p = torch.as_tensor(np.concatenate([pts, edges]).astype(np.float32))
+    cx = torch.clamp(p[:, 0], 0.0, ex)
+    cy = torch.clamp(p[:, 1], 0.0, ey)
+    cz = torch.clamp(p[:, 2] - c.z_offset, 0.0, ez)
+    s0 = torch.clamp(torch.floor(torch.minimum(cz, vol.max_valid_z)
+                                 * (c.slice_count / ez)).long(), 0,
+                     c.slice_count - 1)
+    x0 = torch.clamp(torch.floor(cx * c.scale_x - 0.5).long(), 0,
+                     c.slice_width - 1)
+    y0 = torch.clamp(torch.floor(cy * c.scale_y - 0.5).long(), 0,
+                     c.slice_height - 1)
+    x1 = torch.clamp(x0 + 1, 0, c.slice_width - 1)
+    y1 = torch.clamp(y0 + 1, 0, c.slice_height - 1)
+    assert bool((x1 == x0).any() and (y1 == y0).any())  # edges reached
+    slabs = []
+    for s in (s0, torch.clamp(s0 + 1, 0, c.slice_count - 1)):
+        want = torch.stack([data[s, y0, x0], data[s, y0, x1],
+                            data[s, y1, x0], data[s, y1, x1]], dim=-1)
+        q = pack[s, y0, x0]
+        assert torch.equal(q, want)
+        slabs.append(q)
+    # The sample rebuilt from the packed taps is `sample`'s, bit for bit.
+    tx, ty = cx * c.scale_x - 0.5, cy * c.scale_y - 0.5
+    wx, wy = tx - torch.floor(tx), ty - torch.floor(ty)
+    sp = torch.minimum(cz, vol.max_valid_z) * (c.slice_count / ez)
+    sw = sp - torch.floor(sp)
+    a, b = ((q[:, 0] + (q[:, 1] - q[:, 0]) * wx,
+             q[:, 2] + (q[:, 3] - q[:, 2]) * wx) for q in slabs)
+    a, b = (t + (u - t) * wy for t, u in (a, b))
+    d = torch.stack([-torch.clamp(p[:, 0], max=0.0)
+                     + torch.clamp(p[:, 0] - ex, min=0.0),
+                     -torch.clamp(p[:, 1], max=0.0)
+                     + torch.clamp(p[:, 1] - ey, min=0.0),
+                     -torch.clamp(p[:, 2] - c.z_offset, max=0.0)
+                     + torch.clamp(p[:, 2] - c.z_offset - ez, min=0.0)])
+    out = a + (b - a) * sw + torch.sqrt(d[0] * d[0] + d[1] * d[1]
+                                        + d[2] * d[2])
+    assert torch.equal(out, vol_sampling.sample(vol, p))

@@ -30,6 +30,7 @@ from illuminant_tpu_torch.lighting.cone_trace import (cone_trace,
 from illuminant_tpu_torch.ops import sdf_primitives as sp
 from illuminant_tpu_torch.sdf import height_volume as hv
 from illuminant_tpu_torch.sdf.analytic import pack_scene
+from illuminant_tpu_torch.sdf import volume as tvol
 from illuminant_tpu_torch.sdf.columns import build_column_maps
 from illuminant_tpu_torch.sdf.volume import SdfVolumeConfig, generate_volume
 
@@ -90,9 +91,9 @@ FIELDS = ["analytic_types", "analytic_rotated", "analytic_polygons",
           "analytic_many", "volume", "column", "column_stacked"]
 
 
-def rays(device, per_point=False, lights=4, seed=0):
+def rays(device, per_point=False, lights=4, seed=0, grid=GRID):
     rng = np.random.default_rng(seed)
-    h, w = GRID
+    h, w = grid
     ys, xs = np.meshgrid((np.arange(h) + 0.5) * H / h,
                          (np.arange(w) + 0.5) * W / w, indexing="ij")
     shaded = np.stack([xs, ys, np.full_like(xs, 1.6)], -1)[None]
@@ -191,3 +192,94 @@ def test_cuda_is_repeatable_and_reports_its_plan():
     for name in ("volume", "analytic_types", "column"):
         plan = ctk.block_plan(field(name, "cuda"))
         assert plan["threads"] == 256 and plan["blocks_per_sm"] >= 1
+
+
+def flat(args):
+    """The rays of `rays` flattened from (L, H, W) to (L, H x W): the same
+    rays, launched in order rather than in 16 x 16 tiles."""
+    c, r, ramp, s, e = args
+    return (c.flatten(1, 2), r.flatten(1), ramp.flatten(1), s.flatten(1, 2),
+            e.flatten(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["rays_in_order", "analytic_global"])
+@pytest.mark.parametrize("name", FIELDS)
+def test_cuda_paths_are_bit_equal(name, path, monkeypatch):
+    """Every path of a field computes the same arithmetic: the rays in
+    16 x 16 tiles and in order, the AnalyticScene staged in shared memory
+    and read from device memory; outputs and steps equal bit for bit."""
+    _needs_card()
+    f = field(name, "cuda")
+    args = rays("cuda", per_point=True, seed=3)
+    q = QualitySettings()
+    out, steps = ctk.cone_trace_cuda(f, *args, q, with_steps=True)
+    if path == "rays_in_order":
+        assert ctk.launch_plan(f, *flat(args), q)["image"] == (0, 0)
+        other, other_steps = ctk.cone_trace_cuda(f, *flat(args), q,
+                                                 with_steps=True)
+        other, other_steps = other.reshape(out.shape), \
+            other_steps.reshape(out.shape)
+    else:
+        default = ctk.launch_plan(f, *args, q)["instance"]
+        monkeypatch.setattr(ctk, "ANALYTIC_SMEM_MAX", 0)
+        if name.startswith("analytic"):
+            assert (default, ctk.launch_plan(f, *args, q)["instance"]) == (
+                ctk.INSTANCES["analytic"], ctk.INSTANCES["analytic_global"])
+        other, other_steps = ctk.cone_trace_cuda(f, *args, q,
+                                                 with_steps=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, other) and torch.equal(steps, other_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["volume", "analytic_polygons", "column"])
+def test_cuda_odd_counts_and_partial_tiles(name):
+    """An odd ray image (partial 16 x 16 tiles on two sides) and an odd
+    ray count in order (the probes' (L, N) pattern) against the plain
+    loop."""
+    _needs_card()
+    f = field(name, "cuda")
+    q = QualitySettings()
+    c, r, ramp, s, e = rays("cuda", grid=(37, 53), lights=3, seed=5)
+    for args in ((c, r, ramp, s, e),
+                 (c[:, 0], r[:, 0], ramp[:, 0], s[:, 0, :29],
+                  e[:, 0, :29])):
+        out = cone_trace(f, *args, q)
+        ref = cone_trace_reference(f, *args, q)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and within_bound(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_pack_follows_the_volume():
+    """The volume's pack equals its plain version bit for bit, is built
+    once a volume, again for the volume a budgeted update returns (and
+    after an in-place write), and the march on it agrees with the plain
+    loop on the new field."""
+    _needs_card()
+    vol = field("volume", "cuda")
+    args = rays("cuda")
+    q = QualitySettings()
+    before = ctk.PACK_LAUNCHES
+    cone_trace(vol, *args, q)
+    cone_trace(vol, *args, q)
+    assert ctk.PACK_LAUNCHES == before + 1
+    assert torch.equal(ctk.packed_volume(vol),
+                       ctk.pack_volume_reference(vol.data))
+    env = tenv.LightingEnvironment()
+    env.obstructions += _obstructions("rotated", seed=4)
+    slab = tvol.generate_slab(vol.config, env.pack_obstructions(
+        device="cuda"), 2, 2)
+    new = tvol.update_slices(vol, 2, slab)
+    out = cone_trace(new, *args, q)
+    assert ctk.PACK_LAUNCHES == before + 2
+    assert torch.equal(ctk.packed_volume(new),
+                       ctk.pack_volume_reference(new.data))
+    ref = cone_trace_reference(new, *args, q)
+    torch.cuda.synchronize()
+    assert within_bound(out, ref)
+    new.data[0].add_(1.0)  # in place: the pack is built again
+    assert torch.equal(ctk.packed_volume(new),
+                       ctk.pack_volume_reference(new.data))
+    assert ctk.PACK_LAUNCHES == before + 3

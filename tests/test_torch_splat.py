@@ -103,8 +103,14 @@ def test_launch_plan():
     plan = splat_kernel.launch_plan(cfg, pos[:, 0], pos[:, 1], color, size,
                                     live)
     assert plan["strides"] == [4, 4, 1, 1, 4, 1]
+    # The round profile reaches r + 0.5 <= 4: 2 x 5 + 1 taps at most; the
+    # 22 rows of 22 pixels of 3 channels (and 4 floats a row) and a batch
+    # of 256 particles in 256 x (40 + 8 x 11) bytes.
     assert plan["ints"] == [n, 40, 70, 16, 3, 3, 5, 3,
-                            splat_kernel.KERNELS["round"]]
+                            splat_kernel.KERNELS["round"], splat_kernel.CHUNK,
+                            256, 11, splat_kernel.DIRECT,
+                            splat_kernel.LANES["round"]]
+    assert plan["smem_bytes"] == 4 * 22 * (22 * 3 + 4) + 256 * (40 + 8 * 11)
     with pytest.raises(ValueError, match="color"):
         splat_kernel.launch_plan(cfg, pos[:, 0], pos[:, 1], color[:, :2],
                                  size, live)
@@ -130,3 +136,172 @@ def test_splat_terms_counts_the_nonzero_footprint():
     assert int(count.max()) == 1
     both = tiled.splat_terms(cfg, x, y, size, torch.ones(2, dtype=bool))
     assert int(both.sum()) > int(count.sum())
+
+
+def _edge_particles(cfg):
+    """Particles on tile edges, at negative coordinates, just inside and
+    just outside the on-screen band, off-screen and dead."""
+    t, a = cfg.tile, cfg.apron
+    xs = [0.0, t - 1e-3, float(t), t + 1e-3, 2.0 * t, -0.5, -a - 0.99,
+          -a - 1.0, cfg.width - 1e-3, cfg.width + a + 0.99,
+          cfg.width + a + 1.0, 50.0, 50.0, 1e4, -1e4]
+    ys = [0.0, float(t), t - 1e-3, 3.0 * t, -3.0, cfg.height + a + 0.5,
+          10.0, 10.0, cfg.height - 0.5, 5.0, 5.0, -a - 0.99, 20.0, 20.0,
+          20.0]
+    live = [True] * 13 + [True, False]
+    live[12] = False
+    return (torch.tensor(xs, dtype=torch.float32),
+            torch.tensor(ys, dtype=torch.float32), torch.tensor(live))
+
+
+def _direct_bins(cfg, x, y, live):
+    """Each slot's tile by a direct loop in Python: the on-screen band
+    (-(A + 1), extent + A + 1), the tile by truncation toward zero,
+    clipped to the grid."""
+    gy, gx = cfg.grid
+    a, t = cfg.apron, cfg.tile
+    tiles = []
+    for xi, yi, li in zip(x.tolist(), y.tolist(), live.tolist()):
+        np_x, np_y = np.float32(xi), np.float32(yi)
+        on = li and -(a + 1) < np_x < cfg.width + a + 1 and \
+            -(a + 1) < np_y < cfg.height + a + 1
+        if not on:
+            tiles.append(-1)
+            continue
+        tx = min(max(int(np.float32(np_x / np.float32(t))), 0), gx - 1)
+        ty = min(max(int(np.float32(np_y / np.float32(t))), 0), gy - 1)
+        tiles.append(ty * gx + tx)
+    return tiles
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 1024])
+def test_bin_plan_matches_a_direct_count(chunk):
+    """K5's bins (`splat_kernel.bin_plan`, the kernel's plan in PyTorch)
+    against a direct count on edge cases and a hot tile: each slot's tile,
+    the counts, the offsets, and a chunk table that covers each tile's
+    list once in pieces of at most `chunk`."""
+    cfg = tiled.TiledRasterConfig(height=70, width=100, tile=16, apron=3)
+    ex, ey, el = _edge_particles(cfg)
+    rng = np.random.default_rng(8)
+    hot = torch.full((80,), 37.5)  # 80 particles in one tile
+    x = torch.cat([ex, torch.as_tensor(rng.uniform(-6, 106, 300).astype(
+        np.float32)), hot])
+    y = torch.cat([ey, torch.as_tensor(rng.uniform(-6, 76, 300).astype(
+        np.float32)), hot])
+    live = torch.cat([el, torch.as_tensor(rng.random(300) > 0.2),
+                      torch.ones(80, dtype=torch.bool)])
+    plan = splat_kernel.bin_plan(cfg, x, y, live, chunk)
+    want = _direct_bins(cfg, x, y, live)
+    assert plan["tile"].tolist() == want
+    nt = cfg.grid[0] * cfg.grid[1]
+    counts = [sum(1 for t in want if t == k) for k in range(nt)]
+    assert plan["counts"].tolist() == counts
+    assert plan["offsets"].tolist() == [sum(counts[:k])
+                                        for k in range(nt + 1)]
+    per = [-(-c // chunk) for c in counts]
+    assert plan["chunk_offsets"].tolist() == [sum(per[:k])
+                                              for k in range(nt + 1)]
+    covered = [0] * int(plan["offsets"][-1])
+    for tile, first, end in plan["chunks"].tolist():
+        assert plan["offsets"][tile] <= first < end <= \
+            plan["offsets"][tile + 1] and end - first <= chunk
+        for e in range(first, end):
+            covered[e] += 1
+    assert covered == [1] * len(covered)
+    hot_tile = want[-1]
+    assert counts[hot_tile] >= 80
+    if chunk < 80:
+        assert per[hot_tile] >= 2  # the hot tile splits over blocks
+    assert want[:15].count(-1) == 5  # off the band, off-screen, dead
+
+
+@pytest.mark.parametrize("chunk", [2, 64])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_binned_accumulation_matches_plain(kernel, chunk):
+    """K5's accumulation in PyTorch (`splat_binned_reference`: particles in
+    tile order, each chunk in its tile's window, windows added) against
+    the plain splat, within the reordering bound n_max x 2^-23 x max, on
+    a cloud with a hot tile split into chunks and partial edge tiles."""
+    from test_torch_splat_cuda import cloud, config, sum_bound
+
+    cfg = config(kernel, channels=3, tile=16, apron=3)
+    args = cloud(1500, "cpu", seed=5, pile=300)
+    ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
+    out = splat_kernel.splat_binned_reference(cfg, *args, chunk=chunk)
+    assert out.shape == ref.shape
+    err = float((out - ref).abs().max())
+    assert err <= sum_bound(cfg, args, ref), err
+    # One particle a call: a single term a pixel, bit for bit.
+    one = tuple(a[7:8] for a in args[:2]) + (args[2][7:8], args[3][7:8],
+                                             torch.tensor([True]))
+    a, _ = tiled.rasterize_tiled_reference(cfg, *one)
+    assert torch.equal(
+        splat_kernel.splat_binned_reference(cfg, *one, chunk=chunk), a)
+
+
+def test_launch_plan_sizes_scratch_from_n_and_the_grid():
+    """The scratch and the accumulation's grid come from n and the grid
+    alone: bins 3 (tiles + 1) and the chunk table, slots 2n, records 8n,
+    ceil(n / chunk) + tiles blocks; the batch from what a block's shared
+    memory holds."""
+    n = 1000
+    x = torch.zeros(n)
+    live = torch.zeros(n, dtype=torch.bool)
+    cfg = tiled.TiledRasterConfig(height=1080, width=1920)
+    plan = splat_kernel.launch_plan(cfg, x, x, torch.zeros(n, 4), x, live,
+                                    chunk=256)
+    assert plan["tiles"] == 34 * 60
+    assert plan["scratch"] == dict(bins=3 * (2040 + 1) + 4 + 2040,
+                                   slots=2 * n, records=8 * n)
+    assert plan["blocks"] == 4 + 2040
+    # gauss at apron 4 reaches 2 x 4.5: profiles of 2 x 10 + 1 taps; the
+    # window (40 rows of 40 x 4 + 4 floats) and 128 particles' headers and
+    # profiles in a block's shared memory.
+    assert (plan["batch"], plan["taps"]) == (128, 21)
+    assert plan["smem_bytes"] == 4 * 40 * 164 + 128 * (40 + 8 * 21)
+    assert plan["smem_bytes"] <= splat_kernel.BATCH_SMEM_BYTES
+    # An apron of 9 (the sprite cells'): 41-tap profiles, batches of 32.
+    wide = tiled.TiledRasterConfig(height=1080, width=1920, apron=9)
+    assert (splat_kernel.batch_size(wide),
+            splat_kernel.profile_taps(wide)) == (32, 41)
+    with pytest.raises(ValueError, match="chunk"):
+        splat_kernel.launch_plan(wide, x, x, torch.zeros(n, 4), x, live,
+                                 chunk=0)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_profile_taps_bound_every_footprint(kernel):
+    """The profile scratch a particle gets (`profile_taps`, computed on the
+    host) holds the widest clipped footprint: 2 `support_taps` + 1 taps
+    at the largest radius (apron + 0.5), at most the window's side."""
+    for apron in (0, 1, 3, 4, 9):
+        cfg = tiled.TiledRasterConfig(height=64, width=64, apron=apron,
+                                      kernel=kernel)
+        radius = torch.linspace(0.5, apron + 0.5, 50)
+        k = int(splat_kernel.support_taps(kernel, radius).max())
+        assert splat_kernel.profile_taps(cfg) == min(32 + 2 * apron,
+                                                     2 * k + 1)
+
+
+def test_launch_plan_reads_nothing_back():
+    """The plan is sized on the host from the shapes and the config: no
+    tensor is read back (an `item` on the card would drain the queue)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Reads(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._local_scalar_dense.default:
+                Reads.n += 1
+            return func(*args, **(kwargs or {}))
+
+    n = 300
+    pos = torch.rand(n, 4)
+    cfg = tiled.TiledRasterConfig(height=50, width=70, kernel="gauss",
+                                  channels=3)
+    with Reads():
+        plan = splat_kernel.launch_plan(cfg, pos[:, 0], pos[:, 1],
+                                        torch.rand(n, 4), torch.rand(n),
+                                        torch.rand(n) > 0.5)
+    assert Reads.n == 0 and plan["n"] == n

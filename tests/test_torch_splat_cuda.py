@@ -79,7 +79,7 @@ def _needs_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_cuda_matches_plain(kernel, channels):
     _needs_card()
@@ -88,7 +88,8 @@ def test_cuda_matches_plain(kernel, channels):
     before = splat_kernel.LAUNCHES
     out, diag = tiled.rasterize_tiled(cfg, *args)
     torch.cuda.synchronize()
-    assert splat_kernel.LAUNCHES == before + 1 and diag["dropped"] == 0
+    assert splat_kernel.LAUNCHES == before + splat_kernel.LAUNCHES_PER_SPLAT
+    assert diag["dropped"] == 0
     ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
     assert out.shape == ref.shape == (H, W, channels)
     err = float((out - ref).abs().max())
@@ -140,3 +141,131 @@ def test_cuda_reads_nothing_back():
             tiled.rasterize_tiled_reference(cfg, *args)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, None])
+@pytest.mark.parametrize("kernel", ["quad", "gauss"])
+def test_cuda_clustered_cloud_over_chunks(kernel, chunk):
+    """A cloud piled into one tile (5,000 particles on a few pixels), its
+    list cut into chunks that several blocks accumulate: within the
+    bound, and the kernels' bins equal `bin_plan`'s."""
+    _needs_card()
+    cfg = config(kernel, 3)
+    args = cloud(4000, "cuda", seed=9, pile=5000)
+    out, bins = splat_kernel.splat_cuda(cfg, *args, chunk=chunk, debug=True)
+    ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= sum_bound(cfg, args, ref)
+    plan = splat_kernel.bin_plan(cfg, args[0], args[1], args[4], chunk)
+    for key in ("counts", "offsets", "chunk_offsets"):
+        assert torch.equal(bins[key].long(), plan[key]), key
+    chunks = plan["chunks"].shape[0]
+    assert torch.equal(bins["chunk_tiles"][:chunks].long(),
+                       plan["chunks"][:, 0])
+    assert int(plan["counts"].max()) >= 4000
+    assert int(plan["chunk_offsets"][-1]) > plan["counts"].numel() // 2
+
+
+@pytest.mark.cuda
+def test_cuda_all_dead_and_all_off_screen():
+    """No particle binned: the three launches run and the image is 0."""
+    _needs_card()
+    cfg = config("gauss", 4)
+    x, y, color, size, live = cloud(3000, "cuda")
+    before = splat_kernel.LAUNCHES
+    for args in ((x, y, color, size, torch.zeros_like(live)),
+                 (x + 1e4, y, color, size, live)):
+        out, bins = splat_kernel.splat_cuda(cfg, *args, debug=True)
+        torch.cuda.synchronize()
+        assert not bool(out.any()) and int(bins["offsets"][-1]) == 0
+    assert splat_kernel.LAUNCHES == before + 2 * \
+        splat_kernel.LAUNCHES_PER_SPLAT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_cuda_tile_edges_are_bit_equal(kernel):
+    """One particle on each tile edge, at the frame's edges, at negative
+    coordinates and just inside the on-screen band, one call each: a
+    single term a pixel, so the image equals the plain one exactly."""
+    _needs_card()
+    cfg = config(kernel, 4, tile=16, apron=3)
+    t = 16.0
+    for xy in ((t, 2 * t), (t - 1e-3, t + 1e-3), (0.0, 0.0), (-0.5, -2.0),
+               (-4.99, 50.0), (W - 1e-3, H - 1e-3), (W + 4.5, 30.0),
+               (3 * t, H + 3.9)):
+        args = (torch.tensor([xy[0]], device="cuda"),
+                torch.tensor([xy[1]], device="cuda"),
+                torch.tensor([[0.7, 1.3, 0.2, 0.9]], device="cuda"),
+                torch.tensor([7.0], device="cuda"),
+                torch.tensor([True], device="cuda"))
+        out, _ = tiled.rasterize_tiled(cfg, *args)
+        ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), xy
+
+
+@pytest.mark.cuda
+def test_cuda_reports_its_block():
+    """The accumulation's block on the card: the window and profiles in
+    shared memory, no spills, several blocks an SM at the flagship's
+    window."""
+    _needs_card()
+    cfg = tiled.TiledRasterConfig(height=1080, width=1920, channels=3)
+    plan = splat_kernel.block_plan(cfg)
+    assert plan["threads"] == splat_kernel.THREADS
+    assert plan["smem_bytes"] == splat_kernel.accumulate_smem(
+        splat_kernel.batch_size(cfg), splat_kernel.profile_taps(cfg), 40, 3)
+    assert plan["spill_bytes"] == 0 and plan["blocks_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_cuda_sparse_tiles_add_directly(kernel):
+    """A tile of at most DIRECT particles adds its terms to the image
+    directly, the others through their windows: a sparse cloud (every
+    tile direct) and the sparse cloud beside a pile (both in one splat),
+    within the bound, with the bins `bin_plan` gives."""
+    _needs_card()
+    cfg = config(kernel, 3)
+    for pile in (0, 400):
+        args = cloud(150, "cuda", seed=11, pile=pile)
+        out, bins = splat_kernel.splat_cuda(cfg, *args, debug=True)
+        ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
+        torch.cuda.synchronize()
+        assert float((out - ref).abs().max()) <= sum_bound(cfg, args, ref)
+        plan = splat_kernel.bin_plan(cfg, args[0], args[1], args[4])
+        for key in ("counts", "offsets", "chunk_offsets"):
+            assert torch.equal(bins[key].long(), plan[key]), key
+        dense = int((plan["counts"] > splat_kernel.DIRECT).sum())
+        assert (dense == 0) == (pile == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_many_tiles_rank_per_warp():
+    """More tiles than a bin block counts in shared memory (8-px tiles at
+    1080p: 32,400): each warp ranks its slots against the device counts;
+    within the bound, with the bins `bin_plan` gives."""
+    _needs_card()
+    cfg = tiled.TiledRasterConfig(height=1080, width=1920, tile=8, apron=2,
+                                  kernel="gauss", channels=3)
+    rng = np.random.default_rng(21)
+    n = 30000
+    args = (torch.as_tensor(rng.uniform(-4, 1924, n).astype(np.float32),
+                            device="cuda"),
+            torch.as_tensor(rng.uniform(-4, 1084, n).astype(np.float32),
+                            device="cuda"),
+            torch.as_tensor(rng.uniform(0, 2, (n, 3)).astype(np.float32),
+                            device="cuda"),
+            torch.as_tensor(rng.uniform(0.5, 6, n).astype(np.float32),
+                            device="cuda"),
+            torch.as_tensor(rng.random(n) > 0.1, device="cuda"))
+    assert cfg.grid[0] * cfg.grid[1] > 12288
+    out, bins = splat_kernel.splat_cuda(cfg, *args, debug=True)
+    ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= sum_bound(cfg, args, ref)
+    plan = splat_kernel.bin_plan(cfg, args[0], args[1], args[4])
+    for key in ("counts", "offsets", "chunk_offsets"):
+        assert torch.equal(bins[key].long(), plan[key]), key
