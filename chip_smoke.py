@@ -174,7 +174,7 @@ The march and the splat (`csrc/cone_trace.cu`: K12, every cone march;
     (SdfVolume, read from its packed taps: `[kernel] name=volume_pack`,
     bit for bit, once a new volume), the march cell's sphere, sun and
     projector rays (AnalyticScene) and the voxel flagship's ColumnField;
-    `[kernel] name=splat` (three launches a splat) on the voxel
+    `[kernel] name=splat` (four launches a splat) on the voxel
     flagship's, the particle cell's and the model's sparks' particles
     and on a clustered cloud (`clustered_cloud`: 16,384 of 131,072 in
     one tile); each against its plain version, timed beside its bound;

@@ -66,12 +66,6 @@
 
 #include "sdf_fields.cuh"
 
-// __launch_bounds__' minimum blocks an SM; 0: each instance's own
-// (min_blocks below, chosen by tools/torch_march_study.py).
-#ifndef K12_MIN_BLOCKS
-#define K12_MIN_BLOCKS 0
-#endif
-
 namespace {
 
 using namespace illum_fields;
@@ -178,12 +172,12 @@ __device__ __forceinline__ Analytic stage_analytic(const Analytic& a,
   return s;
 }
 
-// Each instance's: the most that keeps it free of spills (the analytic
-// instances spill at 5).
+// __launch_bounds__' minimum blocks an SM, each instance's: the most that
+// keeps it free of spills (the analytic instances spill at 5;
+// tools/torch_march_study.py times the others).
 template <int F>
 constexpr int min_blocks() {
-  return K12_MIN_BLOCKS ? K12_MIN_BLOCKS
-                        : (F == kColumn ? 5 : F == kVolume ? 6 : 1);
+  return F == kColumn ? 5 : F == kVolume ? 6 : 1;
 }
 
 template <int F>

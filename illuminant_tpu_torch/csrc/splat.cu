@@ -11,43 +11,49 @@
 // A particle adds only inside its own tile's window [t T - A, t T + T + A)
 // (its tile by truncation, clipped to the grid), so every particle belongs
 // to exactly one tile, and a tile's window (40 x 40 x C floats at T = 32,
-// A = 4) fits in shared memory. One splat is three launches on the stream,
+// A = 4) fits in shared memory. One splat is four launches on the stream,
 // with scratch sized on the host from n and the grid, never from data:
-//   1. bin: a thread bins 8 slots (the live and on-screen test, the tile)
+//   1. bin: a thread bins 4 slots (the live and on-screen test, the tile)
 //      and takes each a rank in its tile: the block counts its slots in
 //      shared memory first and adds each tile's total to the device count
-//      with one atomic. The last block to finish scans the counts into
-//      offsets and chunk offsets (each tile's list cut into chunks of
-//      `chunk`, so that a clustered tile spreads over many blocks) and
-//      writes the chunk table;
-//   2. scatter: each binned slot writes a 32-byte record (x, y, radius,
+//      with one atomic;
+//   2. scan: one block scans the counts into offsets and chunk offsets
+//      (each tile's list cut into chunks of `chunk`, at most two batches,
+//      so that a clustered tile spreads over many blocks) and writes the
+//      chunk table (a launch of its own: the bin blocks' fences and their
+//      count of finished blocks, for the last to scan, cost more);
+//   3. scatter: each binned slot writes a 32-byte record (x, y, radius,
 //      colour) at its tile's offset plus its rank;
-//   3. accumulate: one block a chunk (the grid is ceil(n / chunk) + tiles,
+//   4. accumulate: one block a chunk (the grid is ceil(n / chunk) + tiles,
 //      an upper bound known without a read; blocks past the last chunk
 //      exit). The block stages `batch` particles at a time: a thread a
 //      particle computes its row and column profiles once, trimmed to
-//      their nonzero runs. `lanes` lanes then take a particle, a lane a
-//      row of its footprint, and add colour x wy x wx to the tile's window
-//      in shared memory (compare-and-swap, two channels at a time where C
-//      is 2 or 4). The window's nonzero sums go to the image once a chunk,
-//      a warp a row, coalesced, one global atomic each (neighbouring
+//      their nonzero runs. `lanes` lanes then take a particle (more while
+//      the batch leaves threads idle), a lane a row of its footprint, and
+//      add colour x wy x wx to the tile's window in shared memory
+//      (compare-and-swap, two channels at a time where C is 2 or 4). The
+//      window's nonzero sums go to the image once a chunk, a warp a row,
+//      coalesced, four floats to a 16-byte vector atomic (neighbouring
 //      tiles' aprons and a split tile's chunks overlap, so a plain store
 //      would lose sums). A tile of at most `direct` particles (most of a
 //      sparse frame's) skips the window and adds its terms to the image
-//      directly.
+//      directly, a pixel's channels with sm_90's float2 / float4 atomics.
 // Nothing is read back and no bin has a capacity: no particle is dropped.
 //
 // What bounded the first cut (one thread a particle, each tap `channels`
-// global atomics; PR 12): the atomics into the image, ~120M scalar float
-// atomics at the steady flagship's 1,048,576 gauss particles, many on the
-// same pixels (up to 61 terms a pixel): 0.8857 ms against a 0.0153 ms
-// byte bound on an H100 80GB HBM3 at 700 W. Here the terms meet in shared
-// memory and the image takes at most one atomic per window pixel-channel
-// and chunk. What bounds this design (tools/torch_march_study.py times
-// each kernel and each choice): the accumulation's shared-memory atomics
-// (a float add in shared memory is a compare-and-swap loop on sm_90),
-// then the two passes over the slots, which a sparse frame pays in full
-// (PERF.md section 6 gives the times).
+// global atomics): the atomics into the image, ~120M scalar float atomics
+// at the steady flagship's 1,048,576 gauss particles, many on the same
+// pixels (up to 61 terms a pixel): 0.8857 ms against a 0.0153 ms byte
+// bound on an H100 80GB HBM3 at 700 W. Here the terms meet in shared
+// memory and the image takes at most one vector atomic per four window
+// floats and chunk. What bounds this design, on the same card
+// (tools/torch_march_study.py times each kernel): at 1,048,576 uniform
+// gauss particles the accumulation, 0.40 of 0.50 ms, its shared-memory
+// compare-and-swap loops (sm_90 has no shared-memory float add); on the
+// particle cell's default frame (20,480 of 1,048,576 slots live) the
+// launches and the passes over the slots: bin 0.012, scan 0.003, scatter
+// 0.004, accumulate 0.009 ms, where the one-pass first cut took 0.018 ms
+// with the image's zero fill (PERF.md section 6).
 //
 // Float atomics reorder each pixel's sum (the plain version's index_add_
 // on the card is atomic too): two orders of n non-negative terms differ
@@ -63,11 +69,13 @@ namespace {
 
 constexpr int kThreads = 256;  // every launch of the sequence
 constexpr int kWarps = kThreads / 32;
-constexpr int kBinPerThread = 8;  // slots a thread bins
-constexpr int kScanCache = 16;    // tile counts a scanning thread holds
+constexpr int kBinPerThread = 4;  // slots a thread bins
+constexpr int kScanThreads = 1024;  // the scan's one block
+constexpr int kMaxLanes = 16;     // lanes a particle at most (a row each)
 constexpr int kBinSlots = kThreads * kBinPerThread;
-// The most tiles whose counts a bin block keeps in shared memory.
-constexpr int kBlockCountTiles = 12288;
+// The most tiles whose counts a bin block keeps in shared memory: the
+// 48 KB a launch may use without opting in.
+constexpr int kBlockCountTiles = 48 * 1024 / 4;
 
 // tiled.py's kernel names, in the wrapper's KERNELS order.
 enum Kind { kPoint = 0, kQuad = 1, kGauss = 2, kRound = 3 };
@@ -91,7 +99,7 @@ struct Splat {
 
 // The scratch of one splat (the wrapper's torch.empty tensors).
 struct Bins {
-  int* counts;       // (tiles + 1,): the tile counts, then the blocks done
+  int* counts;       // (tiles,): the tile counts
   int* offsets;      // (tiles + 1,): exclusive scan of the counts
   int* chunk_off;    // (tiles + 1,): exclusive scan of ceil(count / chunk)
   int* chunk_tile;   // (ceil(n / chunk) + tiles,): each chunk's tile
@@ -134,40 +142,26 @@ __device__ __forceinline__ int tile_of(float p, int tile, int g) {
   return min(max(__float2int_rz(p / (float)tile), 0), g - 1);
 }
 
-// ---------------------------------------------------------------- 1. bin
+// --------------------------------------------------------- 1. bin, 2. scan
 
 // A tile's chunks.
 __device__ __forceinline__ int tile_chunks(const Splat& s, int count) {
   return (count + s.chunk - 1) / s.chunk;
 }
 
-// cached[k] for a k known only at run time, without local memory.
-__device__ __forceinline__ int cached_at(const int (&cached)[kScanCache],
-                                         int k) {
-  int v = 0;
-#pragma unroll
-  for (int j = 0; j < kScanCache; ++j)
-    if (j == k) v = cached[j];
-  return v;
-}
-
-// The last block's exclusive scans of the tile counts (offsets) and of
-// their chunks (chunk offsets), each thread over a contiguous run, and
-// the chunk table.
-__device__ void scan_tiles(const Splat& s, const Bins& b, int tiles) {
-  __shared__ int warp_sum[2][kThreads / 32];
-  const int per = (tiles + kThreads - 1) / kThreads;
+// The exclusive scans of the tile counts (offsets) and of their chunks
+// (chunk offsets), each thread over a contiguous run (two tiles at
+// 1080p), and the chunk table: one block.
+__global__ void __launch_bounds__(kScanThreads) scan_kernel(Splat s,
+                                                            Bins b) {
+  __shared__ int warp_sum[2][kScanThreads / 32];
+  const int tiles = s.grid_y * s.grid_x;
+  const int per = (tiles + kScanThreads - 1) / kScanThreads;
   const int t0 = min((int)threadIdx.x * per, tiles);
   const int t1 = min(t0 + per, tiles);
-  // The run's counts, loaded together (up to kScanCache of them).
-  int cached[kScanCache];
-#pragma unroll
-  for (int k = 0; k < kScanCache; ++k)
-    cached[k] = t0 + k < t1 ? __ldcg(b.counts + t0 + k) : 0;
   int n_sum = 0, c_sum = 0;
   for (int t = t0; t < t1; ++t) {
-    const int c = t - t0 < kScanCache ? cached_at(cached, t - t0)
-                                       : __ldcg(b.counts + t);
+    const int c = b.counts[t];
     n_sum += c;
     c_sum += tile_chunks(s, c);
   }
@@ -195,8 +189,7 @@ __device__ void scan_tiles(const Splat& s, const Bins& b, int tiles) {
   }
   int n_run = n_base + n_inc - n_sum, c_run = c_base + c_inc - c_sum;
   for (int t = t0; t < t1; ++t) {
-    const int c = t - t0 < kScanCache ? cached_at(cached, t - t0)
-                                       : __ldcg(b.counts + t);
+    const int c = b.counts[t];
     const int chunks = tile_chunks(s, c);
     b.offsets[t] = n_run;
     b.chunk_off[t] = c_run;
@@ -204,15 +197,19 @@ __device__ void scan_tiles(const Splat& s, const Bins& b, int tiles) {
     n_run += c;
     c_run += chunks;
   }
-  if (threadIdx.x == kThreads - 1) {
+  if (threadIdx.x == kScanThreads - 1) {
     b.offsets[tiles] = n_run;
     b.chunk_off[tiles] = c_run;
   }
 }
 
-// Slot i's tile, or -1 for a dead or off-screen slot.
+// Slot i's liveness (false past the last slot).
+__device__ __forceinline__ bool slot_live(const Splat& s, int i) {
+  return i < s.n && __ldg(s.live + i * s.slive);
+}
+
+// Live slot i's tile, or -1 where it is off-screen.
 __device__ __forceinline__ int slot_tile(const Splat& s, int i) {
-  if (i >= s.n || !__ldg(s.live + i * s.slive)) return -1;
   const float x = __ldg(s.x + i * s.sx);
   const float y = __ldg(s.y + i * s.sy);
   const float a1 = (float)s.apron + 1.0f;
@@ -251,9 +248,15 @@ __global__ void __launch_bounds__(kThreads) bin_kernel(Splat s, Bins b) {
   const int tiles = s.grid_y * s.grid_x;
   const int i0 = blockIdx.x * kBinSlots + threadIdx.x;
   int tile[kBinPerThread], rank[kBinPerThread];
+  bool live[kBinPerThread];
+  // Every liveness byte first, then the live slots' positions: the loads
+  // of a thread's slots are in flight together.
 #pragma unroll
   for (int k = 0; k < kBinPerThread; ++k)
-    tile[k] = slot_tile(s, i0 + k * kThreads);
+    live[k] = slot_live(s, i0 + k * kThreads);
+#pragma unroll
+  for (int k = 0; k < kBinPerThread; ++k)
+    tile[k] = live[k] ? slot_tile(s, i0 + k * kThreads) : -1;
   if (s.block_counts) {
     for (int t = threadIdx.x; t < tiles; t += kThreads) hist[t] = 0;
     __syncthreads();
@@ -278,20 +281,9 @@ __global__ void __launch_bounds__(kThreads) bin_kernel(Splat s, Bins b) {
     const int i = i0 + k * kThreads;
     if (i < s.n) b.slots[i] = make_int2(tile[k], rank[k]);
   }
-
-  // The last block to finish scans the counts (threadFenceReduction).
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(b.counts + tiles, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  scan_tiles(s, b, tiles);
 }
 
-// ------------------------------------------------------------ 2. scatter
+// ------------------------------------------------------------ 3. scatter
 
 // Each binned slot writes its 32-byte record (x, y, radius, colour) at its
 // tile's offset plus its rank: the tile's particles in order.
@@ -315,7 +307,7 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(Splat s, Bins b) {
   b.records[2 * (size_t)dst + 1] = c;
 }
 
-// --------------------------------------------------------- 3. accumulate
+// --------------------------------------------------------- 4. accumulate
 
 // A window row's floats: `side` pixels of C floats and 4 more, so that the
 // lanes on neighbouring rows of one column meet other banks.
@@ -403,6 +395,26 @@ __device__ __forceinline__ void add_shared(float* p, float a, float b) {
   } while (old != seen);
 }
 
+// v added to the image's C floats at dst with sm_90's vector atomics: C
+// = 2 and 4 one each; C = 3 a pair at the 8-byte-aligned end and a float
+// at the other (the image is 16-byte aligned).
+template <int C>
+__device__ __forceinline__ void add_image(float* dst, float4 v) {
+  if (C == 1) {
+    atomicAdd(dst, v.x);
+  } else if (C == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v.x, v.y));
+  } else if (C == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst), v);
+  } else if ((reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v.x, v.y));
+    atomicAdd(dst + 2, v.z);
+  } else {
+    atomicAdd(dst, v.x);
+    atomicAdd(reinterpret_cast<float2*>(dst + 1), make_float2(v.y, v.z));
+  }
+}
+
 // One particle's term colour x w at a pixel of C floats: of the window in
 // shared memory, or of the image in device memory.
 template <int C, bool Shared>
@@ -421,16 +433,14 @@ __device__ __forceinline__ void add_term(float* dst, float w, float4 c) {
       }
     }
   } else {
-    atomicAdd(dst, w * c.x);
-    if (C > 1) atomicAdd(dst + 1, w * c.y);
-    if (C > 2) atomicAdd(dst + 2, w * c.z);
-    if (C > 3) atomicAdd(dst + 3, w * c.w);
+    add_image<C>(dst, make_float4(w * c.x, w * c.y, w * c.z, w * c.w));
   }
 }
 
-// The batch's m staged particles: `lanes` lanes a particle, a lane a row
-// of its nonzero footprint, each term added at `out` (the window's first
-// pixel; `pitch` floats a row, C a pixel).
+// The batch's m staged particles: `lanes` lanes a particle, or more (up
+// to kMaxLanes) while the block's threads outnumber the lanes, a lane a
+// row of its nonzero footprint, each term added at `out` (the window's
+// first pixel; `pitch` floats a row, C a pixel).
 template <int C, bool Shared>
 __device__ __forceinline__ void add_batch(int m, int lanes,
                                           const int4* hdr_g,
@@ -438,6 +448,7 @@ __device__ __forceinline__ void add_batch(int m, int lanes,
                                           const float4* hdr_c,
                                           const float* prof, float* out,
                                           long long pitch) {
+  while (lanes < kMaxLanes && 2 * lanes * m <= kThreads) lanes *= 2;
   const int lane = threadIdx.x & (lanes - 1);
   for (int j = threadIdx.x / lanes; j < m; j += kThreads / lanes) {
     const int4 g = hdr_g[j];  // first column, columns, first row, rows
@@ -512,14 +523,28 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
   if (!windowed) return;
 
+  // A warp a row: the floats up to the image's first 16-byte boundary
+  // and after its last one alone, those between four at a time, each
+  // four with one vector atomic unless all are 0.
   const int warp = threadIdx.x >> 5, lane32 = threadIdx.x & 31;
   const int row_floats = (xhi - xlo) * C;
   for (int ry = warp; ry < yhi - ylo; ry += kWarps) {
     float* out = image_at + (long long)ry * s.width * C;
     const float* in = win + ry * pitch;
-    for (int rx = lane32; rx < row_floats; rx += 32) {
-      const float v = in[rx];
-      if (v != 0.0f) atomicAdd(out + rx, v);
+    const int head = min(
+        (int)((4 - (reinterpret_cast<uintptr_t>(out) >> 2)) & 3), row_floats);
+    const int quads = (row_floats - head) >> 2;
+    const int body = head + 4 * quads;
+    for (int rx = lane32; rx < row_floats - 4 * quads; rx += 32) {
+      const int at = rx < head ? rx : body + rx - head;
+      const float v = in[at];
+      if (v != 0.0f) atomicAdd(out + at, v);
+    }
+    for (int q = lane32; q < quads; q += 32) {
+      const float* v = in + head + 4 * q;
+      const float4 f = make_float4(v[0], v[1], v[2], v[3]);
+      if (f.x != 0.0f || f.y != 0.0f || f.z != 0.0f || f.w != 0.0f)
+        atomicAdd(reinterpret_cast<float4*>(out + head) + q, f);
     }
   }
 }
@@ -557,12 +582,13 @@ unsigned int blocks_for(long long n) {
 }  // namespace
 
 // ptrs: x, y, size, live (1 byte a particle), color, image, then the
-//       scratch: bins (3 x (tiles + 1) + ceil(n / chunk) + tiles int32),
+//       scratch: bins (tiles + 2 x (tiles + 1) + ceil(n / chunk) + tiles
+//       int32),
 //       slots (n x 2 int32), records (n x 8 float32).
 // strides: x, y, size, live, color row, color column (elements).
 // ints: n, height, width, tile, apron, grid_y, grid_x, channels, kind,
 //       chunk, batch (at most kThreads), taps, direct, lanes.
-// Three launches on `stream`; `launched` gets how many were made.
+// Four launches on `stream`; `launched` gets how many were made.
 extern "C" int splat(const void* const* ptrs, const long long* strides,
                      const long long* ints, void* stream, int* launched) {
   *launched = 0;
@@ -603,7 +629,7 @@ extern "C" int splat(const void* const* ptrs, const long long* strides,
   if (s.n <= 0) return 0;
   Bins b;
   b.counts = (int*)ptrs[6];
-  b.offsets = b.counts + tiles + 1;
+  b.offsets = b.counts + tiles;
   b.chunk_off = b.offsets + tiles + 1;
   b.chunk_tile = b.chunk_off + tiles + 1;
   b.slots = (int2*)ptrs[7];
@@ -614,15 +640,18 @@ extern "C" int splat(const void* const* ptrs, const long long* strides,
   cudaError_t err;
   if ((err = opt_in(accumulate_fn(s.channels), smem)) != cudaSuccess)
     return (int)err;
-  err = cudaMemsetAsync(b.counts, 0, sizeof(int) * (tiles + 1), st);
+  err = cudaMemsetAsync(b.counts, 0, sizeof(int) * tiles, st);
   if (err != cudaSuccess) return (int)err;
   bin_kernel<<<(unsigned int)((s.n + kBinSlots - 1) / kBinSlots), kThreads,
                s.block_counts ? sizeof(int) * tiles : 0, st>>>(s, b);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   *launched = 1;
-  scatter_kernel<<<blocks_for(s.n), kThreads, 0, st>>>(s, b);
+  scan_kernel<<<1, kScanThreads, 0, st>>>(s, b);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   *launched = 2;
+  scatter_kernel<<<blocks_for(s.n), kThreads, 0, st>>>(s, b);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  *launched = 3;
   const long long chunks = (s.n + (long long)s.chunk - 1) / s.chunk + tiles;
   void* args[] = {&s, &b};
   err = cudaLaunchKernel(accumulate_fn(s.channels),
@@ -630,7 +659,7 @@ extern "C" int splat(const void* const* ptrs, const long long* strides,
                          smem, st);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  *launched = 3;
+  *launched = 4;
   return 0;
 }
 

@@ -35,10 +35,10 @@ _LIBRARY = cuda_build.library_path(_SOURCE)
 
 # The source's Kind.
 KERNELS = {"point": 0, "quad": 1, "gauss": 2, "round": 3}
-# Kernel launches of one splat: bin (with the tile scan), scatter,
-# accumulate.
-LAUNCHES_PER_SPLAT = 3
-# Particles of a tile's list that one accumulation block takes (a chunk).
+# Kernel launches of one splat: bin, scan, scatter, accumulate.
+LAUNCHES_PER_SPLAT = 4
+# The most particles of a tile's list that one accumulation block takes (a
+# chunk; `chunk_size`).
 CHUNK = 256
 # A tile of at most this many particles skips the shared-memory window:
 # its terms go to the image directly, an atomic each.
@@ -129,7 +129,14 @@ def batch_size(cfg) -> int:
     return batch
 
 
-def launch_plan(cfg, x, y, color, size, live, chunk=None) -> dict:
+def chunk_size(cfg) -> int:
+    """Particles a chunk holds for `cfg`: CHUNK, or two batches where a
+    batch is smaller (wide aprons), so that a clustered tile of a sparse
+    frame spreads over more blocks."""
+    return min(CHUNK, 2 * batch_size(cfg))
+
+
+def launch_plan(cfg, x, y, color, size, live) -> dict:
     """Everything a K5 splat is given, from `rasterize_tiled`'s arguments
     (cfg a TiledRasterConfig): the particle count, each argument's
     element stride (`strides`: x, y, size, live, colour row, colour
@@ -137,8 +144,8 @@ def launch_plan(cfg, x, y, color, size, live, chunk=None) -> dict:
     grid_x, channels, kernel, chunk, batch, taps, DIRECT, lanes), the
     tiles, the accumulation's blocks, the scratch's element counts
     (`scratch`: bins, slots, records), and the accumulation's chunk
-    (`chunk`, by default CHUNK), batch (`batch_size`), profile taps and
-    shared memory. Pure: no kernel, no host read."""
+    (`chunk_size`), batch (`batch_size`), profile taps and shared memory.
+    Pure: no kernel, no host read."""
     if cfg.kernel not in KERNELS:
         raise ValueError(f"unknown kernel {cfg.kernel!r}")
     n = x.shape[0]
@@ -159,9 +166,9 @@ def launch_plan(cfg, x, y, color, size, live, chunk=None) -> dict:
         raise ValueError(f"splat: 1 to 4 channels, got {cfg.channels}")
     if n >= 2 ** 30:
         raise ValueError(f"splat: at most 2^30 particles, got {n}")
-    chunk = CHUNK if chunk is None else chunk
+    chunk = chunk_size(cfg)
     if chunk < 1:
-        raise ValueError(f"splat: chunk must be positive, got {chunk}")
+        raise ValueError(f"splat: CHUNK must be positive, got {chunk}")
     batch, taps = batch_size(cfg), profile_taps(cfg)
     smem = accumulate_smem(batch, taps, cfg.tile + 2 * cfg.apron,
                            cfg.channels)
@@ -179,18 +186,17 @@ def launch_plan(cfg, x, y, color, size, live, chunk=None) -> dict:
               cfg.channels, KERNELS[cfg.kernel], chunk, batch, taps,
               DIRECT, LANES[cfg.kernel]],
         blocks=-(-n // chunk) + tiles,
-        scratch=dict(bins=3 * (tiles + 1) + -(-n // chunk) + tiles,
+        scratch=dict(bins=tiles + 2 * (tiles + 1) + -(-n // chunk) + tiles,
                      slots=2 * n, records=8 * n))
 
 
-def splat_cuda(cfg, x, y, color, size, live, chunk=None,
-               debug: bool = False):
+def splat_cuda(cfg, x, y, color, size, live, debug: bool = False):
     """One K5 splat on the current stream -> the (H, W, C) float32 image
     (`debug`: and the bins the kernels made: `counts`, `offsets` and
     `chunk_offsets` as `bin_plan` gives them). CUDA tensors only; views of
     any stride are read in place."""
     global LAUNCHES
-    plan = launch_plan(cfg, x, y, color, size, live, chunk)
+    plan = launch_plan(cfg, x, y, color, size, live)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev
                                  for t in (y, color, size, live)):
@@ -222,9 +228,9 @@ def splat_cuda(cfg, x, y, color, size, live, chunk=None,
 
 def _bins_view(bins, plan) -> dict:
     t = plan["tiles"]
-    return dict(counts=bins[:t], offsets=bins[t + 1:2 * t + 2],
-                chunk_offsets=bins[2 * t + 2:3 * t + 3],
-                chunk_tiles=bins[3 * t + 3:])
+    return dict(counts=bins[:t], offsets=bins[t:2 * t + 1],
+                chunk_offsets=bins[2 * t + 1:3 * t + 2],
+                chunk_tiles=bins[3 * t + 2:])
 
 
 def block_plan(cfg) -> dict:
@@ -237,7 +243,8 @@ def block_plan(cfg) -> dict:
         batch, taps, cfg.tile + 2 * cfg.apron, cfg.channels, out),
         "splat_plan")
     return dict(zip(("threads", "smem_bytes", "registers", "spill_bytes",
-                     "blocks_per_sm"), out), chunk=CHUNK, batch=batch,
+                     "blocks_per_sm"), out), chunk=chunk_size(cfg),
+                batch=batch,
                 taps=taps, direct=DIRECT, lanes=LANES[cfg.kernel])
 
 
@@ -248,9 +255,9 @@ def bin_plan(cfg, x, y, live, chunk=None) -> dict:
     tile's count, the exclusive `offsets` of the counts and
     `chunk_offsets` of the chunks (ceil(count / chunk) a tile), both with
     the total last, and the chunk table `chunks` (M, 3): tile, first and
-    end entry of the tile-ordered list. `chunk` None: CHUNK. Pure: no
-    host read."""
-    chunk = CHUNK if chunk is None else chunk
+    end entry of the tile-ordered list. `chunk` None: `chunk_size`.
+    Pure: no host read."""
+    chunk = chunk_size(cfg) if chunk is None else chunk
     gy, gx = cfg.grid
     a, t = cfg.apron, cfg.tile
     ok = live & ((x > -(a + 1.0)) & (x < cfg.width + a + 1.0)

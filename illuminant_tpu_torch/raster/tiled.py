@@ -11,7 +11,7 @@ same coverage profile (`_profile`) to every pixel of its footprint that
 lies inside its tile's window. `rasterize_tiled` dispatches by device: on
 the card the Hopper kernel K5 (`splat_kernel.splat_cuda`: the
 particles binned by tile and each tile's window accumulated in shared
-memory, three launches, no host read), on the CPU its plain version
+memory, four launches, no host read), on the CPU its plain version
 `rasterize_tiled_reference`. The sort-key packing, rgba8 / compact
 payloads, the int8 splat and the overflow level are TPU machinery and
 are not ported, so colors, positions and sizes stay float32 (the JAX fast
@@ -120,7 +120,7 @@ def rasterize_tiled(cfg: TiledRasterConfig, x, y, color, size, live,
     RasterizeParticleSystem.fx:101-110, phase `cfg.stipple_offset`), a
     mask on `live` before the splat.
 
-    On the card one K5 splat (three launches), no host read; on the
+    On the card one K5 splat (four launches), no host read; on the
     CPU the plain version."""
     if not (isinstance(stipple_factor, (int, float))
             and stipple_factor >= 1.0):

@@ -239,19 +239,41 @@ def test_binned_accumulation_matches_plain(kernel, chunk):
         splat_kernel.splat_binned_reference(cfg, *one, chunk=chunk), a)
 
 
-def test_launch_plan_sizes_scratch_from_n_and_the_grid():
+@pytest.mark.parametrize("kernel,apron,chunk", [
+    ("gauss", 4, 256), ("quad", 4, 256), ("quad", 9, 128),
+    ("gauss", 9, 64)])
+def test_chunk_holds_at_most_two_batches(kernel, apron, chunk):
+    """A chunk holds CHUNK particles, or two batches where a batch is
+    smaller (the wide aprons' profiles fill a block's shared memory
+    sooner), and the launch plan and the bins use that chunk."""
+    cfg = tiled.TiledRasterConfig(height=1080, width=1920, apron=apron,
+                                  kernel=kernel)
+    assert splat_kernel.chunk_size(cfg) == chunk == min(
+        splat_kernel.CHUNK, 2 * splat_kernel.batch_size(cfg))
+    n = 1000
+    x = torch.zeros(n)
+    plan = splat_kernel.launch_plan(cfg, x, x, torch.zeros(n, 4), x,
+                                    torch.ones(n, dtype=torch.bool))
+    assert plan["chunk"] == plan["ints"][9] == chunk
+    assert plan["blocks"] == -(-n // chunk) + 34 * 60
+    bins = splat_kernel.bin_plan(cfg, x + 5.0, x + 5.0,
+                                 torch.ones(n, dtype=torch.bool))
+    assert int(bins["chunk_offsets"][-1]) == -(-n // chunk)
+
+
+def test_launch_plan_sizes_scratch_from_n_and_the_grid(monkeypatch):
     """The scratch and the accumulation's grid come from n and the grid
-    alone: bins 3 (tiles + 1) and the chunk table, slots 2n, records 8n,
+    alone: bins tiles + 2 (tiles + 1) and the chunk table, slots 2n,
+    records 8n,
     ceil(n / chunk) + tiles blocks; the batch from what a block's shared
     memory holds."""
     n = 1000
     x = torch.zeros(n)
     live = torch.zeros(n, dtype=torch.bool)
     cfg = tiled.TiledRasterConfig(height=1080, width=1920)
-    plan = splat_kernel.launch_plan(cfg, x, x, torch.zeros(n, 4), x, live,
-                                    chunk=256)
+    plan = splat_kernel.launch_plan(cfg, x, x, torch.zeros(n, 4), x, live)
     assert plan["tiles"] == 34 * 60
-    assert plan["scratch"] == dict(bins=3 * (2040 + 1) + 4 + 2040,
+    assert plan["scratch"] == dict(bins=2040 + 2 * (2040 + 1) + 4 + 2040,
                                    slots=2 * n, records=8 * n)
     assert plan["blocks"] == 4 + 2040
     # gauss at apron 4 reaches 2 x 4.5: profiles of 2 x 10 + 1 taps; the
@@ -264,9 +286,9 @@ def test_launch_plan_sizes_scratch_from_n_and_the_grid():
     wide = tiled.TiledRasterConfig(height=1080, width=1920, apron=9)
     assert (splat_kernel.batch_size(wide),
             splat_kernel.profile_taps(wide)) == (32, 41)
-    with pytest.raises(ValueError, match="chunk"):
-        splat_kernel.launch_plan(wide, x, x, torch.zeros(n, 4), x, live,
-                                 chunk=0)
+    monkeypatch.setattr(splat_kernel, "CHUNK", 0)
+    with pytest.raises(ValueError, match="CHUNK"):
+        splat_kernel.launch_plan(wide, x, x, torch.zeros(n, 4), x, live)
 
 
 @pytest.mark.parametrize("kernel", KERNELS)

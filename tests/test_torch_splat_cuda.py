@@ -146,14 +146,16 @@ def test_cuda_reads_nothing_back():
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk", [64, None])
 @pytest.mark.parametrize("kernel", ["quad", "gauss"])
-def test_cuda_clustered_cloud_over_chunks(kernel, chunk):
+def test_cuda_clustered_cloud_over_chunks(kernel, chunk, monkeypatch):
     """A cloud piled into one tile (5,000 particles on a few pixels), its
     list cut into chunks that several blocks accumulate: within the
     bound, and the kernels' bins equal `bin_plan`'s."""
     _needs_card()
     cfg = config(kernel, 3)
     args = cloud(4000, "cuda", seed=9, pile=5000)
-    out, bins = splat_kernel.splat_cuda(cfg, *args, chunk=chunk, debug=True)
+    if chunk is not None:
+        monkeypatch.setattr(splat_kernel, "CHUNK", chunk)
+    out, bins = splat_kernel.splat_cuda(cfg, *args, debug=True)
     ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max()) <= sum_bound(cfg, args, ref)
@@ -169,7 +171,7 @@ def test_cuda_clustered_cloud_over_chunks(kernel, chunk):
 
 @pytest.mark.cuda
 def test_cuda_all_dead_and_all_off_screen():
-    """No particle binned: the three launches run and the image is 0."""
+    """No particle binned: the four launches run and the image is 0."""
     _needs_card()
     cfg = config("gauss", 4)
     x, y, color, size, live = cloud(3000, "cuda")
@@ -269,3 +271,59 @@ def test_cuda_many_tiles_rank_per_warp():
     plan = splat_kernel.bin_plan(cfg, args[0], args[1], args[4])
     for key in ("counts", "offsets", "chunk_offsets"):
         assert torch.equal(bins[key].long(), plan[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(96, 128), (32, 385)])
+def test_cuda_block_counts_at_the_shared_memory_limit(grid):
+    """8-px tiles on a grid of 12,288 tiles, whose counts fill the 48 KB
+    of shared memory a bin block may use without opting in, and of
+    12,320, one past it (each warp ranks against the device counts): both
+    launch and stay within the bound, with the bins `bin_plan` gives."""
+    _needs_card()
+    gy, gx = grid
+    cfg = tiled.TiledRasterConfig(height=8 * gy, width=8 * gx, tile=8,
+                                  apron=2, kernel="quad", channels=3)
+    rng = np.random.default_rng(22)
+    n = 20000
+    args = (torch.as_tensor(rng.uniform(0, cfg.width, n).astype(np.float32),
+                            device="cuda"),
+            torch.as_tensor(rng.uniform(0, cfg.height, n)
+                            .astype(np.float32), device="cuda"),
+            torch.as_tensor(rng.uniform(0, 2, (n, 3)).astype(np.float32),
+                            device="cuda"),
+            torch.as_tensor(rng.uniform(0.5, 6, n).astype(np.float32),
+                            device="cuda"),
+            torch.ones(n, dtype=torch.bool, device="cuda"))
+    out, bins = splat_kernel.splat_cuda(cfg, *args, debug=True)
+    ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= sum_bound(cfg, args, ref)
+    plan = splat_kernel.bin_plan(cfg, args[0], args[1], args[4])
+    for key in ("counts", "offsets", "chunk_offsets"):
+        assert torch.equal(bins[key].long(), plan[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_cuda_unaligned_rows_flush_whole(channels):
+    """An image 203 px wide and an apron of 9 (the model cell's): window
+    rows that start and end off the image's 16-byte boundaries, flushed
+    partly float by float and partly four at a time, and direct adds at
+    both pixel parities; a pile makes windowed tiles beside direct ones.
+    Within the bound, and a single particle bit for bit."""
+    _needs_card()
+    cfg = tiled.TiledRasterConfig(height=H, width=203, apron=9,
+                                  kernel="quad", channels=channels)
+    args = cloud(600, "cuda", seed=23, pile=700)
+    out = splat_kernel.splat_cuda(cfg, *args)
+    ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= sum_bound(cfg, args, ref)
+    plan = splat_kernel.bin_plan(cfg, args[0], args[1], args[4])
+    assert int(plan["counts"].max()) > splat_kernel.DIRECT
+    for i in (3, 4):
+        one = tuple(a[i:i + 1] for a in args[:4]) + (
+            torch.ones(1, dtype=torch.bool, device="cuda"),)
+        a, _ = tiled.rasterize_tiled_reference(cfg, *one)
+        assert torch.equal(splat_kernel.splat_cuda(cfg, *one), a)

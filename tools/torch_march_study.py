@@ -14,17 +14,19 @@ arithmetic.
     flagship's ColumnField rays at 1080p: `__launch_bounds__` minimum
     blocks an SM (each instance's own, the build; 1, 5, 6, 8), 16 x 16 ray
     tiles against the same rays in order (flattened to (L, H x W));
-  * K5 (`splat_kernel`), on the particle cell's 1,048,576 steady quads,
-    a uniform cloud of 1,048,576 gauss particles of 2-4 px, the clustered
-    cloud of `chip_smoke.clustered_cloud` and the voxel flagship's
-    particles after its default warm-up: particles a chunk holds (128,
-    256 (the build's), 1024), the most particles of a tile whose terms the
+  * K5 (`splat_kernel`), on the particle cell's quads after its default
+    warm-up and its 1,048,576 steady ones, the model cell's sparks after
+    its default warm-up, a uniform cloud of 1,048,576 gauss particles of
+    2-4 px, the clustered cloud of `chip_smoke.clustered_cloud` and the
+    voxel flagship's particles after its default warm-up: the most particles a chunk
+    holds (`CHUNK` 128, 256 (the build's), 1024; a chunk holds at most two
+    batches too, `chunk_size`), the most particles of a tile whose terms the
     accumulation adds to the image without a window (`DIRECT` 0, 32 (the
     build's), 128), the lanes that share a particle (1, 2, 4 for every
     profile; the build's `LANES`: 4 for gauss, else 2); and each of its
     kernels' device time
-    (torch.profiler; "other" is the image's zero fill and the counts'
-    memset).
+    (bin, scan, scatter, accumulate; torch.profiler; "other" is the
+    image's zero fill and the counts' memset).
 
 Run from the repository root on a CUDA card:
 
@@ -53,21 +55,19 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-# (kernel, variant) -> (the source's line, its replacement); None: the build.
+# min_blocks<F>()'s body in cone_trace.cu: each instance's minimum blocks
+# an SM for __launch_bounds__.
+MIN_BLOCKS = "return F == kColumn ? 5 : F == kVolume ? 6 : 1;"
+# (kernel, variant) -> (the source's text, its replacement); None: the
+# build.
 VARIANTS = {
     ("cone_trace", "build"): None,
-    ("cone_trace", "min_blocks_1"): ("#define K12_MIN_BLOCKS 0",
-                                     "#define K12_MIN_BLOCKS 1"),
-    ("cone_trace", "min_blocks_5"): ("#define K12_MIN_BLOCKS 0",
-                                     "#define K12_MIN_BLOCKS 5"),
-    ("cone_trace", "min_blocks_6"): ("#define K12_MIN_BLOCKS 0",
-                                     "#define K12_MIN_BLOCKS 6"),
-    ("cone_trace", "min_blocks_8"): ("#define K12_MIN_BLOCKS 0",
-                                     "#define K12_MIN_BLOCKS 8"),
+    **{("cone_trace", f"min_blocks_{m}"): (MIN_BLOCKS, f"return {m};")
+       for m in (1, 5, 6, 8)},
     ("splat", "build"): None,
 }
-# K5's runtime choice: particles a chunk (one accumulation block) holds;
-# the build's is splat_kernel.CHUNK.
+# K5's runtime choice: the most particles a chunk (one accumulation block)
+# holds; the build's is splat_kernel.CHUNK.
 CHUNKS = (128, 256, 1024)
 # And the most particles of a tile whose terms the accumulation adds to
 # the image without a window (the build's: splat_kernel.DIRECT).
@@ -170,11 +170,20 @@ def splat_inputs(cs, scene, field):
     calls["flagship_default"] = (scene.raster_config, pos[:, 0], pos[:, 1],
                                  state.render_color, state.render_data[:, 0],
                                  state.live_mask())
-    system, _, raster, _ = cs._particle_cell(field, 260)
-    system.update(cs.DT)
+    for name, warmup in (("particles_default", 4),
+                         ("particles_1m_quad", 260)):
+        system, _, raster, _ = cs._particle_cell(field, warmup)
+        system.update(cs.DT)
+        with cs.KernelInputs("splat_cuda", k5) as spy:
+            system.render(raster)
+        calls[name] = spy.args
+        del system
+    view, raster, _ = cs.model_cell(field, cs.MODEL_WARMUP_FRAMES)
+    view.update(cs.DT)
     with cs.KernelInputs("splat_cuda", k5) as spy:
-        system.render(raster)
-    calls["particles_1m_quad"] = spy.args
+        cs.model_render(view, raster)
+    calls["model_sparks"] = spy.args
+    del view
     rng = np.random.default_rng(3)
     n = 1 << 20
     h, w = cs.FULL["height"], cs.FULL["width"]
@@ -215,9 +224,9 @@ def stage_ms(fn, calls: int = 20) -> dict:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = next((k for k in ("bin_kernel", "scatter_kernel",
-                                 "accumulate_kernel") if k in e.name),
-                    "other")
+        name = next((k for k in ("bin_kernel", "scan_kernel",
+                                 "scatter_kernel", "accumulate_kernel")
+                     if k in e.name), "other")
         out[name] = out.get(name, 0.0) + (e.time_range.end
                                           - e.time_range.start) / 1e3
     return {k: v / calls for k, v in out.items()}
@@ -251,8 +260,8 @@ def main(argv=None) -> int:
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.raster import splat_kernel as k5
 
-    global DIRECT, LANES
-    DIRECT, LANES = k5.DIRECT, dict(k5.LANES)
+    global CHUNK, DIRECT, LANES
+    CHUNK, DIRECT, LANES = k5.CHUNK, k5.DIRECT, dict(k5.LANES)
     modules = {"cone_trace": ctk, "splat": k5}
     libs = {key: load(modules[key[0]], path)
             for key, path in build_all(modules).items()}
@@ -304,8 +313,8 @@ def main(argv=None) -> int:
             k5.DIRECT = int(value) if key == "direct" else DIRECT
             k5.LANES = {kind: int(value) for kind in LANES} \
                 if key == "lanes" else dict(LANES)
-            chunk = int(value) if key == "chunk" else None
-            return (k5.splat_cuda(*args, chunk=chunk),)
+            k5.CHUNK = int(value) if key == "chunk" else CHUNK
+            return (k5.splat_cuda(*args),)
 
 
         # Reordered float atomics: compared within the plain bound, not
@@ -332,8 +341,8 @@ def main(argv=None) -> int:
             if not err <= tol:
                 raise AssertionError(f"{name} {c}: {err} > {tol}")
             times[c].append(cs.device_ms(call, REPS))
-        k5._lib, k5.DIRECT, k5.LANES = libs["splat", "build"], DIRECT, \
-            dict(LANES)
+        k5._lib, k5.CHUNK, k5.DIRECT, k5.LANES = libs["splat", "build"], \
+            CHUNK, DIRECT, dict(LANES)
         times.update({f"{k}_device_ms": [v]
                       for k, v in stage_ms(lambda: k5.splat_cuda(*args))
                       .items()})
