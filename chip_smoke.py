@@ -184,6 +184,28 @@ The march and the splat (`csrc/cone_trace.cu`: K12, every cone march;
   * `reference_march`: the march flagship at 96 x 160 on both fields,
     with and without the families, a `carried_all` frame and one at
     `shadow_scale=0.25`, card against CPU.
+The multi-device frame (`illuminant_tpu_torch/parallel/`: `make_mesh`,
+`build_flagship(mesh=...)`, the row-banded raster
+`rasterize_tiled_sharded`):
+  * `slice_mesh` (flagship-mesh1-1080p): the analytic fast flagship built
+    on the card's mesh, an NCCL group of one rank, run as `slice_analytic`
+    was (same state, generator, warm-up and timed frames). Gates: the last
+    timed image within 1 of that slice's, avg_lum within 1e-4, K5
+    LAUNCHES_PER_SPLAT times a frame, FLAGSHIP_READS_PER_FRAME host reads
+    a frame (the histogram's all-reduce reads nothing) and none in its
+    raster, which runs once more under the sync debug mode; ms/frame
+    beside the unsharded slice's;
+  * `mesh_bands`: the route and the band rasters of meshes of 2, 4 and 8
+    ranks in this process (the exchange a transpose of the stacked send
+    buffers), on that slice's particles and on the clustered cloud. Gates:
+    each band's K5 (its grid one ghost tile row above and below inside the
+    frame, y shifted by whole tiles, D x B received slots) within its bound
+    of its plain version, the stitched bands within the unsharded K5's
+    bound, the routes' counts and send drops equal to the CPU route's; D =
+    1 through the real `all_to_all_single`. Device ms of the routes and
+    the band rasters beside one unsharded K5;
+  * `reference_mesh`: the mesh frame at 96 x 160 with the global ring and
+    with 4 spawn sub-rings, card against the CPU frame without a mesh.
 Every phase prints one line; the last
 three lines are the kernels' record as JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -281,6 +303,9 @@ KERNEL_REPS = 100
 # The earlier checkout's kernel modules under `--parent` ("splat",
 # "cone_trace"), which the [kernel] rows of K5 and K12 time beside these.
 PARENT = {}
+# Each flagship slice's last timed image and the avg_lum after it, which
+# `slice_mesh` holds its mesh frame to.
+SLICE_LAST = {}
 
 
 def say(phase: str, **fields):
@@ -1058,6 +1083,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
     img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    SLICE_LAST[name] = (img.clone(), float(avg))
     launches = dict(column_query=ck.QUERY_LAUNCHES,
                     column_maps_pack=ck.PACK_LAUNCHES,
                     column_maps_sample=ck.LAUNCHES,
@@ -4060,6 +4086,289 @@ def phase_reference_probes():
                              "differs from the CPU path")
 
 
+# The multi-device frame (illuminant_tpu_torch/parallel/). One card holds
+# a mesh of one rank, an NCCL group of one; the route and the band rasters
+# of meshes of MESH_DEVICES ranks run in this process, rank by rank, with
+# the exchange between them a transpose of the stacked send buffers (what
+# all_to_all_single does across ranks).
+MESH_DEVICES = (2, 4, 8)
+MESH_SLICE = dict(field="analytic", preset="fast")
+MESH = {}
+
+
+def card_mesh(device="cuda"):
+    """The mesh of this process's card: make_mesh(1) on an NCCL group of
+    one (gloo for a rehearsal on "cpu"), made once and reused."""
+    from illuminant_tpu_torch.parallel.mesh import make_mesh
+
+    if "mesh" not in MESH:
+        MESH["mesh"] = make_mesh(1, device)
+    return MESH["mesh"]
+
+
+def _mesh_run(scene, state, warmup, frames):
+    """`phase_slice`'s schedule: warm-up, timed frames (K5's launches
+    counted), one frame under the host-read counter; -> (last timed
+    image, state, avg_lum after it, ms/frame, K5 launches, host reads of
+    the extra frame)."""
+    from illuminant_tpu_torch.raster import splat_kernel as k5
+
+    dev = scene.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    avg = torch.tensor(0.5, device=dev)
+    _, state, avg = _run_frames(scene, warmup, 0, gen, state, avg)
+    torch.cuda.synchronize()
+    k5.LAUNCHES = 0
+    t0 = time.perf_counter()
+    img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
+    torch.cuda.synchronize()
+    ms = 1000.0 * (time.perf_counter() - t0) / frames
+    launches = k5.LAUNCHES
+    img, avg_f = img.clone(), float(avg)
+    with HostReads() as reads:
+        _, state, _ = _run_frames(scene, 1, warmup + frames, gen, state, avg)
+    torch.cuda.synchronize()
+    return img, state, avg_f, ms, launches, reads.n
+
+
+def mesh_render_reads(mesh, cfg, state) -> int:
+    """The mesh frame's raster (`rasterize_tiled_sharded`) on `state` under
+    torch.cuda.set_sync_debug_mode("error") and the host-read counter ->
+    the reads (a synchronizing operation raises)."""
+    from illuminant_tpu_torch.parallel.raster import rasterize_tiled_sharded
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with HostReads() as reads:
+            rasterize_tiled_sharded(
+                mesh, cfg, state.position[:, 0], state.position[:, 1],
+                state.render_color, state.render_data[:, 0],
+                state.live_mask())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return reads.n
+
+
+def phase_slice_mesh(warmup: int, frames: int, plain_ms: float,
+                     device="cuda"):
+    """flagship-mesh1-1080p: the analytic fast flagship at full width built
+    on the card's mesh (`build_flagship(mesh=card_mesh())`, its capacity
+    shard from `shard_particles`), run as `phase_slice` ran
+    `slice_analytic` (the same state, generator and frames; its ms/frame
+    `plain_ms`). Gates: the last timed image within 1 of that slice's,
+    avg_lum within 1e-4, K5 launched LAUNCHES_PER_SPLAT times a frame,
+    FLAGSHIP_READS_PER_FRAME reads a frame (the exposure's percentile; the
+    histogram's all-reduce reads nothing) and none in its raster, which
+    runs once more under the sync debug mode. -> (K5 launches, mesh
+    state, raster config, ms/frame)."""
+    import torch.distributed as dist
+
+    from illuminant_tpu_torch.parallel import mesh as pmesh
+    from illuminant_tpu_torch.raster import splat_kernel as k5
+    from illuminant_tpu_torch.scenes import build_flagship
+
+    t0 = time.perf_counter()
+    mesh = card_mesh(device)
+    torch.cuda.reset_peak_memory_stats()
+    scene = build_flagship(device=device, mesh=mesh, **FULL, **MESH_SLICE)
+    img, state, avg, ms, launches, reads = _mesh_run(
+        scene, pmesh.shard_particles(scene.system.state, mesh), warmup,
+        frames)
+    render_reads = mesh_render_reads(mesh, scene.raster_config, state)
+    plain_img, plain_avg = SLICE_LAST["slice_analytic"]
+    lsb = int((img.to(torch.int32) - plain_img.to(torch.int32)).abs().max())
+    live = int(state.live_count())
+    say("slice_mesh", cell="flagship-mesh1-1080p", **MESH_SLICE,
+        mesh_size=mesh.size(), backend=dist.get_backend(), warmup=warmup,
+        frames=frames, ms_per_frame=f"{ms:.3f}",
+        unsharded_ms_per_frame=f"{plain_ms:.3f}", max_abs_lsb=lsb,
+        avg_lum=f"{avg:.6f}", avg_lum_unsharded=f"{plain_avg:.6f}",
+        live_particles=live, splat_launches=launches,
+        host_reads_per_frame=reads, render_host_reads=render_reads,
+        render_sync_debug="error: none",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    if tuple(img.shape) != (FULL["height"], FULL["width"], 3) or lsb > 1:
+        raise AssertionError(f"slice_mesh: image {tuple(img.shape)} off the "
+                             f"unsharded frame by {lsb}")
+    if abs(avg - plain_avg) > 1e-4 or not live > 0:
+        raise AssertionError(f"slice_mesh: avg_lum {avg} against "
+                             f"{plain_avg}, {live} live")
+    if launches != k5.LAUNCHES_PER_SPLAT * frames:
+        raise AssertionError(f"slice_mesh: K5 launched {launches} times in "
+                             f"{frames} frames")
+    if reads != FLAGSHIP_READS_PER_FRAME or render_reads != 0:
+        raise AssertionError(f"slice_mesh: {reads} host reads a frame, "
+                             f"{render_reads} in its raster")
+    return launches, state, scene.raster_config, ms
+
+
+def _band_inputs(cfg, d, rank, recv):
+    """The local K5 call of `raster_band` (parallel/raster.py): (local
+    config, x, y, color, size, live) on rank's ghost-extended grid, and
+    the crop of its band's rows."""
+    from illuminant_tpu_torch.parallel import mesh as pmesh
+    from illuminant_tpu_torch.parallel import raster as praster
+
+    row_lo, local = praster.band_grid(cfg, d, rank)
+    row0, row1 = pmesh.band_rows(cfg, d, rank)
+    return ((local, recv[:, 0], recv[:, 1] - float(row_lo), recv[:, 4:8],
+             recv[:, 2], recv[:, 3] > 0.5), slice(row0 - row_lo, row1 - row_lo))
+
+
+def _route_all(cfg, d, args, factor):
+    """Every rank's route of `args` (a whole capacity) -> (per-rank sends,
+    counts (D, D), send drops, budget)."""
+    from illuminant_tpu_torch.parallel import raster as praster
+
+    _, x, y, color, size, live = args
+    n_loc = x.shape[0] // d
+    budget = praster.send_budget(cfg, d, n_loc, factor)
+    outs = [praster.route(cfg, d, *(a[r * n_loc:(r + 1) * n_loc]
+                                    for a in (x, y, color, size, live)),
+                          budget) for r in range(d)]
+    sends = torch.stack([o[0] for o in outs])
+    counts = torch.stack([o[1] for o in outs])
+    return sends, counts, int(sum(int(o[2]) for o in outs)), budget
+
+
+def phase_mesh_bands(inputs, device="cuda"):
+    """K5 on band grids: for each input (cfg, x, y, color, size, live) and
+    D of MESH_DEVICES, every rank's route, the exchange, every band's
+    raster (`raster_band`: one K5 splat, LAUNCHES_PER_SPLAT launches, for
+    every band with rows). Gates: each band's K5 within its bound of its
+    plain version on the same band inputs, the stitched bands within the
+    unsharded K5 image's bound, the routes' counts and send drops at the
+    frame's factor (3.0) equal to the same route on the CPU. Times the
+    routes and the band rasters (device ms, CUDA graphs) beside one
+    unsharded K5. The lossless factor D routes every particle; the frame's
+    3.0 is used where it drops none. D = 1 goes through the real
+    collective: route, all_to_all_single on the card's NCCL group,
+    raster_band. -> {(input, D): record}."""
+    import torch.distributed as dist
+
+    from illuminant_tpu_torch.parallel import mesh as pmesh
+    from illuminant_tpu_torch.parallel import raster as praster
+    from illuminant_tpu_torch.raster import splat_kernel as k5
+    from illuminant_tpu_torch.raster import tiled
+
+    rec = {}
+    for name, args in inputs.items():
+        cfg, x, y, color, size, live = args
+        whole = k5.splat_cuda(*args)
+        terms = tiled.splat_terms(cfg, x, y, size, live)
+        tol = int(terms.max()) * 2.0 ** -23 * float(whole.abs().max())
+        whole_ms = device_ms(lambda: k5.splat_cuda(*args), KERNEL_REPS)
+        mesh = card_mesh(device)
+        lanes, _, _ = praster.route(cfg, 1, x, y, color, size, live,
+                                         praster.send_budget(
+                                             cfg, 1, x.shape[0]))
+        recv = torch.empty_like(lanes).reshape(-1, 8)
+        dist.all_to_all_single(recv, lanes.reshape(-1, 8),
+                               group=pmesh.mesh_group(mesh))
+        one = praster.raster_band(cfg, 1, 0, recv)
+        err1 = float((one - whole).abs().max())
+        _require("mesh_bands D=1", err1, tol, inputs=name)
+        for d in MESH_DEVICES:
+            t0 = time.perf_counter()
+            host = [a.cpu() for a in args[1:]]
+            _, counts_cpu, drops_cpu, _ = _route_all(cfg, d, (cfg, *host),
+                                                     3.0)
+            sends, counts, drops, _ = _route_all(cfg, d, args, 3.0)
+            if drops != drops_cpu or not torch.equal(counts.cpu(),
+                                                     counts_cpu):
+                raise AssertionError(
+                    f"mesh_bands {name} D={d}: the card's route sends "
+                    f"{counts.tolist()} and drops {drops}, the CPU's "
+                    f"{counts_cpu.tolist()} and {drops_cpu}")
+            factor = 3.0 if drops == 0 else float(d)
+            if drops:
+                sends, counts, _, _ = _route_all(cfg, d, args, factor)
+            budget = sends.shape[2]
+            recvs = sends.transpose(0, 1).reshape(d, d * budget, 8)
+            k5.LAUNCHES = 0
+            bands = [praster.raster_band(cfg, d, r, recvs[r])
+                     for r in range(d)]
+            launches = k5.LAUNCHES
+            with_rows = sum(1 for b in bands if b.shape[0])
+            band_err = band_tol = 0.0
+            nbytes = ops = plain_ms = 0.0
+            for r in range(d):
+                if not bands[r].shape[0]:
+                    continue
+                local, crop = _band_inputs(cfg, d, r, recvs[r])
+                ref, p_ms = timed_once(
+                    lambda: tiled.rasterize_tiled_reference(*local)[0])
+                b_terms = tiled.splat_terms(local[0], local[1], local[2],
+                                            local[4], local[5])
+                b_tol = int(b_terms.max()) * 2.0 ** -23 * float(
+                    ref.abs().max())
+                err = float((bands[r] - ref[crop]).abs().max())
+                _require("mesh_bands band", err, b_tol, inputs=name, d=d,
+                         rank=r)
+                band_err, band_tol = max(band_err, err), max(band_tol,
+                                                             b_tol)
+                b_bytes, b_ops = splat_work(*local, b_terms)
+                nbytes, ops, plain_ms = (nbytes + b_bytes, ops + b_ops,
+                                         plain_ms + p_ms)
+            stitched = torch.cat(bands)
+            err = float((stitched - whole).abs().max())
+            _require("mesh_bands stitched", err, tol, inputs=name, d=d)
+            if launches != k5.LAUNCHES_PER_SPLAT * with_rows:
+                raise AssertionError(f"mesh_bands {name} D={d}: K5 "
+                                     f"launched {launches} times for "
+                                     f"{with_rows} bands")
+            n_loc = x.shape[0] // d
+            route_calls = [
+                (lambda r=r: praster.route(
+                    cfg, d, *(a[r * n_loc:(r + 1) * n_loc]
+                              for a in (x, y, color, size, live)), budget))
+                for r in range(d)]
+            band_calls = [(lambda r=r: praster.raster_band(cfg, d, r,
+                                                           recvs[r]))
+                          for r in range(d)]
+            route_ms = sum(device_ms(f, KERNEL_REPS) for f in route_calls)
+            bands_ms = sum(device_ms(f, KERNEL_REPS) for f in band_calls)
+            bound_ms, bound_by = _bound(nbytes, ops)
+            say("mesh_bands", inputs=name, d=d, particles=x.shape[0],
+                send_budget=budget, factor=factor, send_dropped_at_3=drops,
+                peak=int(counts.max()),
+                owners_used=praster.owners_used(cfg, d),
+                band_rows=json.dumps([list(pmesh.band_rows(cfg, d, r))
+                                      for r in range(d)]),
+                route_ms=f"{route_ms:.4f}", bands_ms=f"{bands_ms:.4f}",
+                unsharded_ms=f"{whole_ms:.4f}", band_plain_ms=f"{plain_ms:.4f}",
+                band_bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                band_max_abs_err=band_err, band_tol=band_tol,
+                stitched_max_abs_err=err, tol=tol, d1_collective_err=err1,
+                splat_launches=launches,
+                seconds=f"{time.perf_counter() - t0:.1f}")
+            rec[name, d] = dict(route_ms=route_ms, bands_ms=bands_ms,
+                                whole_ms=whole_ms, err=max(err, band_err))
+    return rec
+
+
+def phase_reference_mesh():
+    """The mesh frame at 96 x 160 on the card's mesh of one, with the
+    global spawn ring and with 4 sub-rings, against the CPU frame without
+    a mesh (which tests/test_torch_mesh_frame.py holds to the gloo mesh
+    frames and the JAX sub-ring frame) from the same draws, with the
+    bounds of `_compare_small`."""
+    draws = _draws()
+    for kw in (dict(MESH_SLICE), dict(MESH_SLICE, spawn_sub_rings=4)):
+        t0 = time.perf_counter()
+        cpu = _small_frames("cpu", draws, **kw)
+        card = _small_frames("cuda", draws, mesh=card_mesh(), **kw)
+        within, _ = _compare_small("reference_mesh", cpu, card, mesh_size=1,
+                                   seconds=f"{time.perf_counter() - t0:.1f}",
+                                   **kw)
+        if within < 0.99:
+            raise AssertionError(f"reference_mesh ({kw}): particles moved "
+                                 "apart")
+
+
 def _busy_us(events) -> tuple:
     """(union of the device events' intervals, sum of their durations),
     in microseconds, and their count. The union counts overlapping work
@@ -4177,6 +4486,7 @@ def main(argv=None) -> int:
                     "archive`): its tile kernels, K10, K5 and K12 are "
                     "timed beside these on the same inputs")
     args = ap.parse_args(argv)
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4233,6 +4543,16 @@ def main(argv=None) -> int:
                                 else "family_march_sphere")
         scene = state = k12_calls = None
         torch.cuda.empty_cache()
+    mesh_launches, state, cfg, frame_ms["slice_mesh"] = phase_slice_mesh(
+        warmup, TIMED_FRAMES, frame_ms["slice_analytic"])
+    SLICE_LAST.clear()
+    phase_mesh_bands({
+        "flagship": (cfg, state.position[:, 0], state.position[:, 1],
+                     state.render_color, state.render_data[:, 0],
+                     state.live_mask()),
+        "clustered": clustered_cloud(cuda)})
+    state = None
+    torch.cuda.empty_cache()
     pack_launches = 0
     for name in RENDERER_FRAMES:
         frame_ms[name], k12_call, packs = phase_slice_renderer(name)
@@ -4293,6 +4613,7 @@ def main(argv=None) -> int:
     phase_reference_particle_lights()
     phase_reference_probes()
     phase_reference_march()
+    phase_reference_mesh()
     # Each kernel at the heavier of the frame's calls: the query with the
     # unit gradient, the sampler with the derivative rows; the other calls
     # are in the [kernel] lines above. "ms" is one call of the wrapper the
@@ -4370,13 +4691,18 @@ def main(argv=None) -> int:
              "illuminant_tpu/raster/tiled.py:589", kernel["splat_flagship"],
              dict(launches=launches["slice"]["splat"],
                   launches_particles=particle_launches["splat"],
-                  launches_model=model_launches["splat"]))):
+                  launches_model=model_launches["splat"],
+                  launches_mesh=mesh_launches))):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts, "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None})
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    say("done", seconds=f"{time.perf_counter() - started:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -52,11 +52,13 @@ def _friction_max_p(vx, vy, vz, su: SystemUniforms, v_len=None):
     return vx * m, vy * m, vz * m, torch.where(small, 0.0, new_l)
 
 
-def _slot_hash_direction(n: int, device):
+def _slot_hash_direction(n: int, device, first_slot: int = 0):
     """The JAX package's integer Weyl hash of the slot index -> a unit 2D
-    direction (the redirect fallback), in uint32 arithmetic."""
+    direction (the redirect fallback), in uint32 arithmetic, for slots
+    first_slot .. first_slot + n - 1."""
     mask = 0xFFFFFFFF
-    slot = torch.arange(n, dtype=torch.int64, device=device)
+    slot = torch.arange(first_slot, first_slot + n, dtype=torch.int64,
+                        device=device)
     h1 = (slot * 2654435761) & mask
     h2 = (((slot + 0x9E3779B9) & mask) * 2246822519) & mask
     fbx = (h1 >> 16).to(torch.float32) / 32768.0 - 1.0
@@ -65,9 +67,9 @@ def _slot_hash_direction(n: int, device):
     return fbx / fb_len, fby / fb_len
 
 
-def _render(state, new_pos, new_vel, rd):
-    index = torch.arange(state.capacity, dtype=torch.int32,
-                         device=new_pos.device)
+def _render(state, new_pos, new_vel, rd, first_slot: int = 0):
+    index = torch.arange(first_slot, first_slot + state.capacity,
+                         dtype=torch.int32, device=new_pos.device)
     render_color, render_data = compute_render_data(
         new_pos, new_vel, state.color, index, rd)
     return state.replace(position=new_pos, velocity=new_vel,
@@ -105,11 +107,14 @@ def integrate(state: ParticleState, su: SystemUniforms,
 def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
                                   rd: RenderDataUniforms, volume,
                                   maximum_z: float = 1e9,
-                                  substeps: int = MAX_STEP_COUNT
-                                  ) -> ParticleState:
+                                  substeps: int = MAX_STEP_COUNT,
+                                  first_slot: int = 0) -> ParticleState:
     """SDF collision integrate (UpdateParticleSystemWithDistanceField.fx)
     with up to `substeps` sphere-trace steps; particles above `maximum_z`
-    ignore the field. Returns a new state."""
+    ignore the field. `first_slot`: the ring slot of the state's row 0
+    (a mesh rank's capacity shard), which the slot-keyed terms read (the
+    redirect fallback's hash, the render data's index). Returns a new
+    state."""
     pos = state.position
     vel = state.velocity
     dt = su.dt
@@ -197,7 +202,7 @@ def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
     # Redirect: flee along the xy-masked normal (fx:103-116), or along the
     # slot-hash direction where the normal is too short (fx:105-110).
     r_len = _len3(nx, ny, zero)
-    fbx, fby = _slot_hash_direction(pos.shape[0], pos.device)
+    fbx, fby = _slot_hash_direction(pos.shape[0], pos.device, first_slot)
     no_norm = r_len < NO_NORMAL_THRESHOLD
     rdx = torch.where(no_norm, fbx, nx)
     rdy = torch.where(no_norm, fby, ny)
@@ -263,4 +268,4 @@ def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
     new_vel = torch.stack([sel(out_vx, vel[:, 0]), sel(out_vy, vel[:, 1]),
                            sel(out_vz, vel[:, 2]), sel(out_w, vel[:, 3])],
                           dim=-1)
-    return _render(state, new_pos, new_vel, rd)
+    return _render(state, new_pos, new_vel, rd, first_slot)

@@ -8,7 +8,8 @@ position / velocity / life / color formulas -> post matrices -> attribute
 discard, written at the ring cursor; `spawn_feedback` (SpawnParticles.fx
 PS_SpawnFeedback :55-118) takes its inputs from another system's
 particles. A spawn writes at most `spawn_max` slots per tick, masked by
-the actual count. The ring's `sub_rings` partition is ROADMAP M15.
+the actual count, or partitioned into `sub_rings` segments; a mesh rank
+writes only its own slots (`shard`).
 
 Randomness: the JAX package draws three (spawn_max, 4) uniform arrays
 from a threefry key (spawner.py:108-111), which PyTorch cannot reproduce.
@@ -81,23 +82,33 @@ def _count(count, device):
 
 def _window_write(state: ParticleState, rel, mask, rows, n: int,
                   spawn_max: int):
-    """Write rows[j] into slot (cursor + j) mod n where mask[j], in place.
-    Within the capacity the slots are distinct: a plain indexed write.
-    Past it the window overlaps itself and the newest row of each slot
-    wins (the reference's ring overwrites in order), picked by a max over
-    row numbers, so the write stays deterministic."""
+    """Write rows[j] into slot (cursor + j) mod n where mask[j], in place
+    (`_write_rows`; a window longer than the capacity overlaps itself)."""
     idx = torch.remainder(state.write_cursor.long() + rel.long(), n)
+    _write_rows(state, idx, mask, rel, rows, distinct=spawn_max <= n)
+
+
+def _write_rows(state: ParticleState, idx, mask, rel, rows, distinct: bool):
+    """Write row j of `rows` (row number rel[j], consecutive) into slot
+    idx[j] where mask[j], in place. `distinct`: no two rows share a slot
+    and every idx lies in the state, a plain indexed write. Otherwise
+    each slot takes the newest row that writes it (the reference's ring
+    overwrites in order), picked by a max over row numbers, so the write
+    stays deterministic; a row aimed at slot `state.capacity` (one past
+    the end) writes nothing."""
     arrays = (state.position, state.velocity, state.color)
-    if spawn_max <= n:
+    if distinct:
         keep = mask[:, None]
         for arr, new_rows in zip(arrays, rows):
             arr[idx] = torch.where(keep, new_rows, arr[idx])
         return
-    winner = torch.full((n,), -1, dtype=torch.int64, device=idx.device)
+    n = state.capacity
+    winner = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device)
     winner.scatter_reduce_(0, idx, torch.where(mask, rel.long(), -1),
                            reduce="amax")
+    winner = winner[:n]
     hit = (winner >= 0)[:, None]
-    src = torch.clamp(winner, min=0)
+    src = torch.clamp(winner - rel[0], min=0)
     for arr, new_rows in zip(arrays, rows):
         arr.copy_(torch.where(hit, new_rows[src], arr))
 
@@ -113,11 +124,26 @@ def _advance(state: ParticleState, count, n: int) -> ParticleState:
 def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
           generator: Optional[torch.Generator] = None,
           uniforms: Optional[Sequence] = None,
-          sub_rings: int = 1) -> ParticleState:
+          sub_rings: int = 1, shard=None) -> ParticleState:
     """Write up to `spawn_max` new particles at the ring cursor, the first
     `count` of them (a host int, or a 0-d tensor), as one window modulo
     the capacity; a window longer than the capacity keeps each slot's
     newest row.
+
+    `sub_rings` > 1 partitions the ring into that many segments of
+    capacity / sub_rings slots with one shared local cursor: the count
+    rounds down to a multiple of sub_rings, and row j goes to segment
+    j // seg (seg = spawn_max / sub_rings) at local index j % seg, each
+    segment taking the first count / sub_rings of its rows (spawner.py:
+    64-100; `Spawner.begin_tick(granularity=sub_rings)` carries the
+    remainder). sub_rings must divide spawn_max and the capacity.
+
+    `shard=(rank, n_ranks)`: `state` holds slots [rank n, (rank + 1) n) of
+    a ring of n x n_ranks slots (the mesh frame's capacity shard; its
+    cursor and total are the whole ring's), and the spawn writes only the
+    rows that land there, computed from the same draws as the whole
+    spawn's. With sub-rings (a multiple of n_ranks) those are the rows of
+    the rank's own segments, and only they are computed.
 
     Randomness comes from `generator` (draws on the state's device) or
     from `uniforms`, three (spawn_max, 4) arrays in [0, 1) standing in for
@@ -126,18 +152,49 @@ def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
     Updates state.position / velocity / color IN PLACE (the counterpart of
     the JAX step donating the state buffers) and returns the state with
     the cursor and total advanced."""
-    if sub_rings != 1:
-        raise NotImplementedError(
-            f"spawn(sub_rings={sub_rings}): the partitioned ring is not "
-            "ported yet (ROADMAP M15)")
-    n = state.capacity
+    n_local = state.capacity
+    rank, n_ranks = (0, 1) if shard is None else shard
+    n = n_local * n_ranks
+    if sub_rings < 1 or spawn_max % sub_rings or n % sub_rings:
+        raise ValueError(f"sub_rings={sub_rings} must divide both spawn_max "
+                         f"{spawn_max} and the capacity {n}")
+    if sub_rings > 1 and sub_rings % n_ranks:
+        raise ValueError(f"sub_rings={sub_rings} is not a multiple of the "
+                         f"{n_ranks} shards")
     dev = state.position.device
     f32 = torch.float32
     count = _count(count, dev)
-    rel = torch.arange(spawn_max, dtype=torch.int32, device=dev)
-    mask = rel < count
-
+    rel = torch.arange(spawn_max, dtype=torch.int64, device=dev)
     random1, random2, random3 = _draws(spawn_max, dev, generator, uniforms)
+    if sub_rings > 1:
+        seg, block = spawn_max // sub_rings, n // sub_rings
+        count = (count // sub_rings) * sub_rings
+        per = count // sub_rings
+        if shard is not None:
+            own = slice(rank * spawn_max // n_ranks,
+                        (rank + 1) * spawn_max // n_ranks)
+            rel, random1, random2, random3 = (
+                a[own] for a in (rel, random1, random2, random3))
+        mask = (rel % seg) < per
+        # The spawn ordinal among the kept rows keeps the position-constant
+        # cycle and the polygon walk contiguous across segments.
+        rel_order = (rel // seg) * per + rel % seg
+        local_cursor = torch.remainder(
+            state.write_cursor.long() // sub_rings, block)
+        idx = (rel // seg) * block + torch.remainder(local_cursor + rel % seg,
+                                                     block)
+        distinct = seg <= block
+    else:
+        mask = rel < count
+        rel_order = rel
+        idx = torch.remainder(state.write_cursor.long() + rel, n)
+        distinct = spawn_max <= n and shard is None
+    if shard is not None:
+        idx = idx - rank * n_local
+        inside = (idx >= 0) & (idx < n_local)
+        mask = mask & inside
+        idx = torch.where(inside, idx, n_local)
+
     # AlignVelocityAndPosition (SpawnerCommon.fxh:114-117).
     random2 = torch.where(u.align_velocity_and_position > 0.5,
                           torch.cat([random1[:, :2], random2[:, 2:]], dim=-1),
@@ -150,7 +207,7 @@ def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
     p_ci = torch.clamp(u.position_constant_count.to(torch.int32), min=1)
     total_w = torch.remainder(state.total_spawned.to(torch.int32),
                               p_ci * 4096)
-    relf = (rel + total_w).to(f32)
+    relf = (rel_order + total_w).to(f32)
     use_poly = u.polygon_rate > 0.05
     pos_f = relf / torch.clamp(u.polygon_rate, min=1e-3)
     pos_i = torch.floor(pos_f)
@@ -200,8 +257,8 @@ def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
         u.formula_types[2], u.axis_mask)
 
     mask = mask & (new_attributes[:, 3] >= u.attribute_discard_threshold)
-    _window_write(state, rel, mask, (new_position, new_velocity,
-                                     new_attributes), n, spawn_max)
+    _write_rows(state, idx, mask, rel, (new_position, new_velocity,
+                                        new_attributes), distinct)
     return _advance(state, count, n)
 
 

@@ -1,6 +1,6 @@
 """Particle rasterization by screen tile (counterpart of
 illuminant_tpu/raster/tiled.py: `rasterize_tiled`, `bin_particles`,
-`composite_over_tiles`, `rasterize_tiled_alpha`).
+`quantize_xy`, `composite_over_tiles`, `rasterize_tiled_alpha`).
 
 The JAX package bins particles by 32-px screen tile with a sort, slices
 fixed-capacity bins, and splats each tile's separable coverage as one-hot
@@ -61,6 +61,10 @@ class TiledRasterConfig:
     # Stipple phase offset, read by raster/render.py (per system, so that
     # stippled systems interleave).
     stipple_offset: float = 0.0
+    # Slots a tile's bin holds in `bin_particles`, which counts the
+    # particles past it as dropped. The splat has no bins of fixed size
+    # and reads none of it: it never drops a particle.
+    bin_capacity: int = 1024
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -262,6 +266,60 @@ def bin_footprints(cfg: TiledRasterConfig, x, y, live, support_size=None):
     starts = torch.searchsorted(
         skey, torch.arange(nt + 1, dtype=torch.int32, device=x.device))
     return ((perm // rep).to(torch.int32), starts.to(torch.int32))
+
+
+XY_SUBPIXEL = 16.0
+
+
+def quantize_xy(x, y):
+    """The JAX packed payload's position quantization (tiled.py:178-182):
+    1/16 px, round half to even. The port's splat keeps float32
+    positions; this serves oracles that match the JAX raster."""
+    q = 1.0 / XY_SUBPIXEL
+    return torch.round(x * XY_SUBPIXEL) * q, torch.round(y * XY_SUBPIXEL) * q
+
+
+def bin_particles(cfg: TiledRasterConfig, x, y, color, size, live,
+                  stable: bool = True, replicate_footprint: bool = False,
+                  replicate_radius=None):
+    """Per-tile bins of cfg.bin_capacity slots (tiled.py:269-434): the
+    live on-screen particles sorted by screen tile, stably, so each tile
+    keeps index order; slot j of tile t holds its j-th particle. Returns
+    the JAX dict: "x", "y", "size" (NT, K), "color" (a tuple of (NT, K)
+    planes, one a channel of `color`), "valid" (NT, K) bool, "dropped"
+    (the particles past a full bin, a 0-d tensor), "starts" and "counts"
+    (NT,) int32. Invalid slots hold 0.
+
+    `replicate_footprint=True` lists each particle in every tile, up to
+    2 x 2, that its support box of half-width clip(r / 2, 0.5, apron +
+    0.5) + 0.5 touches (r = `replicate_radius`, else `size`), as
+    `bin_footprints` does.
+
+    What is left out is TPU payload layout: the packed operands (1/16-px
+    positions, rgba8 or bfloat16 colours and sizes, the compact key) and
+    the "packed" quad-row payload, so the slots hold the float32 inputs;
+    `aligned=False`'s unordered slot windows. `stable=False` returns the
+    stable order, one valid instance of an unstable sort."""
+    del stable
+    k = cfg.bin_capacity
+    support = None
+    if replicate_footprint:
+        support = size if replicate_radius is None else replicate_radius
+    ids, starts = bin_footprints(cfg, x, y, live, support_size=support)
+    counts = starts[1:] - starts[:-1]
+    slot = torch.arange(k, dtype=torch.int64, device=x.device)
+    valid = slot[None, :] < torch.clamp(counts, max=k)[:, None]
+    src = ids[torch.clamp(starts[:-1, None] + slot[None, :],
+                          max=ids.shape[0] - 1)].long()
+
+    def take(a):
+        return torch.where(valid, a[src], torch.zeros((), dtype=a.dtype,
+                                                      device=a.device))
+
+    return dict(x=take(x), y=take(y), size=take(size),
+                color=tuple(take(color[:, c]) for c in range(color.shape[1])),
+                valid=valid, dropped=torch.clamp(counts - k, min=0).sum(),
+                starts=starts[:-1], counts=counts)
 
 
 def alpha_records(cfg: TiledRasterConfig, x, y, color, size, opacity=None):

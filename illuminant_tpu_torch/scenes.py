@@ -20,7 +20,9 @@ On that field the frame runs
     collision against the moving occluders;
   * the additive particle splat, an HDR luminance histogram driving the
     next frame's exposure, and the Uncharted2 tonemap to uint8.
-With `full_family` (True, or a set of family names) the frame also shades
+With `mesh` each rank of a multi-device run builds its part of the frame
+(see build_flagship). With `full_family` (True, or a set of family names)
+the frame also shades
 the full "Lumined scene" light set (scenes.py:259-372, 593-799): a
 directional sun and a line light whose shadows ride the sphere lights'
 scan as extra lanes (under the march, the sun marches and the line light
@@ -75,11 +77,15 @@ from .ops import tonemap as tm
 from .ops.bezier import (DynamicMatrix, constant_bezier, evaluate_bezier,
                          evaluate_bezier_matrix, pack_bezier,
                          pack_bezier_matrix)
+from .parallel.mesh import (check_mesh, gather_slots, mesh_device,
+                            reduce_histogram, row_band)
+from .parallel.raster import rasterize_tiled_sharded
 from .particles import transforms as tx
 from .particles.formula import FORMULA_SPHERICAL, Formula1, Formula3, Formula4
 from .particles.integrate import integrate_with_distance_field
 from .particles.render_data import RenderDataUniforms
 from .particles.spawner import Spawner, spawn
+from .particles.state import ParticleState
 from .particles.system import ParticleSystem, ParticleSystemConfig
 from .raster.tiled import TiledRasterConfig, rasterize_tiled
 from .sdf import analytic, volume as vol
@@ -117,14 +123,11 @@ class FlagshipScene:
     extra_lights: Optional[dict] = None
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
                    capacity: int = 1 << 20, spawn_max: int = 4096,
                    sdf_resolution_scale: float = 0.25,
                    quality: Optional[QualitySettings] = None,
+                   bin_capacity: int = 1016,
                    preset: str = "fast",
                    shadow_mode: str = "scan", full_family=False,
                    spawn_sub_rings: int = 1,
@@ -135,8 +138,27 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
     """The flagship frame on `device` (the card unless the caller asks for
     another); the arguments mean what they mean in the JAX package:
     `full_family` is False, True (every extra light family) or an iterable
-    of names from FAMILIES. Values outside the ported slice raise
-    NotImplementedError naming their ROADMAP item."""
+    of names from FAMILIES; `raster_preset` picks the splat's kernel (the
+    parity round disc or the fast Gaussian) apart from `preset`;
+    `collision_substeps` overrides the preset's count (3 parity, 1 fast);
+    `spawn_sub_rings` partitions the spawn ring (particles/spawner.py:
+    spawn) and must divide `spawn_max` and `capacity`. `bin_capacity` is
+    the raster config's bin size: the port's splat has no bins of fixed
+    size and never drops a particle, so the frame's `dropped` counts only
+    the mesh's send drops.
+
+    `mesh` (parallel.mesh.make_mesh) builds the calling rank's frame of a
+    multi-device run: its device is the rank's, and `frame` takes the
+    rank's capacity shard of the state (parallel.mesh.shard_particles),
+    spawns into it (the global ring's rows that land in its slots, or its
+    own sub-ring segments; every rank draws the same global uniforms),
+    rasterizes through parallel.raster.rasterize_tiled_sharded and
+    returns its row band of the image (parallel.mesh.row_band) with the
+    exposure of the whole frame (the band's histogram summed over the
+    mesh). The other inputs are whole on every rank
+    (parallel.mesh.replicate); each rank computes the whole lightmap and
+    keeps its band. With `spawn_sub_rings` > 1 the count is a multiple of
+    the mesh size."""
     if preset not in ("fast", "parity"):
         raise ValueError(f"unknown preset {preset!r}")
     if field not in ("analytic", "voxel"):
@@ -148,20 +170,25 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
         if bad:
             raise ValueError(f"unknown light families {sorted(bad)}; "
                              f"valid: {sorted(FAMILIES)}")
-    if mesh is not None:
-        raise _unported("the multi-device frame", "M15")
-    if spawn_sub_rings != 1:
-        raise _unported(f"spawn_sub_rings={spawn_sub_rings} (the spawner's "
-                        "per-device sub-rings)", "M15")
     if shadow_mode not in ("scan", "march", "none"):
         raise ValueError(f"unknown shadow_mode {shadow_mode!r} (expected "
                          "'scan', 'march' or 'none')")
-    if raster_preset not in (None, preset):
-        raise _unported(f"raster_preset={raster_preset!r} under "
-                        f"preset={preset!r} (the mixed presets)", "M8")
-    if collision_substeps not in (None, 1, 2, 3):
-        raise _unported(f"collision_substeps={collision_substeps} (1 to 3 "
-                        "are ported)", "M8")
+    if spawn_sub_rings < 1 or spawn_max % spawn_sub_rings \
+            or capacity % spawn_sub_rings:
+        raise ValueError(f"spawn_sub_rings={spawn_sub_rings} must divide "
+                         f"spawn_max {spawn_max} and capacity {capacity}")
+    if mesh is not None:
+        check_mesh(mesh)
+        if torch.device(device).type != mesh.device_type:
+            raise ValueError(f"a {mesh.device_type} mesh builds no frame on "
+                             f"{device!r}")
+        device = mesh_device(mesh)
+        if capacity % mesh.size() or (spawn_sub_rings > 1
+                                      and spawn_sub_rings % mesh.size()):
+            raise ValueError(
+                f"the capacity {capacity} and spawn_sub_rings "
+                f"{spawn_sub_rings} (when > 1) must be multiples of the "
+                f"mesh size {mesh.size()}")
     device = torch.device(device)
     parity = preset == "parity"
     substeps = (collision_substeps if collision_substeps is not None
@@ -278,12 +305,13 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
     system = ParticleSystem(p_config, [spawner, grav], volume=volume,
                             render_data=render_data, device=device)
 
-    # The preset's splat kernel: the parity round disc or the fast
-    # Gaussian glow. The JAX presets' payload quantization and bin
-    # capacity have no counterpart in the direct splat.
+    # The raster preset's splat kernel: the parity round disc or the fast
+    # Gaussian glow. The JAX presets' payload quantization has no
+    # counterpart in the direct splat.
     raster_config = TiledRasterConfig(
         height=height, width=width, tile=32, apron=4, channels=3,
-        kernel="round" if parity else "gauss")
+        kernel="round" if (raster_preset or preset) == "parity" else "gauss",
+        bin_capacity=bin_capacity)
 
     frame = _FlagshipFrame(
         device=device, cx=cx, cy=cy, ring=ring, config=config,
@@ -291,7 +319,8 @@ def build_flagship(height: int = 1080, width: int = 1920, n_lights: int = 8,
         su=system.system_uniforms(DT), rd=system.render_data,
         grav_u=grav.uniforms(0.0, device=device),
         spawn_u=spawner.uniforms(0.0, device=device), spawner=spawner,
-        raster_config=raster_config, extra=extra, shadow_mode=shadow_mode)
+        raster_config=raster_config, extra=extra, shadow_mode=shadow_mode,
+        sub_rings=spawn_sub_rings, mesh=mesh)
     return FlagshipScene(
         config=config, environment=env, sdf_config=sdf_config,
         volume=volume, gbuffer=gbuffer, sphere_lights=sphere_lights,
@@ -459,7 +488,7 @@ class _FlagshipFrame:
 
     def __init__(self, *, device, cx, cy, ring, config, animate_field,
                  substeps, su, rd, grav_u, spawn_u, spawner, raster_config,
-                 extra=None, shadow_mode="scan"):
+                 extra=None, shadow_mode="scan", sub_rings=1, mesh=None):
         f32 = torch.float32
         self.device = device
         self.quality = config.quality
@@ -476,6 +505,14 @@ class _FlagshipFrame:
         # the line light's lanes; "march": the exact cone march (K12 on
         # the card) for the sphere lights and the sun.
         self.shadow_mode = shadow_mode
+        self.sub_rings = sub_rings
+        # A mesh rank's part: its row band and, on a mesh of several
+        # ranks, its capacity shard of the spawn ring.
+        self.mesh = mesh
+        self.rows = (row_band(mesh, raster_config) if mesh is not None
+                     else (0, raster_config.height))
+        self.shard = ((mesh.get_local_rank(), mesh.size())
+                      if mesh is not None and mesh.size() > 1 else None)
         self.light_radius_bezier = pack_bezier(
             [[10.0], [16.0], [11.0], [10.0]], min_value=0.0, max_value=2.0,
             device=device)
@@ -638,6 +675,8 @@ class _FlagshipFrame:
             with_alpha=False, scan_visibility_precomputed=sphere_vis)
         if not self.extra:
             return lightmap
+        if "particle_light" in self.extra:
+            state = self.whole_state(state)
         lightmap = lightmap + self.extra_families(
             field, gbuffer, env_u, state, dir_vis, line_vis)
         if "projector" in self.extra:
@@ -666,28 +705,49 @@ class _FlagshipFrame:
             position_constants=pc,
             velocity_matrix=evaluate_bezier_matrix(
                 self.spawner.velocity_post_matrix, torch.remainder(t, 4.0)))
-        if spawn_uniforms is not None:
-            state = spawn(state, u, spawn_count, self.spawner.spawn_max,
-                          uniforms=spawn_uniforms)
-        else:
-            state = spawn(state, u, spawn_count, self.spawner.spawn_max,
-                          generator=generator)
+        state = spawn(state, u, spawn_count, self.spawner.spawn_max,
+                      generator=None if spawn_uniforms is not None
+                      else generator, uniforms=spawn_uniforms,
+                      sub_rings=self.sub_rings, shard=self.shard)
         pos, vel = tx.apply_gravity(state.position, state.velocity,
                                     self.grav_u, self.su)
         state = state.replace(position=pos, velocity=vel)
-        return integrate_with_distance_field(state, self.su, self.rd, field,
-                                             substeps=self.substeps)
+        return integrate_with_distance_field(
+            state, self.su, self.rd, field, substeps=self.substeps,
+            first_slot=0 if self.shard is None
+            else self.shard[0] * state.capacity)
 
     def raster(self, state):
-        return rasterize_tiled(
-            self.raster_config, state.position[:, 0], state.position[:, 1],
-            state.render_color, state.render_data[:, 0], state.live_mask())
+        """The particle image of the frame's rows (a mesh rank's band)."""
+        args = (self.raster_config, state.position[:, 0],
+                state.position[:, 1], state.render_color,
+                state.render_data[:, 0], state.live_mask())
+        if self.mesh is not None:
+            return rasterize_tiled_sharded(self.mesh, *args)
+        return rasterize_tiled(*args)
 
     def exposure(self, scene_hdr, avg_lum):
         """The HDR histogram's 95th percentile, smoothed into the next
-        frame's average luminance."""
+        frame's average luminance; on a mesh the histogram of every
+        rank's band."""
         hist = compute_histogram(scene_hdr, self.hist_bounds)
+        if self.mesh is not None:
+            hist = reduce_histogram(hist, self.mesh)
         return avg_lum * 0.95 + percentile(hist, 95.0) * 0.05
+
+    def whole_state(self, state):
+        """The whole particle set on a mesh of several ranks (every rank's
+        shard gathered in slot order, one all_gather), else `state`."""
+        if self.shard is None:
+            return state
+        planes = ("position", "velocity", "color", "render_color",
+                  "render_data")
+        cat = gather_slots(self.mesh, torch.cat(
+            [getattr(state, p) for p in planes], dim=1))
+        return ParticleState(
+            **dict(zip(planes, cat.split(4, dim=1))),
+            write_cursor=state.write_cursor,
+            total_spawned=state.total_spawned)
 
     def tonemap(self, scene_hdr, avg_lum):
         """Uncharted2 + gamma to uint8 at this frame's exposure."""
@@ -703,7 +763,8 @@ class _FlagshipFrame:
               env_u, spawn_count, frame_index=0, spawn_uniforms=None):
         """One frame at time frame_index / 60 s. `spawn_uniforms` (three
         (spawn_max, 4) arrays) replaces the generator's draws.
-        Returns (uint8 image (H, W, 3), state, next avg_lum, dropped)."""
+        Returns (uint8 image (H, W, 3), state, next avg_lum, dropped); a
+        mesh rank's image is its row band (row1 - row0, W, 3)."""
         f32 = torch.float32
         i = torch.tensor(float(frame_index), dtype=f32, device=self.device)
         t = i * DT
@@ -720,7 +781,9 @@ class _FlagshipFrame:
                                    spawn_uniforms)
         with rf("illuminant/frame/raster"):
             particle_img, diag = self.raster(state)
-        scene_hdr = (lightmap + particle_img[..., :3]).to(torch.bfloat16)
+        row0, row1 = self.rows
+        scene_hdr = (lightmap[row0:row1] + particle_img[..., :3]).to(
+            torch.bfloat16)
         with rf("illuminant/frame/exposure"):
             new_avg = self.exposure(scene_hdr, avg_lum)
         with rf("illuminant/frame/tonemap"):

@@ -64,6 +64,10 @@ def compute_histogram(lightmap, boundaries: np.ndarray,
         0, idx, torch.ones_like(idx))[:b].to(torch.int32)
     n = torch.sum(valid.to(torch.int32))
     big = 3.4e38
+    if lum.numel() == 0:
+        # An image of no pixels (a mesh rank's empty band): the reductions'
+        # identities.
+        lum, valid = lum.new_zeros(1), valid.new_zeros(1)
     return HistogramResult(
         counts=counts, boundaries=bounds_t,
         min=torch.amin(torch.where(valid, lum, big)),

@@ -1,5 +1,6 @@
-"""The port's package boundary: it never imports jax, and arguments
-outside the ported slice fail loudly."""
+"""The port's package boundary: it never imports jax, its entry points
+default to the card, arguments it once refused build a frame, and invalid
+arguments fail loudly."""
 
 import os
 import subprocess
@@ -23,7 +24,7 @@ NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
     "lighting.spherical_harmonics", "utils.jumpflood", "utils.mapgen",
     "utils.visualize", "models.parameter", "models.model", "models.view",
     "models.codegen", "models.editor", "lighting.cone_trace_kernel",
-    "raster.splat_kernel")]
+    "raster.splat_kernel", "parallel.mesh", "parallel.raster", "entry")]
 
 
 def test_import_leaves_jax_out():
@@ -78,23 +79,93 @@ def test_quality_rejects_unknown_refine_mode():
         QualitySettings(scan_refine_mode="carry")
 
 
-# Both fields, both presets, the extra light families and the march are
-# ported. A raster preset other than the frame's own, a collision substep
-# count outside 1-3, the mesh and the spawner's sub-rings are not, also
-# with the families and the march on.
+# The arguments that raised until the port covered them (ROADMAP M8 and
+# M15): a raster preset other than the frame's own, a collision substep
+# count outside 1-3, the mesh and the spawner's sub-rings, also with the
+# families and the march on. Each now builds a frame that is held to the
+# JAX frame of the same arguments, the mesh ("mesh") to the
+# single-process frame.
 @pytest.mark.parametrize("kwargs", [
     dict(raster_preset="parity"),
     dict(preset="parity", raster_preset="fast"),
     dict(full_family=True, shadow_mode="march", collision_substeps=4),
-    dict(mesh=object()), dict(shadow_mode="march", raster_preset="parity"),
+    dict(mesh="mesh"), dict(shadow_mode="march", raster_preset="parity"),
     dict(collision_substeps=0), dict(spawn_sub_rings=2),
     dict(collision_substeps=4),
 ])
 def test_unported_arguments_raise(kwargs):
+    """Formerly unported arguments build: one voxel frame of each, with
+    the JAX frame's draws and the JAX column sampler's rounding, within
+    tests/test_torch_march_flagship.py's bounds (image mean |d| <= 1 LSB,
+    at most 1% of values off by more than 8, avg_lum within 1%, equal
+    live masks, particles within 0.05); the mesh of one gloo rank equals
+    the single-process frame exactly."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from illuminant_tpu.scenes import build_flagship as jax_build_flagship
+    from illuminant_tpu_torch.parallel import mesh as pmesh
+    from test_torch_columns import sampler_rounding_like_jax
+    from test_torch_flagship import _jax_uniforms
+
+    import torch_mesh_ranks
+
     kw = dict(height=32, width=48, capacity=64, spawn_max=16, n_lights=2,
               field="voxel")
+    if kwargs.get("mesh") == "mesh":
+        (run,), = pmesh.spawn_ranks(torch_mesh_ranks.mesh_frames, 1,
+                                    [(kw, 1, 16, 3, 0)], device="cpu")
+        scene = build_flagship(device="cpu", **kw)
+        img, state, avg, dropped = scene.frame(
+            scene.system.state, torch.tensor(0.5),
+            torch.Generator().manual_seed(3), scene.volume, scene.gbuffer,
+            scene.sphere_lights, scene.environment.uniforms(device="cpu"),
+            16)
+        assert torch.equal(run[0][0], img)
+        assert torch.equal(run[1], state.position)
+        assert run[2] == [float(avg)] and run[3] == [int(dropped)] == [0]
+        return
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    sj = jax_build_flagship(**kw)
+    key = jax.random.key(0)
+    jimg, jstate, javg, _ = sj.frame(
+        sj.system.state, jnp.float32(0.5), key, sj.volume, sj.gbuffer,
+        sj.sphere_lights, sj.environment.uniforms(), jnp.asarray(16,
+                                                                 jnp.int32))
+    st = build_flagship(device="cpu", **kw)
+    with sampler_rounding_like_jax():
+        img, state, avg, dropped = st.frame(
+            st.system.state, torch.tensor(0.5), None, st.volume, st.gbuffer,
+            st.sphere_lights, st.environment.uniforms(device="cpu"), 16,
+            spawn_uniforms=_jax_uniforms(key, 0, 16))
+    d = np.abs(img.numpy().astype(np.int32) - np.asarray(jimg, np.int32))
+    assert d.mean() <= 1.0 and (d > 8).mean() <= 0.01, d.mean()
+    assert abs(float(avg) - float(javg)) <= 0.01 * abs(float(javg))
+    jpos = np.asarray(jstate.position)
+    live = jpos[:, 3] > 0
+    assert live.sum() == (16 // kw.get("spawn_sub_rings", 1)) \
+        * kw.get("spawn_sub_rings", 1)
+    np.testing.assert_array_equal(state.position[:, 3].numpy() > 0, live)
+    err = np.linalg.norm(state.position[live, :3].numpy() - jpos[live, :3],
+                         axis=-1)
+    assert err.max() <= 0.05, err.max()
+    assert int(dropped) == 0
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(mesh=object()), TypeError),
+    (dict(spawn_sub_rings=3), ValueError),
+    (dict(spawn_sub_rings=64, spawn_max=64, capacity=96), ValueError),
+])
+def test_invalid_mesh_arguments_raise(kwargs, error):
+    """Truly invalid input fails before anything is built: a mesh that is
+    not a 1-D DeviceMesh, sub-rings that do not divide the spawn window
+    or the capacity."""
+    kw = dict(height=32, width=48, capacity=64, spawn_max=16, n_lights=2)
+    kw.update(kwargs)
+    with pytest.raises(error):
         build_flagship(**kw)
 
 
@@ -177,11 +248,17 @@ def _entry_points():
     from illuminant_tpu_torch.sdf.volume import SdfObstructions, SdfVolume
     from illuminant_tpu_torch.utils.jumpflood import jump_flood_sdf
     from illuminant_tpu_torch.utils.visualize import visualize_distance_field
+    from illuminant_tpu_torch.entry import dryrun_multichip, entry
+    from illuminant_tpu_torch.parallel.mesh import make_mesh, spawn_ranks
 
     compiled: dict = {}
     exec(compile(save_as_code(EngineModel()), "<generated>", "exec"),
          compiled)
     return {
+        "make_mesh": make_mesh,
+        "spawn_ranks": spawn_ranks,
+        "entry": entry,
+        "dryrun_multichip": dryrun_multichip,
         "EngineView": EngineView.__init__,
         "EditorController": EditorController.__init__,
         "EditorController.load": EditorController.load,

@@ -165,9 +165,13 @@ def test_spawn_max_over_capacity_newest_wins(cursor, count):
     out_t = spawner.spawn(_tstate(d), ts.uniforms(0.0), count, smax,
                           uniforms=_draws(key, smax))
     _assert_rows(out_t, out_j)
-    with pytest.raises(NotImplementedError, match="ROADMAP M15"):
-        spawner.spawn(_tstate(d), ts.uniforms(0.0), count, smax,
-                      uniforms=_draws(key, smax), sub_rings=2)
+    # Two sub-rings: each segment's window (128 rows) overlaps its block
+    # (32 slots), and again the newest row of each slot wins.
+    out_j = jspawner.spawn(_jstate(d), js.uniforms(0.0),
+                           jnp.asarray(count), key, smax, sub_rings=2)
+    out_t = spawner.spawn(_tstate(d), ts.uniforms(0.0), count, smax,
+                          uniforms=_draws(key, smax), sub_rings=2)
+    _assert_rows(out_t, out_j)
 
 
 FEEDBACK = dict(source_velocity_factor=0.5, source_life_min=0.2,
@@ -224,3 +228,82 @@ def test_pattern_spawner_matches_jax():
     out_j = jspawner.spawn(_jstate(d), ju, jnp.asarray(45), key, 48)
     out_t = spawner.spawn(_tstate(d), tu, 45, 48, uniforms=_draws(key, 48))
     _assert_rows(out_t, out_j)
+
+
+def test_spawn_sub_rings_match_jax():
+    """tests/test_multichip.py::test_spawn_sub_rings_unit through both
+    packages with the JAX draws: 8 sub-rings of a 256-slot ring, 5 rows a
+    segment at local cursor 0, then 3 more at the advanced cursor, and a
+    count of 13 rounded down to 8. Every row equals the JAX spawn's."""
+    D, cap, smax = 8, 256, 64
+    kw = dict(life=None, position=None)
+    js = _spawner(jspawner, jf, **{**kw, "life": jf.Formula1(constant=5.0),
+                                   "position": jf.Formula3(
+                                       constant=(1.0, 2.0, 3.0))})
+    ts = _spawner(spawner, tf, **{**kw, "life": tf.Formula1(constant=5.0),
+                                  "position": tf.Formula3(
+                                      constant=(1.0, 2.0, 3.0))})
+    key = jax.random.key(0)
+    d = _state(cap)
+    d["position"][:, 3] = 0.0
+    sj, st = _jstate(d), _tstate(d)
+    for count, k in ((40, key), (24, jax.random.fold_in(key, 1))):
+        sj = jspawner.spawn(sj, js.uniforms(0.0), jnp.asarray(count), k,
+                            smax, sub_rings=D)
+        st = spawner.spawn(st, ts.uniforms(0.0), count, smax,
+                           uniforms=_draws(k, smax), sub_rings=D)
+        _assert_rows(st, sj)
+    per_seg = (st.position[:, 3] > 0).reshape(D, cap // D).sum(dim=1)
+    assert per_seg.tolist() == [8] * D
+    d = _state(cap, cursor=48, total=48)
+    out_j = jspawner.spawn(_jstate(d), js.uniforms(0.0), jnp.asarray(13),
+                           key, smax, sub_rings=D)
+    out_t = spawner.spawn(_tstate(d), ts.uniforms(0.0),
+                          torch.tensor(13, dtype=torch.int32), smax,
+                          uniforms=_draws(key, smax), sub_rings=D)
+    _assert_rows(out_t, out_j)
+    assert int(out_t.write_cursor) == 56
+
+
+@pytest.mark.parametrize("n,smax,sub_rings,cursor,count", [
+    (64, 48, 1, 40, 45),      # the global window crosses the shards
+    (64, 48, 1, 60, 48),      # ... and the ring's end
+    (64, 256, 1, 5, 200),     # a window longer than the ring
+    (64, 48, 4, 12, 40),      # a sub-ring segment on each shard
+    (64, 256, 4, 8, 256),     # segments longer than their blocks
+])
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_spawn_shards_write_their_slots(n, smax, sub_rings, cursor, count,
+                                        n_ranks):
+    """Each rank's spawn into its capacity shard (`shard=(rank, n_ranks)`)
+    writes exactly the whole spawn's rows of its slots, and advances the
+    ring's cursor and total as the whole spawn does."""
+    ts = _spawner(spawner, tf, spawn_max=smax)
+    d = _state(n, cursor=cursor, total=cursor + 7)
+    draws = _draws(jax.random.key(cursor), smax)
+    whole = spawner.spawn(_tstate(d), ts.uniforms(0.0), count, smax,
+                          uniforms=draws, sub_rings=sub_rings)
+    n_loc = n // n_ranks
+    for r in range(n_ranks):
+        part = {k: (v[r * n_loc:(r + 1) * n_loc] if v.ndim else v)
+                for k, v in d.items()}
+        out = spawner.spawn(_tstate(part), ts.uniforms(0.0), count, smax,
+                            uniforms=draws, sub_rings=sub_rings,
+                            shard=(r, n_ranks))
+        for name in ("position", "velocity", "color"):
+            np.testing.assert_array_equal(
+                getattr(out, name).numpy(),
+                getattr(whole, name)[r * n_loc:(r + 1) * n_loc].numpy(),
+                err_msg=f"{name}, rank {r}")
+        assert int(out.write_cursor) == int(whole.write_cursor)
+        assert int(out.total_spawned) == int(whole.total_spawned)
+
+
+@pytest.mark.parametrize("kw", [dict(sub_rings=3), dict(sub_rings=5),
+                                dict(sub_rings=2, shard=(0, 4))])
+def test_spawn_rejects_sub_rings_that_do_not_divide(kw):
+    ts = _spawner(spawner, tf, spawn_max=48)
+    d = _state(64 // kw.get("shard", (0, 1))[1])
+    with pytest.raises(ValueError, match="sub_rings"):
+        spawner.spawn(_tstate(d), ts.uniforms(0.0), 12, 48,
+                      uniforms=_draws(jax.random.key(0), 48), **kw)
