@@ -1,4 +1,4 @@
-"""Frozen tensor dataclasses and profiler scopes.
+"""Frozen tensor dataclasses.
 
 Counterpart of illuminant_tpu/core/pytree.py. JAX registers its state as
 pytrees so that jit can trace it; PyTorch runs eagerly, so a port
@@ -10,9 +10,6 @@ an elementwise tensor comparison has no single truth value.
 from __future__ import annotations
 
 import dataclasses
-import functools
-
-import torch
 
 
 def tensor_dataclass(cls):
@@ -25,18 +22,3 @@ def tensor_dataclass(cls):
     cls.replace = replace
     return cls
 
-
-def named_scope(name: str):
-    """Decorator: run the function inside torch.profiler.record_function —
-    the counterpart of the JAX package's jax.named_scope; the scope shows
-    up as a range in torch.profiler traces."""
-
-    def wrap(fn):
-        @functools.wraps(fn)
-        def inner(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-
-        return inner
-
-    return wrap

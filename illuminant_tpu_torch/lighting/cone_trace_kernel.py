@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from ..core import cuda_build
+from ..core.trace import launch
 from ..core.config import QualitySettings
 from ..sdf import columns, columns_kernel
 from ..sdf.analytic import AnalyticScene
@@ -161,7 +162,7 @@ def pack_volume(data):
         raise ValueError(f"pack_volume: {data.numel()} elements reach 2^31")
     out = torch.empty(tuple(data.shape) + (4,), dtype=torch.float32,
                       device=data.device)
-    with torch.cuda.device(data.device):
+    with launch("k12_volume_pack"), torch.cuda.device(data.device):
         err = _library().cone_trace_pack_volume(
             data.data_ptr(), *data.shape, out.data_ptr(),
             torch.cuda.current_stream(data.device).cuda_stream)
@@ -346,7 +347,7 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
     strides = (ctypes.c_longlong * len(stride_list))(*stride_list)
     ints = (ctypes.c_longlong * len(plan["ints"]))(*plan["ints"])
     floats = (ctypes.c_float * len(plan["floats"]))(*plan["floats"])
-    with torch.cuda.device(dev):
+    with launch("k12_cone_trace"), torch.cuda.device(dev):
         err = _library().cone_trace(
             ptrs, strides, ints, floats,
             torch.cuda.current_stream(dev).cuda_stream, plan["instance"])

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from ..core.config import HDRConfig, RendererConfig
-from ..core.pytree import named_scope
+from ..core.trace import span
 from ..raster.resolve import resolve as resolve_lightmap
 from ..sdf import volume as vol
 from ..sdf.analytic import pack_scene
@@ -207,7 +207,7 @@ class LightingRenderer:
                     self.invalidate(static=True)
                     invalidated_static = invalidated_dynamic = True
 
-    @named_scope("illuminant/renderer/update_fields")
+    @span("illuminant/renderer/update_fields")
     def update_fields(self, budget: Optional[int] = None):
         """Rebuild the G-buffer, then regenerate up to `budget` slabs of
         each invalid field partition (default: the configuration's
@@ -218,11 +218,10 @@ class LightingRenderer:
             return
         self.auto_invalidate()
         budget = budget or self.config.maximum_field_updates_per_frame
-        with torch.profiler.record_function(
-                "illuminant/renderer/field_regen"):
+        with span("illuminant/renderer/field_regen"):
             self._regenerate(budget)
 
-    @named_scope("illuminant/renderer/gbuffer")
+    @span("illuminant/renderer/gbuffer")
     def _render_gbuffer(self, env_u) -> gbuf.GBuffer:
         env = self.environment
         h, w = self.config.lightmap_shape
@@ -291,6 +290,7 @@ class LightingRenderer:
 
     # -- lighting ---------------------------------------------------------
 
+    @span("illuminant/renderer/render_lighting")
     def render_lighting(self, intensity_scale: float = 1.0,
                         shadow_mode: str = "march"):
         """-> (H, W, 4) HDR lightmap: one pass for the additive lights
@@ -337,8 +337,7 @@ class LightingRenderer:
             # accumulators run them whatever the per-light flags say.
             group_mode = shadow_mode if any(
                 getattr(l, "cast_shadows", False) for l in lights) else "none"
-            with torch.profiler.record_function(
-                    f"illuminant/renderer/light_pass/{mode}"):
+            with span(f"illuminant/renderer/light_pass/{mode}"):
                 return render_lightmap(
                     field, self.gbuffer,
                     pack_sphere_lights(of(SphereLightSource), device=dev),
@@ -376,7 +375,7 @@ class LightingRenderer:
             lightmap = lightmap * intensity_scale
         return lightmap
 
-    @named_scope("illuminant/renderer/resolve")
+    @span("illuminant/renderer/resolve")
     def resolve(self, lightmap, hdr: HDRConfig = HDRConfig(), albedo=None,
                 inverse_scale: float = 1.0, average_luminance: float = 0.5,
                 albedo_is_srgb: bool = False):

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import QualitySettings
-from ..core.pytree import named_scope
+from ..core.trace import span
 from ..sdf.analytic import (AnalyticScene, scene_column_images,
                             scene_sample_p)
 from ..sdf.columns import (ColumnField, reconstruct_profile,
@@ -193,7 +193,7 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
     return east, west
 
 
-@named_scope("illuminant/scan_shadows")
+@span("illuminant/scan_shadows")
 def scan_visibility(scene, height: int, width: int, light_position,
                     light_radius, light_ramp_length,
                     quality: QualitySettings, trace_z=None,

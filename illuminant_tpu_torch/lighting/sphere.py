@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import QualitySettings
-from ..core.pytree import named_scope
+from ..core.trace import span
 from ..sdf.analytic import scene_sample, scene_sample_p
 from ..sdf.columns import ColumnField
 from ..sdf.volume import SdfVolume
@@ -162,7 +162,7 @@ def compute_ao_p(volume, px, py, pz, nz, ao_radius, ao_opacity, visible,
     return _ao_ramp(d, ao_radius, ao_opacity, visible)
 
 
-@named_scope("illuminant/sphere_lights")
+@span("illuminant/sphere_lights")
 def accumulate_sphere_lights(volume, gbuffer: GBuffer, lights: SphereLights,
                              env: EnvironmentUniforms,
                              quality: QualitySettings,

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pytree import named_scope
+from ..core.trace import span
 from ..sdf.columns import ColumnField
 from .environment import EnvironmentUniforms
 from .gbuffer import GBuffer
@@ -58,7 +58,7 @@ def shading_for(template, tile: int, capacity: int, render_scale: float,
         with_alpha=with_alpha)
 
 
-@named_scope("illuminant/tiled_particle_lights")
+@span("illuminant/tiled_particle_lights")
 def accumulate_sphere_lights_tiled(volume, gbuffer: GBuffer, position,
                                    color, active, template,
                                    env: EnvironmentUniforms, tile: int = 64,

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import cuda_build
+from ..core.trace import launch
 from ..core.upload import upload
 from ..sdf import columns, columns_kernel
 from ..sdf.analytic import scene_sample_p
@@ -580,7 +581,7 @@ def tiled_lights_fused(z, relative_y, normal, factor, position, color,
         kept = torch.full((n_tiles, sh.capacity), -1, dtype=torch.int32,
                           device=dev)
         count = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with launch("k10_tiled_lights"), torch.cuda.device(dev):
         err = _library().tiled_lights(
             z.data_ptr(), relative_y.data_ptr(), normal.data_ptr(),
             factor.data_ptr(), position.data_ptr(), color.data_ptr(),

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pytree import named_scope
+from ..core.trace import span
 from ..sdf.analytic import (scene_normal_p, scene_sample_grad_p,
                             scene_sample_p)
 from .render_data import RenderDataUniforms, compute_render_data
@@ -76,7 +76,7 @@ def _render(state, new_pos, new_vel, rd, first_slot: int = 0):
                          render_color=render_color, render_data=render_data)
 
 
-@named_scope("illuminant/particle_integrate")
+@span("illuminant/particle_integrate")
 def integrate(state: ParticleState, su: SystemUniforms,
               rd: RenderDataUniforms) -> ParticleState:
     """Plain Euler (UpdateParticleSystem.fx PS_Update): friction and
@@ -103,7 +103,7 @@ def integrate(state: ParticleState, su: SystemUniforms,
     return _render(state, new_pos, new_vel, rd)
 
 
-@named_scope("illuminant/particle_integrate")
+@span("illuminant/particle_integrate")
 def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
                                   rd: RenderDataUniforms, volume,
                                   maximum_z: float = 1e9,

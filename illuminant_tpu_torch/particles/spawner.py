@@ -25,7 +25,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.pytree import named_scope, tensor_dataclass
+from ..core.pytree import tensor_dataclass
+from ..core.trace import span
 from ..core.upload import cached_upload
 from ..ops.bezier import BezierM, evaluate_bezier_matrix
 from ..ops.coords import mul_point_rows
@@ -120,7 +121,7 @@ def _advance(state: ParticleState, count, n: int) -> ParticleState:
         total_spawned=(state.total_spawned + count).to(torch.int32))
 
 
-@named_scope("illuminant/particle_spawn")
+@span("illuminant/particle_spawn")
 def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
           generator: Optional[torch.Generator] = None,
           uniforms: Optional[Sequence] = None,
@@ -440,7 +441,7 @@ class FeedbackUniforms:
     multiply_life: torch.Tensor  # ()
 
 
-@named_scope("illuminant/particle_spawn")
+@span("illuminant/particle_spawn")
 def spawn_feedback(state: ParticleState, source: ParticleState,
                    u: FeedbackUniforms, count, spawn_max: int,
                    generator: Optional[torch.Generator] = None,

@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.trace import span
 from ..core.upload import upload
 from ..ops.noise import RandomField
 from . import spawner as spawner_mod
@@ -185,6 +186,7 @@ class ParticleSystem:
             self._uniforms_key = (dt, cfg)
         return self._uniforms
 
+    @span("illuminant/particles/tick")
     def tick(self, dt: float, spawn_uniforms: Optional[Sequence] = None):
         """Run exactly one fixed step of length dt. `spawn_uniforms`: one
         triple of (spawn_max, 4) uniform arrays per spawner, in spawner
@@ -215,8 +217,9 @@ class ParticleSystem:
                                           s.spawn_max, **draws)
 
         pos, vel = state.position, state.velocity
-        for t, apply in self._step:
-            pos, vel = apply(pos, vel, t.uniforms(now, dev), su)
+        with span("illuminant/particles/transforms"):
+            for t, apply in self._step:
+                pos, vel = apply(pos, vel, t.uniforms(now, dev), su)
         state = state.replace(position=pos, velocity=vel)
 
         cfg = self.config
@@ -230,6 +233,7 @@ class ParticleSystem:
         self._tick_index += 1
         self._time += dt
 
+    @span("illuminant/particles/update")
     def update(self, delta_time_seconds: float,
                spawn_uniforms: Optional[Sequence] = None) -> int:
         """Frame update with fixed-timestep accumulation
@@ -294,6 +298,7 @@ class ParticleSystem:
     def live_count(self) -> int:
         return int(self.state.live_count())
 
+    @span("illuminant/particles/render")
     def render(self, raster_config, **kwargs):
         """ParticleSystem.Render (ParticleSystem.cs:943): rasterize the
         current state through raster/render.py's render_particles with

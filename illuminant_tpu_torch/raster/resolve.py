@@ -17,6 +17,7 @@ import torch
 
 from ..core.config import (HDR_MODE_GAMMA_COMPRESS, HDR_MODE_NONE,
                            HDR_MODE_TONEMAP, HDRConfig)
+from ..core.trace import span
 from ..ops import tonemap
 
 
@@ -69,6 +70,7 @@ def _finish(result, hdr: HDRConfig, average_luminance):
     return torch.cat([rgb, result[..., 3:4]], dim=-1)
 
 
+@span("illuminant/raster/resolve")
 def resolve(lightmap, hdr: HDRConfig = HDRConfig(), albedo=None,
             inverse_scale: float = 1.0, average_luminance: float = 0.5,
             albedo_is_srgb: bool = False):
@@ -102,6 +104,7 @@ def resolve(lightmap, hdr: HDRConfig = HDRConfig(), albedo=None,
     return _finish(result, hdr, average_luminance)
 
 
+@span("illuminant/raster/to_uint8")
 def to_uint8(image):
     """Quantize a resolved (H, W, C) float32 image to uint8 (round half to
     even, like the JAX package)."""

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import cuda_build
+from ..core.trace import launch
 from . import tiled
 
 _SOURCE = cuda_build.CSRC / "splat.cu"
@@ -217,7 +218,7 @@ def splat_cuda(cfg, x, y, color, size, live, debug: bool = False):
     strides = (ctypes.c_longlong * 6)(*plan["strides"])
     ints = (ctypes.c_longlong * len(plan["ints"]))(*plan["ints"])
     launched = ctypes.c_int(0)
-    with torch.cuda.device(dev):
+    with launch("k5_splat"), torch.cuda.device(dev):
         err = _library().splat(ptrs, strides, ints,
                                torch.cuda.current_stream(dev).cuda_stream,
                                ctypes.byref(launched))

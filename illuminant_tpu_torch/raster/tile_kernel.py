@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from ..core import cuda_build
+from ..core.trace import launch
 # Read by tools/torch_tile_study.py, which builds variants of the source.
 from ..core.cuda_build import NVCC_FLAGS, nvcc as _nvcc  # noqa: F401
 from .tiled import (KERNEL_GAUSS, KERNEL_POINT, KERNEL_QUAD, KERNEL_ROUND,
@@ -269,7 +270,7 @@ def composite_over_tiles(cfg: TiledRasterConfig, bins, records, coverage,
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32,
                       device=records.device)
     b, r, s = rows.shape if sprite else (1, 1, 1)
-    with torch.cuda.device(records.device):
+    with launch("k11a_composite"), torch.cuda.device(records.device):
         err = _library().tile_composite(
             ids.data_ptr(), starts.data_ptr(), records.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), b, r, s,
@@ -362,7 +363,7 @@ def _accumulate(cfg: TiledRasterConfig, bins, records, table, keep):
     out = torch.empty((cfg.height, cfg.width, cfg.channels),
                       dtype=torch.float32, device=records.device)
     b, r, s = rows.shape
-    with torch.cuda.device(records.device):
+    with launch("k11b_sprite_accumulate"), torch.cuda.device(records.device):
         err = _library().tile_accumulate(
             ids.data_ptr(), starts.data_ptr(), records.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), b, r, s, keep.data_ptr(),

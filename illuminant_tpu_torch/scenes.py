@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .core.config import QualitySettings, RendererConfig
+from .core.trace import span
 from .lighting import gbuffer as gbuf
 from .lighting.directional import (DirectionalLightSource,
                                    accumulate_directional_lights,
@@ -608,7 +609,6 @@ class _FlagshipFrame:
         volumetric light runs on a window derived from its support
         radius, with its own windowed scan."""
         extra, quality = self.extra, self.quality
-        rf = torch.profiler.record_function
         h, w = gbuffer.shape
         half = quality.extra_family_scale == 0.5 and h % 2 == 0 \
             and w % 2 == 0
@@ -620,7 +620,7 @@ class _FlagshipFrame:
         if "directional" in extra:
             # The fused scan's visibility, or without it the standalone
             # march (scenes.py:731-734).
-            with rf("illuminant/lighting/directional"):
+            with span("illuminant/lighting/directional"):
                 ex = ex + accumulate_directional_lights(
                     field, gb_ex, extra["directional"], env_u, quality,
                     shadow_mode="march" if dir_vis is None else "scan",
@@ -630,7 +630,7 @@ class _FlagshipFrame:
         if "line" in extra:
             # The fused scan's visibility, or without it the line light's
             # own scan, as in the JAX frame.
-            with rf("illuminant/lighting/line"):
+            with span("illuminant/lighting/line"):
                 ex = ex + accumulate_line_lights(
                     field, gb_ex, extra["line"], env_u, quality,
                     shadow_mode="scan",
@@ -640,7 +640,7 @@ class _FlagshipFrame:
         if "volumetric" in extra:
             vl = extra["volumetric"]
             rs = np.float32(gb_ex.render_scale)
-            with rf("illuminant/lighting/volumetric"):
+            with span("illuminant/lighting/volumetric"):
                 ex = accumulate_windowed(
                     ex, gb_ex, extra["volumetric_centers"] * rs,
                     window_for_support(extra["volumetric_support"]
@@ -649,7 +649,7 @@ class _FlagshipFrame:
                         field, gbw, _take_light(vl, i), env_u, quality,
                         shadowed=True, shadow_detail="scan"))
         if "particle_light" in extra:
-            with rf("illuminant/lighting/particle_lights"):
+            with span("illuminant/lighting/particle_lights"):
                 ex = ex + accumulate_particle_lights(
                     field, gb_ex, state, extra["particle_light"], env_u,
                     quality, shadow_mode="scan")[..., :3]
@@ -663,10 +663,9 @@ class _FlagshipFrame:
         state, before this frame's spawn: the particle lights read the
         previous frame's particles (the reference's usePreviousData,
         LightingRenderer.cs:1138-43)."""
-        rf = torch.profiler.record_function
         h, w = gbuffer.shape
         ambient = env_u.ambient[:3].expand(h, w, 3)
-        with rf("illuminant/lighting/fused_scan"):
+        with span("illuminant/lighting/fused_scan"):
             sphere_vis, dir_vis, line_vis = self.fused_scan(
                 field, gbuffer, lights, env_u)
         lightmap = ambient + accumulate_sphere_lights(
@@ -684,7 +683,7 @@ class _FlagshipFrame:
             # detail), on a window around the projected quad.
             pj = self.extra["projector"]
             rs = np.float32(gbuffer.render_scale)
-            with rf("illuminant/lighting/projector"):
+            with span("illuminant/lighting/projector"):
                 lightmap = accumulate_windowed(
                     lightmap, gbuffer, self.extra["projector_centers"] * rs,
                     window_for_support(self.extra["projector_support"]
@@ -709,8 +708,9 @@ class _FlagshipFrame:
                       generator=None if spawn_uniforms is not None
                       else generator, uniforms=spawn_uniforms,
                       sub_rings=self.sub_rings, shard=self.shard)
-        pos, vel = tx.apply_gravity(state.position, state.velocity,
-                                    self.grav_u, self.su)
+        with span("illuminant/particles/transforms"):
+            pos, vel = tx.apply_gravity(state.position, state.velocity,
+                                        self.grav_u, self.su)
         state = state.replace(position=pos, velocity=vel)
         return integrate_with_distance_field(
             state, self.su, self.rd, field, substeps=self.substeps,
@@ -769,24 +769,23 @@ class _FlagshipFrame:
         i = torch.tensor(float(frame_index), dtype=f32, device=self.device)
         t = i * DT
         avg_lum = torch.as_tensor(avg_lum, dtype=f32, device=self.device)
-        rf = torch.profiler.record_function
-        with rf("illuminant/frame/animate_field"):
+        with span("illuminant/frame/animate_field"):
             field = self.animate_field(volume, t)
-        with rf("illuminant/frame/animate_lights"):
+        with span("illuminant/frame/animate_lights"):
             lights_t = self.animate_lights(lights, i, t)
-        with rf("illuminant/frame/lighting"):
+        with span("illuminant/frame/lighting"):
             lightmap = self.lighting(field, gbuffer, lights_t, env_u, state)
-        with rf("illuminant/frame/particles"):
+        with span("illuminant/frame/particles"):
             state = self.particles(state, field, t, spawn_count, generator,
                                    spawn_uniforms)
-        with rf("illuminant/frame/raster"):
+        with span("illuminant/frame/raster"):
             particle_img, diag = self.raster(state)
         row0, row1 = self.rows
         scene_hdr = (lightmap[row0:row1] + particle_img[..., :3]).to(
             torch.bfloat16)
-        with rf("illuminant/frame/exposure"):
+        with span("illuminant/frame/exposure"):
             new_avg = self.exposure(scene_hdr, avg_lum)
-        with rf("illuminant/frame/tonemap"):
+        with span("illuminant/frame/tonemap"):
             img = self.tonemap(scene_hdr, avg_lum)
         return img, state, new_avg, diag["dropped"]
 

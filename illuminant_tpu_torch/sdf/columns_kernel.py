@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from ..core import cuda_build
+from ..core.trace import launch
 
 _SOURCE = cuda_build.CSRC / "column_maps.cu"
 _LIBRARY = cuda_build.library_path(_SOURCE)
@@ -136,7 +137,7 @@ def pack_maps(maps):
         raise ValueError("pack_maps: maps must be contiguous")
     pack = torch.empty((hc, wc, _record(n_maps)), dtype=torch.float32,
                        device=maps.device)
-    with torch.cuda.device(maps.device):
+    with launch("k7_column_pack"), torch.cuda.device(maps.device):
         err = _library().column_maps_pack(
             maps.data_ptr(), pack.data_ptr(), n_maps, hc, wc,
             _stream(maps.device))
@@ -203,7 +204,7 @@ def sample_maps(maps, ty, tx, want_grad: bool = False):
     if n == 0:
         return out
     pack = pack_maps(maps)
-    with torch.cuda.device(maps.device):
+    with launch("k7_column_sample"), torch.cuda.device(maps.device):
         err = _library().column_maps_sample(
             pack.data_ptr(), ty.data_ptr(), tx.data_ptr(), out.data_ptr(),
             n_maps, hc, wc, n, int(bool(want_grad)), _stream(maps.device))
@@ -250,7 +251,7 @@ def query_columns(pack, geometry, x, y, z, want_grad: bool = False,
         return tuple(outs) if want_grad else outs[0]
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     geom = (ctypes.c_float * len(QUERY_GEOMETRY))(*map(float, geometry))
-    with torch.cuda.device(x.device):
+    with launch("k7_column_query"), torch.cuda.device(x.device):
         err = _library().column_query(
             pack.data_ptr(), hc, wc, geom, *args[0], *args[1], *args[2], n,
             int(bool(want_grad)), int(bool(normalize)), *ptrs,

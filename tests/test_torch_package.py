@@ -18,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
     "core.upload", "ops.noise", "particles.system", "particles.spawner",
     "particles.transforms", "particles.integrate", "particles.render_data",
-    "raster.particles", "raster.render", "utils.perf", "raster.sprites",
+    "raster.particles", "raster.render", "core.trace", "raster.sprites",
     "raster.tile_kernel", "raster.warp", "lighting.tiled_lights",
     "lighting.tiled_lights_kernel", "lighting.probes",
     "lighting.spherical_harmonics", "utils.jumpflood", "utils.mapgen",
