@@ -25,8 +25,14 @@ what comes out:
     the sphere lights. Before them `families` checks on a small frame
     that each of the five families changes the image.
 The analytic slices launch no column kernel: they never build a
-ColumnField. Each slice line gives ms/frame, live particles, avg_lum, the
-peak device memory and the launch counts. `reference` holds the card's
+ColumnField. Every slice gates K1 (`csrc/scan_walk.cu`, the scan shadows'
+column walk) at one launch a `scan_visibility` call (SCAN_WALK_PER_FRAME),
+and `[kernel] name=scan_walk` holds K1 on the analytic and the voxel
+flagship's own walks (270 x 480, 8 lights) to the eager loop bit for bit,
+timed beside its byte bound, the eager loop as the frame runs it
+(`plain_ms`) and that loop captured in a CUDA graph (`graph_ms`). Each
+slice line gives ms/frame, live particles, avg_lum, the peak device
+memory and the launch counts. `reference` holds the card's
 voxel frame at both presets (the fused query 2 and 5 launches a frame),
 `reference_analytic` the analytic frame at both presets and
 `reference_family` the full-family frame on the analytic field at both
@@ -282,6 +288,13 @@ SLICES = {
 K12_PER_FRAME = {"slice": 0, "slice_analytic": 0, "slice_parity": 0,
                  "slice_family": 1, "slice_family_parity": 1,
                  "slice_family_march": 3}
+# K1 launches a frame of each slice: one a `scan_visibility` call. The
+# sphere lights' scan (fused with the sun's and the line light's where the
+# families are on); the volumetric light's windowed scan; under the march
+# the line light's own scan.
+SCAN_WALK_PER_FRAME = {"slice": 1, "slice_analytic": 1, "slice_parity": 1,
+                       "slice_family": 2, "slice_family_parity": 2,
+                       "slice_family_march": 2}
 # Device-to-host reads a flagship frame: the exposure's percentile
 # (utils/histogram.py:percentile) indexes four tensors with 0-d tensor
 # indices; the splat's `amax` (and its `nonzero`) are gone with K5.
@@ -450,6 +463,7 @@ def phase_build():
 
     from illuminant_tpu_torch.core.cuda_build import BUILD_LOGS
     from illuminant_tpu_torch.lighting import (cone_trace_kernel,
+                                               scan_walk_kernel,
                                                tiled_lights_kernel)
     from illuminant_tpu_torch.raster import splat_kernel, tile_kernel
     from illuminant_tpu_torch.sdf import columns_kernel
@@ -461,7 +475,8 @@ def phase_build():
 
     mods = {"column_maps": columns_kernel, "tile_raster": tile_kernel,
             "tiled_lights": tiled_lights_kernel,
-            "cone_trace": cone_trace_kernel, "splat": splat_kernel}
+            "cone_trace": cone_trace_kernel, "splat": splat_kernel,
+            "scan_walk": scan_walk_kernel}
     with ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(timed, mods.values())))
     for name, mod in mods.items():
@@ -1005,6 +1020,107 @@ def _pack_row(rec, key, volume, **fields):
                     bound=(bound_ms, bound_by), library_ms=None)
 
 
+# Float32 operations (compares and selects included) of one K1 row-step:
+# the fan (x + 0.5 - along, in front, valid, the clamp, the division, the
+# clamp to [-1, 1], |f|, 1 - |f|, f >= 0: 11), each of the three carries'
+# select, product, fused multiply-add and mask (12), the merge (the
+# column's select, min, compare, the arg-min select, the exit band's add,
+# clamp, compare and select: 8). The footprint adds its carry and merge
+# (6), the extras the phase's add, round, clamp, the copy's compares and
+# selects, the phase update and the masks and merges (16).
+SCAN_WALK_OPS = 31
+SCAN_WALK_FOOTPRINT_OPS = 6
+SCAN_WALK_EXTRA_OPS = 16
+
+
+def scan_walk_work(occ, lights, footprint, extra):
+    """(bytes, operations) of one K1 call on an (H, W) grid: the carries
+    of every sector written once, the images and the lights' three
+    scalars read once; every (sector, light, row, column) step."""
+    h, w = occ.shape
+    carries = 4 if footprint else 3
+    channels = carries + (2 if extra else 0)
+    images = 1 + int(footprint) + (2 if extra else 0)
+    n_bytes = 4 * (4 * channels * lights * h * w + images * h * w
+                   + 3 * lights)
+    n_ops = 4 * lights * h * w * (
+        SCAN_WALK_OPS + (SCAN_WALK_FOOTPRINT_OPS if footprint else 0)
+        + (SCAN_WALK_EXTRA_OPS if extra else 0))
+    return n_bytes, n_ops
+
+
+def flagship_walk(field="analytic"):
+    """The walk arguments of one full-width flagship frame (8 lights, the
+    270 x 480 nomination grid; the voxel field's carries take the extras
+    and the footprint), from a scene of few particles."""
+    from illuminant_tpu_torch.lighting import scan_shadows
+    from illuminant_tpu_torch.scenes import build_flagship
+
+    cuda = torch.device("cuda")
+    scene = build_flagship(device=cuda, **dict(FULL, capacity=1 << 12,
+                                               spawn_max=64), field=field)
+    with KernelInputs("scan_walk", scan_shadows) as spy:
+        _run_frames(scene, 1, 0, torch.Generator(device=cuda).manual_seed(0),
+                    scene.system.state, torch.tensor(0.5, device=cuda))
+    if len(spy.calls) != 1:
+        raise AssertionError(f"the flagship frame walked {len(spy.calls)} "
+                             "times; expected 1")
+    return spy.calls[0]
+
+
+def phase_scan_walk_kernel(rec):
+    """`[kernel] name=scan_walk` (K1) on the analytic and the voxel
+    flagship's walks: the kernel against the eager loop on the same CUDA
+    tensors (every channel bit for bit, counted), its time by CUDA-graph
+    replay beside its bound and its block; the eager loop's time run as
+    the frame runs it (`plain_ms`, the host's launches in it) and
+    captured in a CUDA graph (`graph_ms`: its device work without the
+    launch overhead)."""
+    from illuminant_tpu_torch.lighting import scan_shadows
+    from illuminant_tpu_torch.lighting import scan_walk_kernel as k1
+
+    for field in ("analytic", "voxel"):
+        args, kw = flagship_walk(field)
+        occ, lx = args[0], args[1]
+        extra, fp = args[5], args[6]
+        k1.LAUNCHES = 0
+        got = k1.scan_walk_cuda(*args, **kw)
+        ref, first_ms = timed_once(
+            lambda: scan_shadows.scan_walk_reference(*args, **kw))
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        if k1.LAUNCHES != 1 or differ:
+            raise AssertionError(f"scan_walk ({field}): {k1.LAUNCHES} "
+                                 f"launches, {differ} elements differ from "
+                                 "the eager loop")
+        n_bytes, n_ops = scan_walk_work(occ, lx.shape[0], fp is not None,
+                                        bool(extra))
+        bound = _bound(n_bytes, n_ops)
+        plan = k1.block_plan(*occ.shape, lx.shape[0], fp is not None,
+                             bool(extra))
+        ms = device_ms(lambda: k1.scan_walk_cuda(*args, **kw), KERNEL_REPS)
+        plain_ms = eager_ms(
+            lambda: scan_shadows.scan_walk_reference(*args, **kw), 3)
+        graph_ms = device_ms(
+            lambda: scan_shadows.scan_walk_reference(*args, **kw), 2)
+        say("kernel", name="scan_walk", inputs=f"flagship_{field}",
+            grid=f"{occ.shape[0]}x{occ.shape[1]}", lights=lx.shape[0],
+            channels=plan["channels"], elements_differ=differ,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            plain_first_ms=f"{first_ms:.4f}", graph_ms=f"{graph_ms:.4f}",
+            bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+            share_of_bound=f"{bound[0] / ms:.3f}", bytes=n_bytes,
+            operations=n_ops, **{k: plan[k] for k in (
+                "blocks", "threads", "rows_per_thread", "tile_cols",
+                "smem_bytes", "registers", "spill_bytes")})
+        rec["scan_walk_" + field] = dict(ms=ms, plain_ms=plain_ms,
+                                         graph_ms=graph_ms, err=0.0,
+                                         bound=bound)
+        args = kw = got = ref = None
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_voxel_march_kernel(field, scene):
     """K12 on the voxel flagship's ColumnField at 1080p (the voxel slice's
     loaded static field and its maps): the sphere lights' rays as the
@@ -1065,8 +1181,10 @@ def phase_slice(name, scene, warmup: int, frames: int):
     analytic slices launch none of them. K5 launches once a frame, K12
     K12_PER_FRAME[name] times; a frame reads the device
     FLAGSHIP_READS_PER_FRAME times. Returns (launches, state,
-    ms_per_frame, the extra frame's K12 calls)."""
+    ms_per_frame, the extra frame's K12 calls). K1 launches
+    SCAN_WALK_PER_FRAME[name] times a frame."""
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+    from illuminant_tpu_torch.lighting import scan_walk_kernel as k1
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
@@ -1078,7 +1196,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
     img, state, avg = _run_frames(scene, warmup, 0, gen, state, avg)
     torch.cuda.synchronize()
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
-    ctk.LAUNCHES = k5.LAUNCHES = 0
+    ctk.LAUNCHES = k5.LAUNCHES = k1.LAUNCHES = 0
     t0 = time.perf_counter()
     img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
     torch.cuda.synchronize()
@@ -1087,7 +1205,8 @@ def phase_slice(name, scene, warmup: int, frames: int):
     launches = dict(column_query=ck.QUERY_LAUNCHES,
                     column_maps_pack=ck.PACK_LAUNCHES,
                     column_maps_sample=ck.LAUNCHES,
-                    cone_trace=ctk.LAUNCHES, splat=k5.LAUNCHES)
+                    cone_trace=ctk.LAUNCHES, splat=k5.LAUNCHES,
+                    scan_walk=k1.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as k12:
         _, state, avg = _run_frames(scene, 1, warmup + frames, gen, state,
@@ -1117,7 +1236,8 @@ def phase_slice(name, scene, warmup: int, frames: int):
                     column_maps_pack=per_frame * frames,
                     column_maps_sample=0,
                     cone_trace=K12_PER_FRAME[name] * frames,
-                    splat=k5.LAUNCHES_PER_SPLAT * frames)
+                    splat=k5.LAUNCHES_PER_SPLAT * frames,
+                    scan_walk=SCAN_WALK_PER_FRAME[name] * frames)
     if launches != expected:
         raise AssertionError(f"{name}: kernels launched {launches} times in "
                              f"{frames} frames, expected {expected}")
@@ -4509,6 +4629,7 @@ def main(argv=None) -> int:
     env_host = dict(ground_z=scene.environment.ground_z,
                     maximum_z=scene.environment.maximum_z)
     kernel = phase_kernel(field)
+    phase_scan_walk_kernel(kernel)
     kernel.update(phase_sprite_kernels(parent=parent_module(
         args.parent, "raster.tile_kernel") if args.parent else None))
     parent_lights = None
@@ -4679,6 +4800,12 @@ def main(argv=None) -> int:
     # frames; the particle and model cells' beside them).
     # The volume pack: renderer-voxel-march's frames (once a new volume).
     for name, source, replaces, r, counts in (
+            ("scan_walk", "illuminant_tpu_torch/csrc/scan_walk.cu",
+             "illuminant_tpu/lighting/scan_shadows.py:150",
+             kernel["scan_walk_analytic"],
+             dict(launches=launches["slice_analytic"]["scan_walk"],
+                  launches_voxel=launches["slice"]["scan_walk"],
+                  launches_family=launches["slice_family"]["scan_walk"])),
             ("cone_trace", "illuminant_tpu_torch/csrc/cone_trace.cu",
              "illuminant_tpu/lighting/cone_trace.py:42",
              kernel["cone_trace_family"],

@@ -17,9 +17,12 @@ mode, `scan_refine_samples=0`).
     h_bot) and the running footprint minimum, and reconstructs the
     candidate distances elementwise.
 
+The column walk (`scan_walk`) is one launch of the Hopper kernel K1 on
+CUDA tensors (`scan_walk_kernel.scan_walk_cuda`) and, on CPU tensors, its
+plain version `scan_walk_reference`: `_bidirectional_scan`, the JAX
+`lax.scan` as a Python loop over columns in eager PyTorch.
+
 Deviations from the JAX package:
-  * the column walk is a Python loop over columns in eager PyTorch (a
-    CUDA kernel for it is ROADMAP K1);
   * carries and nominated fields stay float32. The JAX package stores the
     walk outputs and the nominated fields in float16 and upsamples the
     visibility in bfloat16 (scan_shadows.py:343-347, 876-890, 933); with
@@ -124,16 +127,19 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
 
     # Associative carries (d, k, neg_k[, f_min]) lerp-resample along the
     # fan; the argmin payload (h_top, h_bot, row phase) moves by shifted
-    # copy.
-    fills = [_BIG, 0.0, 0.0] + ([] if footprint is None else [_BIG])
-    K = len(fills)
-    fill_c = torch.tensor(fills, dtype=f32, device=dev)[:, None, None, None]
+    # copy. Their fills, (_BIG, 0, 0[, _BIG]) and (_TOP_FILL, _BOT_FILL, 0),
+    # are written on the device: no host copy, so a CUDA graph can capture
+    # the loop.
+    K = 3 if footprint is None else 4
+    fill_c = torch.full((K, 1, 1, 1), _BIG, dtype=f32, device=dev)
+    fill_c[1:3] = 0.0
     carry = fill_c.expand(K, 2, L, H).clone()
     out_c = torch.empty((W, K, 2, L, H), dtype=f32, device=dev)
     if extra:
         tb_both = torch.stack([both(extra[0]), both(extra[1])], dim=1)
-        fill_p = torch.tensor([_TOP_FILL, _BOT_FILL, 0.0], dtype=f32,
-                              device=dev)[:, None, None, None]
+        fill_p = torch.full((3, 1, 1, 1), _TOP_FILL, dtype=f32, device=dev)
+        fill_p[1] = _BOT_FILL
+        fill_p[2] = 0.0
         payload = fill_p.expand(3, 2, L, H).clone()
         out_p = torch.empty((W, 2, 2, L, H), dtype=f32, device=dev)
 
@@ -144,7 +150,8 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
 
         # carry * near + shifted * af as one fused multiply-add onto the
         # rounded second product (addcmul), the form XLA's CPU backend
-        # contracts the JAX expression into. The rounding decides results:
+        # contracts the JAX expression into, and the one torch.addcmul
+        # takes on the card too (K1 repeats it). The rounding decides results:
         # on a plateau of the occlusion image (the flat interior of a prism
         # cut by the trace plane) both rows hold the same value, the lerp
         # lands within an ulp of it, and the strict arg-min update below
@@ -191,6 +198,39 @@ def _bidirectional_scan(occ, light_x, light_y, light_radius,
     east = tuple(outs[i, 0] for i in range(outs.shape[0]))
     west = tuple(outs[i, 1].flip(-1) for i in range(outs.shape[0]))
     return east, west
+
+
+def scan_walk(occ, light_x, light_y, light_radius, exit_band: float,
+              extra=(), footprint=None):
+    """The column walks of every sector -> (4, C, L, H, W) float32: east,
+    west, north, south, each contiguous in the readout's (H, W) layout,
+    with channels (d, k, neg_k[, f_min][, h_top, h_bot]) as
+    `_bidirectional_scan` returns them. occ, footprint, extra's (h_top,
+    h_bot): (H, W); light_x / y / radius (L,) in grid pixels. CUDA tensors
+    take one launch of K1 (`scan_walk_kernel.scan_walk_cuda`), CPU tensors
+    the plain version, `scan_walk_reference`."""
+    if occ.device.type == "cuda":
+        from .scan_walk_kernel import scan_walk_cuda
+
+        return scan_walk_cuda(occ, light_x, light_y, light_radius, exit_band,
+                              extra, footprint)
+    return scan_walk_reference(occ, light_x, light_y, light_radius,
+                               exit_band, extra, footprint)
+
+
+def scan_walk_reference(occ, light_x, light_y, light_radius,
+                        exit_band: float, extra=(), footprint=None):
+    """K1's plain version, on any device: `_bidirectional_scan` along each
+    axis (the N/S walks on the transposed images), stacked into
+    `scan_walk`'s (4, C, L, H, W) layout."""
+    east, west = _bidirectional_scan(occ, light_x, light_y, light_radius,
+                                     exit_band, extra, footprint)
+    north, south = _bidirectional_scan(
+        occ.T, light_y, light_x, light_radius, exit_band,
+        tuple(e.T for e in extra), None if footprint is None else footprint.T)
+    return torch.stack([torch.stack(east), torch.stack(west),
+                        torch.stack(north).transpose(-1, -2),
+                        torch.stack(south).transpose(-1, -2)])
 
 
 @span("illuminant/scan_shadows")
@@ -275,17 +315,11 @@ def scan_visibility(scene, height: int, width: int, light_position,
             b_img = resample_map_to_grid(scene, scene.h_bot, nh, nw, nscale)
             f_img = resample_map_to_grid(scene, scene.flat_d, nh, nw,
                                          nscale)
-        extra, extra_t = (t_img, b_img), (t_img.T, b_img.T)
-        fp, fp_t = f_img, f_img.T
+        extra, fp = (t_img, b_img), f_img
     else:
-        extra = extra_t = ()
-        fp = fp_t = None
+        extra, fp = (), None
     band = float(min(1.0, max(nscale, 0.25)))
-    east, west = _bidirectional_scan(occ, lx, ly, lr_n, band, extra, fp)
-    north, south = _bidirectional_scan(occ.T, ly, lx, lr_n, band, extra_t,
-                                       fp_t)
-    north = tuple(p.transpose(1, 2) for p in north)
-    south = tuple(p.transpose(1, 2) for p in south)
+    east, west, north, south = scan_walk(occ, lx, ly, lr_n, band, extra, fp)
 
     ys_n = torch.arange(nh, dtype=f32, device=dev)[None, :, None] + 0.5
     xs_n = torch.arange(nw, dtype=f32, device=dev)[None, None, :] + 0.5
