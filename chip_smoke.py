@@ -13,10 +13,11 @@ frames (1080x1920, 8 sphere lights, a 1M-particle system) through
 `build_flagship` and `frame`, the entry points a user calls, and checks
 what comes out:
   * `slice`: the voxel field, fast preset — the path of the column
-    kernels: the fused query and the pack launch exactly twice a frame,
-    the sampler (`sample_maps`, which the query replaced) never; after
-    its timed frames the fused query is checked and timed once more on
-    the slice's own particle positions (`[kernel] inputs=frame`);
+    kernels: the pack launches once a frame (for K4, the collision
+    integrate, on the frame's new maps), the fused query and the sampler
+    (`sample_maps`, which the query replaced) never; after its timed
+    frames the fused query is checked and timed once more on the slice's
+    own particle positions (`[kernel] inputs=frame`);
   * `slice_analytic`: the analytic field, fast preset (the headline frame);
   * `slice_parity`: the analytic field, parity preset;
   * `slice_family`, `slice_family_parity`: the analytic field at both
@@ -25,7 +26,12 @@ what comes out:
     the sphere lights. Before them `families` checks on a small frame
     that each of the five families changes the image.
 The analytic slices launch no column kernel: they never build a
-ColumnField. Every slice gates K1 (`csrc/scan_walk.cu`, the scan shadows'
+ColumnField. Every slice gates K4 (`csrc/collide_integrate.cu`, the
+particles' collision integrate and render data) at one launch a frame,
+and `[kernel] name=collide_integrate` holds K4 on the integrate calls of
+the benchmark's flagship and particle cells to its plain version bit for
+bit, timed beside its byte bound and the plain version. Every slice gates
+K1 (`csrc/scan_walk.cu`, the scan shadows'
 column walk) at one launch a `scan_visibility` call (SCAN_WALK_PER_FRAME),
 and `[kernel] name=scan_walk` holds K1 on the analytic and the voxel
 flagship's own walks (270 x 480, 8 lights) to the eager loop bit for bit,
@@ -33,12 +39,12 @@ timed beside its byte bound, the eager loop as the frame runs it
 (`plain_ms`) and that loop captured in a CUDA graph (`graph_ms`). Each
 slice line gives ms/frame, live particles, avg_lum, the peak device
 memory and the launch counts. `reference` holds the card's
-voxel frame at both presets (the fused query 2 and 5 launches a frame),
+voxel frame at both presets (K4 once a frame, the fused query never),
 `reference_analytic` the analytic frame at both presets and
 `reference_family` the full-family frame on the analytic field at both
-presets and on the voxel field (the fused query 4 launches a frame: the
-two of the collision, the volumetric window's exact refine and the
-projector's AO sample) to the port's plain CPU path on a small input.
+presets and on the voxel field (the fused query 2 launches a frame: the
+volumetric window's exact refine and the projector's AO sample) to the
+port's plain CPU path on a small input.
 
 Two more full-width frames go through the library's public renderer,
 `LightingRenderer` (`update_fields`, `render_lighting`, `resolve`), 2
@@ -66,8 +72,8 @@ The particle engine's public API runs as a user drives it:
     `ParticleSystem` of 1M slots (a spawner of 4096 a tick, the swirl
     VectorField, an attractor, Noise, a Sensor, collision at 3 substeps)
     takes `update(1/60)`, `render` (untextured quads), `resolve` and
-    `to_uint8` each of 8 timed frames. Gates: the fused query and its pack
-    launch 5 times a tick and the sampler never, a tick reads nothing back
+    `to_uint8` each of 8 timed frames. Gates: K4 launches once a tick,
+    the fused query, its pack and the sampler never, a tick reads nothing back
     from the device, the Sensor equals a direct count, the ring holds
     1,048,576 live particles once it has filled (`--warmup 260`);
   * `reference_particles`: config 2 (plain integrate), config 4 on its
@@ -113,11 +119,11 @@ a compiled model drives the engine (demo.py:1324-1354):
     an inline texture drawn additively, K11b; smoke with demo.py's leaf,
     opacity from life, composited over the additive image, K11a), an
     `EngineView` of 1<<17 slots a system on the voxel slice's
-    ColumnField (each tick of each system collides: 5 fused queries and
-    5 packs), then each of 8 timed frames (after 2 warm-up frames, or
-    --warmup N) `update(1/60)`, every system's `render` in draw order,
-    `resolve`, `to_uint8`. Gates: the query and pack 15 times a frame
-    and the sampler never, K11a and K11b once a render, 0 host reads in
+    ColumnField (each tick of each system collides: one K4 launch), then
+    each of 8 timed frames (after 2 warm-up frames, or --warmup N)
+    `update(1/60)`, every system's `render` in draw order, `resolve`,
+    `to_uint8`. Gates: K4 3 times a frame, the query, its pack and the
+    sampler never, K11a and K11b once a render, 0 host reads in
     an update, in the renders 0 but the untextured splat's one
     (ROADMAP Queue 3, K5), alpha <= 1, the frame finite and not flat,
     the checked frame's K11a equal to its plain version and its K11b
@@ -465,6 +471,7 @@ def phase_build():
     from illuminant_tpu_torch.lighting import (cone_trace_kernel,
                                                scan_walk_kernel,
                                                tiled_lights_kernel)
+    from illuminant_tpu_torch.particles import integrate_kernel
     from illuminant_tpu_torch.raster import splat_kernel, tile_kernel
     from illuminant_tpu_torch.sdf import columns_kernel
 
@@ -476,7 +483,8 @@ def phase_build():
     mods = {"column_maps": columns_kernel, "tile_raster": tile_kernel,
             "tiled_lights": tiled_lights_kernel,
             "cone_trace": cone_trace_kernel, "splat": splat_kernel,
-            "scan_walk": scan_walk_kernel}
+            "scan_walk": scan_walk_kernel,
+            "collide_integrate": integrate_kernel}
     with ThreadPoolExecutor(len(mods)) as pool:
         secs = dict(zip(mods, pool.map(timed, mods.values())))
     for name, mod in mods.items():
@@ -1121,6 +1129,86 @@ def phase_scan_walk_kernel(rec):
     return rec
 
 
+def integrate_call(cell: str):
+    """The collision integrate's call in one frame of a benchmark cell
+    (`framebench/`), on its own steady population from a fixed seed:
+    "flagship" (flagship-scan-1080p: the analytic field, one substep) or
+    "particles" (particles-collide-1080p: the ColumnField, three) -> the
+    call's (args, kwargs) as `integrate_kernel.integrate_cuda` takes
+    them."""
+    from framebench.lib.loader import json_file, module
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
+
+    config, workload = {
+        "flagship": ("flagship-analytic-1080p", "flagship-scan-1080p"),
+        "particles": ("particles-config4-1080p",
+                      "particles-collide-1080p")}[cell]
+    built = module("scenes", config).build(
+        json_file("configs", config), json_file("workloads", workload),
+        2_718_281_828, torch.device("cuda"))
+    with KernelInputs("integrate_cuda", k4) as spy:
+        built.step()
+    torch.cuda.synchronize()
+    built.release()
+    return spy.calls[-1]
+
+
+def phase_integrate_kernel(rec):
+    """`[kernel] name=collide_integrate` (K4) on the integrate calls of
+    the flagship's (1,048,576 slots, the analytic field, one substep) and
+    the particle cell's frames (1,048,576 slots, the ColumnField, three):
+    the kernel against its plain version on the same CUDA tensors (every
+    element of the four output rows, bit for bit; one launch a call), its
+    time by CUDA-graph replay beside its byte bound (112 B a slot at 3.35
+    TB/s) and its block, and the plain version run as the frame ran it
+    (`plain_ms`, the host's launches in it) and captured in a CUDA graph
+    (`graph_ms`)."""
+    from illuminant_tpu_torch.particles import integrate as integ
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
+
+    for cell in ("flagship", "particles"):
+        args, kw = integrate_call(cell)
+        state, volume, substeps = args[0], args[3], args[5]
+        k4.LAUNCHES = 0
+        got = k4.integrate_cuda(*args, **kw)
+        launches = k4.LAUNCHES
+        ref = integ.integrate_with_distance_field_reference(*args, **kw)
+        torch.cuda.synchronize()
+        differ = sum(int((getattr(got, p).view(torch.int32)
+                          != getattr(ref, p).view(torch.int32)).sum())
+                     for p in ("position", "velocity", "render_color",
+                               "render_data"))
+        if launches != 1 or differ:
+            raise AssertionError(
+                f"collide_integrate ({cell}): {launches} launches, "
+                f"{differ} elements differ from the plain version")
+        collided = int((got.velocity[:, 3] == integ.BOUNCE_DELAY).sum())
+        n = state.capacity
+        n_bytes = k4.BYTES_PER_SLOT * n
+        bound = _bound(n_bytes, 0.0)
+        plan = k4.block_plan(volume, substeps)
+        ms = device_ms(lambda: k4.integrate_cuda(*args, **kw), KERNEL_REPS)
+        plain_ms = eager_ms(
+            lambda: integ.integrate_with_distance_field_reference(
+                *args, **kw), 3)
+        graph_ms = device_ms(
+            lambda: integ.integrate_with_distance_field_reference(
+                *args, **kw), 2)
+        say("kernel", name="collide_integrate", inputs=cell, slots=n,
+            substeps=substeps, live=int(state.live_count()),
+            bounce_delay_set=collided, elements_differ=differ,
+            launches=launches, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            graph_ms=f"{graph_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+            bound_by=bound[1], share_of_bound=f"{bound[0] / ms:.3f}",
+            bytes=n_bytes, **plan)
+        rec["collide_integrate_" + cell] = dict(
+            ms=ms, plain_ms=plain_ms, graph_ms=graph_ms, err=0.0,
+            bound=bound)
+        args = kw = got = ref = state = volume = None
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_voxel_march_kernel(field, scene):
     """K12 on the voxel flagship's ColumnField at 1080p (the voxel slice's
     loaded static field and its maps): the sphere lights' rays as the
@@ -1175,16 +1263,17 @@ def phase_slice(name, scene, warmup: int, frames: int):
     """One flagship frame at full width: warm-up, then the timed frames
     that the launch counters watch, then one frame under the host-read
     counter (its K12 calls kept) and its splat once more under the sync
-    debug mode. The voxel slice launches the fused query and its pack
-    twice a frame (the initial distance, and the step sample with its
-    unit gradient, particles/integrate.py) and the sampler never; the
-    analytic slices launch none of them. K5 launches once a frame, K12
+    debug mode. Every slice collides in K4 once a frame; the voxel slice
+    packs its frame's new maps for it once a frame and launches the fused
+    query and the sampler never; the analytic slices launch none of the
+    column kernels. K5 launches once a frame, K12
     K12_PER_FRAME[name] times; a frame reads the device
     FLAGSHIP_READS_PER_FRAME times. Returns (launches, state,
     ms_per_frame, the extra frame's K12 calls). K1 launches
     SCAN_WALK_PER_FRAME[name] times a frame."""
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.lighting import scan_walk_kernel as k1
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
@@ -1196,7 +1285,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
     img, state, avg = _run_frames(scene, warmup, 0, gen, state, avg)
     torch.cuda.synchronize()
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
-    ctk.LAUNCHES = k5.LAUNCHES = k1.LAUNCHES = 0
+    ctk.LAUNCHES = k5.LAUNCHES = k1.LAUNCHES = k4.LAUNCHES = 0
     t0 = time.perf_counter()
     img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
     torch.cuda.synchronize()
@@ -1206,7 +1295,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
                     column_maps_pack=ck.PACK_LAUNCHES,
                     column_maps_sample=ck.LAUNCHES,
                     cone_trace=ctk.LAUNCHES, splat=k5.LAUNCHES,
-                    scan_walk=k1.LAUNCHES)
+                    scan_walk=k1.LAUNCHES, collide_integrate=k4.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as k12:
         _, state, avg = _run_frames(scene, 1, warmup + frames, gen, state,
@@ -1231,13 +1320,13 @@ def phase_slice(name, scene, warmup: int, frames: int):
         raise AssertionError(f"{name}: no live particles")
     if not math.isfinite(avg_f):
         raise AssertionError(f"{name}: avg_lum {avg_f}")
-    per_frame = 2 if SLICES[name]["field"] == "voxel" else 0
-    expected = dict(column_query=per_frame * frames,
-                    column_maps_pack=per_frame * frames,
+    packs = 1 if SLICES[name]["field"] == "voxel" else 0
+    expected = dict(column_query=0, column_maps_pack=packs * frames,
                     column_maps_sample=0,
                     cone_trace=K12_PER_FRAME[name] * frames,
                     splat=k5.LAUNCHES_PER_SPLAT * frames,
-                    scan_walk=SCAN_WALK_PER_FRAME[name] * frames)
+                    scan_walk=SCAN_WALK_PER_FRAME[name] * frames,
+                    collide_integrate=frames)
     if launches != expected:
         raise AssertionError(f"{name}: kernels launched {launches} times in "
                              f"{frames} frames, expected {expected}")
@@ -1253,18 +1342,20 @@ def phase_slice(name, scene, warmup: int, frames: int):
 def _small_frames(device, draws, **kw):
     """Three frames of the small flagship on `device` from the same state
     with the given spawn draws -> (images int32, positions, avg_lum,
-    fused-query launches, pack launches, K12 launches)."""
+    fused-query launches, pack launches, K12 launches, K4 launches)."""
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.scenes import build_flagship
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     scene = build_flagship(device=device, **SMALL, **kw)
-    ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = ctk.LAUNCHES = 0
+    ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = ctk.LAUNCHES = k4.LAUNCHES = 0
     img, state, avg = _run_frames(
         scene, 3, 0, None, scene.system.state,
         torch.tensor(0.5, device=device), spawn_uniforms=draws)
     return (img.cpu().numpy().astype(np.int32), state.position.cpu().numpy(),
-            float(avg), ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES, ctk.LAUNCHES)
+            float(avg), ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES, ctk.LAUNCHES,
+            k4.LAUNCHES)
 
 
 def _compare_small(phase, cpu, cuda, **fields):
@@ -1299,23 +1390,25 @@ def phase_reference():
     """The voxel frame at both presets on the card against the port's
     plain CPU path on the small input of the CPU tests (which hold the CPU
     path to the JAX package): three frames from the same state with the
-    same spawn draws. The card's frames run the fused query 2 (fast) and
-    5 (parity: the initial distance, three substeps, the normal) times a
-    frame. Fast keeps the voxel slice's bound, 99% of particles within
-    0.05; parity is held to those of tests/test_torch_analytic_flagship.py.
+    same spawn draws. The card's frames collide in K4, once a frame at
+    both presets, and run the fused query never (the integrate's plain
+    version ran it 2 and 5 times a frame). Fast keeps the voxel slice's
+    bound, 99% of particles within 0.05; parity is held to those of
+    tests/test_torch_analytic_flagship.py.
     """
     draws = _draws()
-    for preset, per_frame in (("fast", 2), ("parity", 5)):
+    for preset in ("fast", "parity"):
         kw = dict(field="voxel", preset=preset)
         out = {dev: _small_frames(dev, draws, **kw)
                for dev in ("cpu", "cuda")}
-        launches = out["cuda"][3]
+        launches, k4_launches = out["cuda"][3], out["cuda"][6]
         within, within_1e3 = _compare_small(
             "reference", out["cpu"], out["cuda"], **kw,
-            column_query_launches=launches)
-        if launches != 3 * per_frame:
+            column_query_launches=launches, collide_integrate=k4_launches)
+        if (launches, k4_launches) != (0, 3):
             raise AssertionError(f"reference ({kw}): the fused query "
-                                 f"launched {launches} times in 3 frames")
+                                 f"launched {launches} times and K4 "
+                                 f"{k4_launches} in 3 frames")
         # A particle within the float rounding of a collision threshold
         # may resolve the other way on the card.
         ok = (within >= 0.99 if preset == "fast"
@@ -1340,16 +1433,16 @@ def phase_reference_analytic():
 
 
 # Fused-query launches of one voxel full-family frame at the fast preset:
-# the collision's initial distance and its step sample with the unit
-# gradient (particles/integrate.py), the exact per-candidate refine of the
-# volumetric light's windowed scan (one refine sample; a windowed view
-# never takes the carried refine, lighting/scan_shadows.py), and the
-# projector's AO sample (lighting/projector.py; its cone march runs no
-# step: the flagship's projector has no origin). The sun's and the line
-# light's AO are gated off on the host, the particle lights' template has
-# no AO radius, and every grid query samples the volume itself. The
-# projector's march is one K12 launch, which packs the maps once more.
-FAMILY_VOXEL_QUERIES_PER_FRAME = 4
+# the exact per-candidate refine of the volumetric light's windowed scan
+# (one refine sample; a windowed view never takes the carried refine,
+# lighting/scan_shadows.py), and the projector's AO sample
+# (lighting/projector.py; its cone march runs no step: the flagship's
+# projector has no origin). The collision samples the field inside K4.
+# The sun's and the line light's AO are gated off on the host, the
+# particle lights' template has no AO radius, and every grid query samples
+# the volume itself. The projector's march is one K12 launch; K12 and K4
+# share the frame's one pack of its new maps (`columns_kernel.packed`).
+FAMILY_VOXEL_QUERIES_PER_FRAME = 2
 
 
 def phase_reference_family():
@@ -1363,24 +1456,27 @@ def phase_reference_family():
                dict(field="voxel", preset="fast", full_family=True)):
         out = {dev: _small_frames(dev, draws, **kw)
                for dev in ("cpu", "cuda")}
-        queries, packs, k12 = out["cuda"][3:6]
+        queries, packs, k12, k4_launches = out["cuda"][3:7]
         within, within_1e3 = _compare_small(
             "reference_family", out["cpu"], out["cuda"], **kw,
             column_query_launches=queries, column_maps_pack_launches=packs,
-            cone_trace_launches=k12)
-        if kw["field"] == "voxel":
+            cone_trace_launches=k12, collide_integrate=k4_launches)
+        voxel = kw["field"] == "voxel"
+        if voxel:
             expected = 3 * FAMILY_VOXEL_QUERIES_PER_FRAME
             ok = within >= 0.99
         else:
             expected = 0
             ok = within == 1.0 and within_1e3 >= 0.999
-        voxel_k12 = k12 if kw["field"] == "voxel" else 0
-        if (queries, packs, k12) != (expected, expected + voxel_k12, 3):
+        # K12's and K4's pack: once a frame's new maps.
+        want_packs = expected + (3 if voxel else 0)
+        if (queries, packs, k12, k4_launches) != (expected, want_packs, 3,
+                                                  3):
             raise AssertionError(
                 f"reference_family ({kw}): the fused query launched "
-                f"{queries} times, its pack {packs} times and K12 {k12} "
-                f"times in 3 frames, expected {expected}, {expected} + "
-                "K12's and 3")
+                f"{queries} times, its pack {packs} times, K12 {k12} and "
+                f"K4 {k4_launches} times in 3 frames, expected {expected}, "
+                f"{want_packs}, 3 and 3")
         if not ok:
             raise AssertionError(f"reference_family ({kw}): particles "
                                  "moved apart")
@@ -1432,8 +1528,9 @@ def phase_reference_march():
     tests/test_torch_march_flagship.py): three frames from the same draws
     on the analytic and the voxel field, without and with the families,
     to the bounds of `reference_analytic` and `reference` (voxel); K12
-    launched MARCH_K12_PER_FRAME times a frame (on the voxel field each
-    launch packs the maps once more); the first frame's sphere march on
+    launched MARCH_K12_PER_FRAME times a frame (on the voxel field K12 and
+    K4 share one pack of the frame's new maps); the first frame's sphere
+    march on
     the card against the plain march on the CPU under the march bound.
     Then the analytic scan frame under `scan_refine_mode="carried_all"`
     and at `shadow_scale=0.25`, to `reference_analytic`'s bounds."""
@@ -1454,11 +1551,12 @@ def phase_reference_march():
                 "reference_march", cpu, cuda, **kw, cone_trace_launches=k12,
                 column_query_launches=queries,
                 column_maps_pack_launches=packs, **march)
-            voxel_k12 = k12 if field == "voxel" else 0
+            # On the voxel field K12 and K4 share each frame's one pack.
+            voxel_packs = 3 if field == "voxel" else 0
             ok = (within >= 0.99 if field == "voxel"
                   else within == 1.0 and within_1e3 >= 0.999)
             if k12 != 3 * MARCH_K12_PER_FRAME[family] or \
-                    packs != queries + voxel_k12:
+                    packs != queries + voxel_packs:
                 raise AssertionError(
                     f"reference_march ({kw}): K12 launched {k12} times, the "
                     f"pack {packs} times for {queries} queries")
@@ -2198,20 +2296,23 @@ def small_particle_systems(name, device):
 def run_small_particles(name, device, draws, random_fields=None):
     """PARTICLE_TICKS ticks of case `name` on `device` with the given
     draws -> (systems, the sum of their rendered images as numpy, the
-    fused-query launches). `random_fields`: the Noise fields to use, one a
-    system (a device's generator draws its own)."""
+    launches {"column_query": the fused query's, "collide_integrate":
+    K4's}). `random_fields`: the Noise fields to use, one a system (a
+    device's generator draws its own)."""
     from illuminant_tpu_torch.ops.noise import RandomField
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     systems = small_particle_systems(name, device)
     for system, field in zip(systems, random_fields or ()):
         system.random_field = RandomField(data=field.to(device))
-    ck.QUERY_LAUNCHES = 0
+    ck.QUERY_LAUNCHES = k4.LAUNCHES = 0
     for tick in draws:
         for system, d in zip(systems, tick):
             system.tick(DT, spawn_uniforms=d)
-    launches = ck.QUERY_LAUNCHES
+    launches = dict(column_query=ck.QUERY_LAUNCHES,
+                    collide_integrate=k4.LAUNCHES)
     cfg = TiledRasterConfig(height=PARTICLE_SMALL["height"],
                             width=PARTICLE_SMALL["width"])
     img = sum(s.render(cfg)[0] for s in systems)
@@ -2229,8 +2330,8 @@ def phase_reference_particles():
     live particles within 1e-3 and all within 0.05 (a particle within the
     float rounding of a collision threshold may resolve the other way on
     the card), images within 1% of
-    their mean. The ColumnField case launches the fused query 5 times a
-    tick."""
+    their mean. Every system with a field collides in K4 once a tick;
+    nothing launches the fused query."""
     for name in PARTICLE_CASES:
         probe = small_particle_systems(name, "cpu")
         draws = spawn_draws(probe, PARTICLE_TICKS)
@@ -2253,15 +2354,17 @@ def phase_reference_particles():
             ticks=PARTICLE_TICKS, live=live, same_live=same_live,
             particles_within_0p05=within, particles_within_1e3=within_1e3,
             image_mean_rel_err=f"{img_err:.2e}",
-            column_query_launches=launches)
-        expected = 5 * PARTICLE_TICKS if name == "column_field" else 0
+            **{f"{k}_launches": v for k, v in launches.items()})
+        with_field = sum(s.volume is not None for s in cuda)
+        expected = dict(column_query=0,
+                        collide_integrate=PARTICLE_TICKS * with_field)
         if not (live > 0 and same_live and within == 1.0
                 and within_1e3 >= 0.99 and img_err <= 0.01):
             raise AssertionError(f"reference_particles ({name}): the card's "
                                  "systems disagree with the CPU path")
         if launches != expected:
-            raise AssertionError(f"reference_particles ({name}): the fused "
-                                 f"query launched {launches} times in "
+            raise AssertionError(f"reference_particles ({name}): kernels "
+                                 f"launched {launches} times in "
                                  f"{PARTICLE_TICKS} ticks, expected "
                                  f"{expected}")
 
@@ -2312,8 +2415,10 @@ def phase_slice_particles(field, warmup: int):
     frames, each fenced by a synchronize, with CUDA events splitting the
     tick from the render; then one more tick and one more render under
     the host-read counter (the render also under the sync debug mode), and
-    the gates: K5 once a render, 0 reads. Returns (launches, ms_per_frame,
-    the checked render's K5 call)."""
+    the gates: K4 once a tick (the maps packed before, once), K5 once a
+    render, 0 reads. Returns (launches, ms_per_frame, the checked render's
+    K5 call)."""
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
     from illuminant_tpu_torch.sdf import columns_kernel as ck
@@ -2322,7 +2427,7 @@ def phase_slice_particles(field, warmup: int):
     torch.cuda.reset_peak_memory_stats()
     system, sensor, raster, hdr = _particle_cell(field, warmup)
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
-    k5.LAUNCHES = 0
+    k5.LAUNCHES = k4.LAUNCHES = 0
     tick_ms, render_ms = [], []
     t0 = time.perf_counter()
     for _ in range(PARTICLE_TIMED_FRAMES):
@@ -2339,7 +2444,8 @@ def phase_slice_particles(field, warmup: int):
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / PARTICLE_TIMED_FRAMES
     launches = dict(column_query=ck.QUERY_LAUNCHES,
                     column_maps_pack=ck.PACK_LAUNCHES,
-                    column_maps_sample=ck.LAUNCHES, splat=k5.LAUNCHES)
+                    column_maps_sample=ck.LAUNCHES, splat=k5.LAUNCHES,
+                    collide_integrate=k4.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads:
         system.update(DT)
@@ -2375,7 +2481,9 @@ def phase_slice_particles(field, warmup: int):
         column_maps_pack_per_tick=launches["column_maps_pack"]
         / PARTICLE_TIMED_FRAMES,
         column_maps_sample_launches=launches["column_maps_sample"],
-        splat_launches=launches["splat"], host_reads_per_tick=reads.n,
+        splat_launches=launches["splat"],
+        collide_integrate_per_tick=launches["collide_integrate"]
+        / PARTICLE_TIMED_FRAMES, host_reads_per_tick=reads.n,
         host_reads_per_render=render_reads.n, sensor=inside,
         sensor_direct=direct,
         sensor_edge=edge, deeper_than_collision_distance=f"{deep:.5f}")
@@ -2392,12 +2500,12 @@ def phase_slice_particles(field, warmup: int):
     if warmup >= full // PARTICLE_FULL["spawn_max"] and live != full:
         raise AssertionError(f"slice_particles: {live} live particles after "
                              f"the ring filled, expected {full}")
-    expected = dict(column_query=5 * PARTICLE_TIMED_FRAMES,
-                    column_maps_pack=5 * PARTICLE_TIMED_FRAMES,
+    expected = dict(column_query=0, column_maps_pack=0,
                     column_maps_sample=0,
-                    splat=k5.LAUNCHES_PER_SPLAT * PARTICLE_TIMED_FRAMES)
+                    splat=k5.LAUNCHES_PER_SPLAT * PARTICLE_TIMED_FRAMES,
+                    collide_integrate=PARTICLE_TIMED_FRAMES)
     if launches != expected:
-        raise AssertionError(f"slice_particles: column kernels launched "
+        raise AssertionError(f"slice_particles: kernels launched "
                              f"{launches} times in {PARTICLE_TIMED_FRAMES} "
                              f"ticks, expected {expected}")
     if abs(inside - direct) > edge:
@@ -3121,12 +3229,6 @@ MODEL_WARMUP_FRAMES = 2
 MODEL_SMALL = dict(height=96, width=160, capacity=1 << 10, per_tick=64)
 MODEL_TICKS = 10
 CODEGEN_UPDATES = 20
-# Fused column queries a tick of a system on the ColumnField at 3
-# substeps (particles/integrate.py:11-14): the initial distance, one a
-# substep, the normal; each packs the maps once.
-QUERIES_PER_TICK = 5
-
-
 def ember_texture(n=12):
     """A soft disc, the embers' inline texture."""
     ys, xs = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n),
@@ -3397,8 +3499,9 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
         refresh_carried_state=carried,
         sparks_spawned_after_refresh=spawned)
     expected = dict(
-        column_query=QUERIES_PER_TICK * system_ticks,
-        column_maps_pack=QUERIES_PER_TICK * system_ticks,
+        # Each system's collision is one K4 launch a tick; the field's
+        # maps were packed at its first tick.
+        column_query=0, column_maps_pack=0, collide_integrate=system_ticks,
         column_maps_sample=0, composite_over_tiles=MODEL_TIMED_FRAMES,
         sprite_accumulate=MODEL_TIMED_FRAMES, tiled_lights_fused=0,
         cone_trace=0, splat=k5.LAUNCHES_PER_SPLAT * MODEL_TIMED_FRAMES)
@@ -3448,8 +3551,9 @@ def small_model(device, draws=None, random_fields=None):
     """The model at 96 x 160 on `device` over its small ColumnField,
     MODEL_TICKS updates from `draws` (None: make them) with the given
     Noise fields (one a system; None: the device's own) -> (view, draws,
-    fused-query launches)."""
+    fused-query launches, K4 launches)."""
     from illuminant_tpu_torch.ops.noise import RandomField
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     h, w = MODEL_SMALL["height"], MODEL_SMALL["width"]
@@ -3458,10 +3562,10 @@ def small_model(device, draws=None, random_fields=None):
     for sv, field in zip(view.systems, random_fields or ()):
         sv.system.random_field = RandomField(data=field.to(device))
     draws = draws or model_draws(view, MODEL_TICKS)
-    ck.QUERY_LAUNCHES = 0
+    ck.QUERY_LAUNCHES = k4.LAUNCHES = 0
     for d in draws:
         view.update(DT, spawn_uniforms=d)
-    return view, draws, ck.QUERY_LAUNCHES
+    return view, draws, ck.QUERY_LAUNCHES, k4.LAUNCHES
 
 
 STATE_FIELDS = ("position", "velocity", "color", "render_color",
@@ -3520,15 +3624,16 @@ def phase_reference_models(device="cuda"):
     path (which the CPU tests hold to the JAX package): the model's three
     systems after 10 updates from the same host draws and the CPU's Noise
     fields (same live masks, cursors and totals; every live particle
-    within 1e-4 + 1e-5 |b|; 5 fused queries a system tick); the SaveAsCode
-    module's systems against the JSON view's on the card, each drawing
-    from its own generator, after 20 updates: bit for bit (drift 0.0); the
+    within 1e-4 + 1e-5 |b|; one K4 launch a system tick, no fused
+    query); the SaveAsCode module's systems against the JSON view's on
+    the card, each drawing from its own generator, after 20 updates: bit
+    for bit (drift 0.0); the
     scripted editor session: its digest within the same bound and its
     `dumps()` equal byte for byte. `device="cpu"` rehearses it here."""
     from illuminant_tpu_torch.models.codegen import save_as_code
 
-    cpu, draws, _ = small_model("cpu")
-    cuda, _, launches = small_model(
+    cpu, draws, _, _ = small_model("cpu")
+    cuda, _, launches, k4_launches = small_model(
         device, draws, [sv.system.random_field.data for sv in cpu.systems])
     agree = {sv.model.name: state_agreement(sv.system.state,
                                             sg.system.state)
@@ -3572,8 +3677,9 @@ def phase_reference_models(device="cuda"):
     if not all(same and share == 1.0 for same, share in agree.values()):
         raise AssertionError(f"reference_models: the card's systems disagree "
                              f"with the CPU path: {agree}")
-    if launches != QUERIES_PER_TICK * 3 * MODEL_TICKS:
-        raise AssertionError(f"reference_models: {launches} fused queries in "
+    if (launches, k4_launches) != (0, 3 * MODEL_TICKS):
+        raise AssertionError(f"reference_models: {launches} fused queries "
+                             f"and {k4_launches} K4 launches in "
                              f"{MODEL_TICKS} updates of 3 systems")
     if not (drift == 0.0 and min(compiled_live) > 0):
         raise AssertionError(f"reference_models: the SaveAsCode systems "
@@ -3688,11 +3794,12 @@ def lights_frame(cell, events=None):
 def _reset_launches():
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster import tile_kernel as tk
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
-    k10.LAUNCHES = ctk.LAUNCHES = k5.LAUNCHES = 0
+    k10.LAUNCHES = ctk.LAUNCHES = k5.LAUNCHES = k4.LAUNCHES = 0
     tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
     ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
 
@@ -3700,12 +3807,13 @@ def _reset_launches():
 def _launches():
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
+    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster import tile_kernel as tk
     from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     return dict(tiled_lights_fused=k10.LAUNCHES, cone_trace=ctk.LAUNCHES,
-                splat=k5.LAUNCHES,
+                splat=k5.LAUNCHES, collide_integrate=k4.LAUNCHES,
                 column_query=ck.QUERY_LAUNCHES,
                 column_maps_pack=ck.PACK_LAUNCHES,
                 column_maps_sample=ck.LAUNCHES,
@@ -3788,7 +3896,8 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
     expected = dict(tiled_lights_fused=LIGHTS_TIMED_FRAMES,
                     column_query=0, column_maps_pack=LIGHTS_TIMED_FRAMES,
                     column_maps_sample=0, composite_over_tiles=0,
-                    sprite_accumulate=0, cone_trace=0, splat=0)
+                    sprite_accumulate=0, cone_trace=0, splat=0,
+                    collide_integrate=0)
     if launches != expected:
         raise AssertionError(f"slice_particle_lights: launches {launches} "
                              f"in {LIGHTS_TIMED_FRAMES} frames, expected "
@@ -4630,6 +4739,7 @@ def main(argv=None) -> int:
                     maximum_z=scene.environment.maximum_z)
     kernel = phase_kernel(field)
     phase_scan_walk_kernel(kernel)
+    phase_integrate_kernel(kernel)
     kernel.update(phase_sprite_kernels(parent=parent_module(
         args.parent, "raster.tile_kernel") if args.parent else None))
     parent_lights = None
@@ -4819,7 +4929,23 @@ def main(argv=None) -> int:
              dict(launches=launches["slice"]["splat"],
                   launches_particles=particle_launches["splat"],
                   launches_model=model_launches["splat"],
-                  launches_mesh=mesh_launches))):
+                  launches_mesh=mesh_launches)),
+            # K4 at the flagship cell's integrate call (the analytic
+            # field, one substep); the particle cell's (the ColumnField,
+            # three) beside it.
+            ("collide_integrate", "illuminant_tpu_torch/csrc/"
+             "collide_integrate.cu",
+             "illuminant_tpu/particles/integrate.py:95",
+             kernel["collide_integrate_flagship"],
+             dict(launches=launches["slice_analytic"]["collide_integrate"],
+                  launches_voxel=launches["slice"]["collide_integrate"],
+                  launches_particles=particle_launches["collide_integrate"],
+                  launches_model=model_launches["collide_integrate"],
+                  ms_particles=kernel["collide_integrate_particles"]["ms"],
+                  plain_ms_particles=kernel[
+                      "collide_integrate_particles"]["plain_ms"],
+                  bound_ms_particles=kernel[
+                      "collide_integrate_particles"]["bound"][0]))):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts, "max_abs_err": r["err"],

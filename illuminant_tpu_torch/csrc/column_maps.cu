@@ -115,49 +115,9 @@ __global__ void column_query_kernel(
     d_out[i] = column_distance(pack, hc, wc, g, px, py, pz);
     return;
   }
-  ColumnPoint c;
-  column_point(pack, hc, wc, g, px, py, pz, true, &c);
-  float d = c.d;
-  const float gfx = c.in_x ? c.s.dtx * g.sx_c : 0.0f;
-  const float gfy = c.in_y ? c.s.dty * g.sy_c : 0.0f;
-  const float zsign = c.above > c.below ? 1.0f : -1.0f;
-  const float inv = 1.0f / fmaxf(c.outside, 1e-9f);
-  const bool out_mask = (c.f > 0.0f) || (c.dz > 0.0f);
-  const float side_w =
-      out_mask ? c.f_pos * inv : (c.f >= c.dz ? 1.0f : 0.0f);
-  const float cap_w =
-      out_mask ? c.dz_pos * inv : (c.f >= c.dz ? 0.0f : 1.0f);
-  float gx = side_w * gfx;
-  float gy = side_w * gfy;
-  float gz = cap_w * zsign;
-  // A winning end clamp puts the nearest feature toward that end.
-  const bool top_wins = c.lip_top <= c.lip_bot;
-  if (c.lip < d) {
-    gx = 0.0f;
-    gy = 0.0f;
-    gz = top_wins ? -1.0f : 1.0f;
-  }
-  d = fminf(d, c.lip);
-  const float safe = fmaxf(c.dist, 1e-9f);
-  const bool off_box = c.dist > 0.0f;
-  gx = gx + (off_box ? c.ux / safe : 0.0f);
-  gy = gy + (off_box ? c.uy / safe : 0.0f);
-  gz = gz + (off_box ? c.uz / safe : 0.0f);
-  if (normalize) {
-    // analytic._normalized: unit length, zero where the gradient vanishes.
-    const float norm = sqrtf(gx * gx + gy * gy + gz * gz);
-    if (norm > 1e-9f) {
-      const float div = fmaxf(norm, 1e-9f);
-      gx = gx / div;
-      gy = gy / div;
-      gz = gz / div;
-    } else {
-      gx = 0.0f;
-      gy = 0.0f;
-      gz = 0.0f;
-    }
-  }
-  d_out[i] = d + c.dist;
+  float gx, gy, gz;
+  d_out[i] = column_distance_grad(pack, hc, wc, g, px, py, pz,
+                                  normalize != 0, &gx, &gy, &gz);
   gx_out[i] = gx;
   gy_out[i] = gy;
   gz_out[i] = gz;

@@ -1,11 +1,14 @@
 // The ColumnField query as device functions, shared by the column kernels
-// (column_maps.cu: the sampler and the fused query) and the fused tiled
-// particle lights (tiled_lights.cu: the AO sample, K10).
+// (column_maps.cu: the sampler and the fused query), the fused tiled
+// particle lights (tiled_lights.cu: the AO sample, K10) and the collision
+// integrate (collide_integrate.cu, K4).
 //
 // `sample` is the bilinear sample of the quad-packed column maps
 // (columns_kernel.pack_maps); `column_point` runs the whole query from a
 // world position up to the reconstructed distance, keeping the terms the
-// gradient needs; `column_distance` is the distance-only query. Edge rules
+// gradient needs; `column_distance` is the distance-only query and
+// `column_distance_grad` the query with its gradient (also the collision
+// normal of K4, collide_integrate.cu). Edge rules
 // are columns_pallas._rows exactly (i0 = clip(floor(t), 0, n - 1),
 // i1 = min(i0 + 1, n - 1) baked into the pack, w = t - floor(t) from the
 // unclipped floor). Every file that includes this header is compiled with
@@ -176,6 +179,62 @@ __device__ __forceinline__ float column_distance(
   ColumnPoint c;
   column_point(pack, hc, wc, g, px, py, pz, false, &c);
   return fminf(c.d, c.lip) + c.dist;
+}
+
+// The distance and the world-space gradient at a world position: the
+// side and cap terms of the reconstruction, the pull of a winning end
+// clamp, the out-of-box offset; with `normalize`, of unit length and zero
+// where it vanishes (analytic._normalized). The fused query's gradient
+// (column_maps.cu) and the collision normal of K4 (collide_integrate.cu).
+__device__ __forceinline__ float column_distance_grad(
+    const float* __restrict__ pack, int hc, int wc, const Geometry& g,
+    float px, float py, float pz, bool normalize, float* gx_out,
+    float* gy_out, float* gz_out) {
+  ColumnPoint c;
+  column_point(pack, hc, wc, g, px, py, pz, true, &c);
+  float d = c.d;
+  const float gfx = c.in_x ? c.s.dtx * g.sx_c : 0.0f;
+  const float gfy = c.in_y ? c.s.dty * g.sy_c : 0.0f;
+  const float zsign = c.above > c.below ? 1.0f : -1.0f;
+  const float inv = 1.0f / fmaxf(c.outside, 1e-9f);
+  const bool out_mask = (c.f > 0.0f) || (c.dz > 0.0f);
+  const float side_w =
+      out_mask ? c.f_pos * inv : (c.f >= c.dz ? 1.0f : 0.0f);
+  const float cap_w =
+      out_mask ? c.dz_pos * inv : (c.f >= c.dz ? 0.0f : 1.0f);
+  float gx = side_w * gfx;
+  float gy = side_w * gfy;
+  float gz = cap_w * zsign;
+  // A winning end clamp puts the nearest feature toward that end.
+  const bool top_wins = c.lip_top <= c.lip_bot;
+  if (c.lip < d) {
+    gx = 0.0f;
+    gy = 0.0f;
+    gz = top_wins ? -1.0f : 1.0f;
+  }
+  d = fminf(d, c.lip);
+  const float safe = fmaxf(c.dist, 1e-9f);
+  const bool off_box = c.dist > 0.0f;
+  gx = gx + (off_box ? c.ux / safe : 0.0f);
+  gy = gy + (off_box ? c.uy / safe : 0.0f);
+  gz = gz + (off_box ? c.uz / safe : 0.0f);
+  if (normalize) {
+    const float norm = sqrtf(gx * gx + gy * gy + gz * gz);
+    if (norm > 1e-9f) {
+      const float div = fmaxf(norm, 1e-9f);
+      gx = gx / div;
+      gy = gy / div;
+      gz = gz / div;
+    } else {
+      gx = 0.0f;
+      gy = 0.0f;
+      gz = 0.0f;
+    }
+  }
+  *gx_out = gx;
+  *gy_out = gy;
+  *gz_out = gz;
+  return d + c.dist;
 }
 
 // The 12 floats of Geometry, in its order, from host memory.

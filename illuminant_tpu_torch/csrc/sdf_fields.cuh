@@ -3,13 +3,17 @@
 // obstruction primitives with their quaternion rotation, and the extruded
 // polygons of its height volumes), and the ColumnField reconstruction,
 // which is column_query.cuh's `column_distance` (shared with K7 and K10).
-// The cone-trace march (cone_trace.cu, K12) samples them once a step.
+// The cone-trace march (cone_trace.cu, K12) samples them once a step; the
+// collision integrate (collide_integrate.cu, K4) once a substep, and takes
+// the scene's closed-form collision normal (`analytic_normal_fast`; the
+// normals that are not closed forms are sdf_gradients.cuh's).
 //
 // Each function keeps the operation order of its plain PyTorch version:
 // sdf/sampling.py:sample, ops/sdf_primitives.py's planar forms (`*_p`)
 // through sdf/analytic.py:AnalyticScene.distance_p (or, above its unroll
 // limit, `_distance_vectorized`'s batched forms), and sdf/height_volume.py:
-// extruded_polygon_distance_p. Every file that includes this header is
+// extruded_polygon_distance_p, and the normals sdf/analytic.py:
+// AnalyticScene.normal_fast_p's. Every file that includes this header is
 // compiled with -fmad=false, so products and sums round one by one as in
 // PyTorch; sqrtf and the division are IEEE.
 
@@ -360,6 +364,158 @@ __device__ __forceinline__ float analytic_distance(const Analytic& s,
     d = fminf(d, polygons_distance<kShared>(s.polygons, x, y, z));
   }
   return d;
+}
+
+// ------------------------------------------------------ analytic normals
+
+// The closed-form primitive normals of ops/sdf_primitives.py (nrm_*_p),
+// each ending in _nrm_safe: unit length where the vector is longer than
+// 1e-9 (its reciprocal times each component), else (0, 0, fallback_z).
+__device__ __forceinline__ void nrm_safe(float px, float py, float pz,
+                                         float* nx, float* ny, float* nz,
+                                         float fallback_z = 1.0f) {
+  const float l = sqrtf(px * px + py * py + pz * pz);
+  const bool ok = l > 1e-9f;
+  const float inv = 1.0f / (ok ? l : 1.0f);
+  *nx = ok ? px * inv : 0.0f;
+  *ny = ok ? py * inv : 0.0f;
+  *nz = ok ? pz * inv : fallback_z;
+}
+
+__device__ __forceinline__ void nrm_box(float px, float py, float pz,
+                                        float bx, float by, float bz,
+                                        float* nx, float* ny, float* nz) {
+  const float qx = fabsf(px) - bx;
+  const float qy = fabsf(py) - by;
+  const float qz = fabsf(pz) - bz;
+  const bool outside = (qx > 0.0f) || (qy > 0.0f) || (qz > 0.0f);
+  // Inside: the face of the least interior penetration (max q).
+  const bool mx = (qx >= qy) && (qx >= qz);
+  const bool my = !mx && (qy >= qz);
+  const float vx = outside ? sgn(px) * fmaxf(qx, 0.0f)
+                           : (mx ? sgn(px) : 0.0f);
+  const float vy = outside ? sgn(py) * fmaxf(qy, 0.0f)
+                           : (my ? sgn(py) : 0.0f);
+  const float vz = outside ? sgn(pz) * fmaxf(qz, 0.0f)
+                           : (!(mx || my) ? sgn(pz) : 0.0f);
+  nrm_safe(vx, vy, vz, nx, ny, nz);
+}
+
+__device__ __forceinline__ void nrm_ellipsoid(float px, float py, float pz,
+                                              float rx, float ry, float rz,
+                                              float* nx, float* ny,
+                                              float* nz) {
+  rx = fmaxf(rx, 1e-6f);
+  ry = fmaxf(ry, 1e-6f);
+  rz = fmaxf(rz, 1e-6f);
+  nrm_safe(px / (rx * rx), py / (ry * ry), pz / (rz * rz), nx, ny, nz);
+}
+
+__device__ __forceinline__ void nrm_cylinder(float px, float py, float pz,
+                                             float sx, float sy, float sz,
+                                             float* nx, float* ny,
+                                             float* nz) {
+  const float r = sqrtf(sx * sx + sy * sy);
+  const float lxy = sqrtf(px * px + py * py + 1e-12f);
+  const float d_xy = lxy - r;
+  const float d_z = fabsf(pz) - sz;
+  const bool both_out = (d_xy > 0.0f) && (d_z > 0.0f);
+  const bool radial = d_xy >= d_z;
+  const float vx = both_out ? px / lxy * fmaxf(d_xy, 0.0f)
+                            : (radial ? px / lxy : 0.0f);
+  const float vy = both_out ? py / lxy * fmaxf(d_xy, 0.0f)
+                            : (radial ? py / lxy : 0.0f);
+  const float vz = both_out ? sgn(pz) * fmaxf(d_z, 0.0f)
+                            : (radial ? 0.0f : sgn(pz));
+  nrm_safe(vx, vy, vz, nx, ny, nz);
+}
+
+// Away from the inner core box (the elongation region); deep inside the
+// core, +z.
+__device__ __forceinline__ void nrm_spheroid(float px, float py, float pz,
+                                             float sx, float sy, float sz,
+                                             float* nx, float* ny,
+                                             float* nz) {
+  const float m = fminf(sx, fminf(sy, sz));
+  const float ex = sx - m, ey = sy - m, ez = sz - m;
+  nrm_safe(px - fminf(fmaxf(px, -ex), ex), py - fminf(fmaxf(py, -ey), ey),
+           pz - fminf(fmaxf(pz, -ez), ez), nx, ny, nz);
+}
+
+// The tetrahedral finite difference of the planar octagon prism.
+__device__ __forceinline__ void nrm_octagon(float px, float py, float pz,
+                                            float sx, float sy, float sz,
+                                            float* nx, float* ny,
+                                            float* nz) {
+  const float h = 0.5f;
+  const float d1 = sd_octagon(px + h, py - h, pz - h, sx, sy, sz, false);
+  const float d2 = sd_octagon(px - h, py - h, pz + h, sx, sy, sz, false);
+  const float d3 = sd_octagon(px - h, py + h, pz - h, sx, sy, sz, false);
+  const float d4 = sd_octagon(px + h, py + h, pz + h, sx, sy, sz, false);
+  nrm_safe(d1 - d2 - d3 + d4, -d1 - d2 + d3 + d4, -d1 + d2 - d3 + d4, nx,
+           ny, nz);
+}
+
+// AnalyticScene.normal_fast_p of a scene within the unroll limit and
+// without polygons (above it the plain version takes central differences
+// of the batched distance, with polygons the autograd gradient: both in
+// sdf_gradients.cuh): the
+// closed-form normal of the nearest primitive, strictly nearer than
+// maximum_distance and than every earlier primitive ((0, 0, 0) beyond
+// them), rotated back to world space.
+template <bool kShared>
+__device__ __forceinline__ void analytic_normal_fast(const Analytic& s,
+                                                     float x, float y,
+                                                     float z, float* nx,
+                                                     float* ny, float* nz) {
+  float best = s.maximum_distance;
+  float bx = 0.0f, by = 0.0f, bz = 0.0f;
+  for (int i = 0; i < s.count; ++i) {
+    const float* r = s.records + i * kPrimitiveRecord;
+    const float4 r0 = ld4<kShared>(r);
+    const float4 r1 = ld4<kShared>(r + 4);
+    const bool rotated = r0.y > 0.5f;
+    float4 q = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+    float px = x - r0.z, py = y - r0.w, pz = z - r1.x;
+    if (rotated) {
+      q = ld4<kShared>(r + 8);
+      rotate(&px, &py, &pz, q.x, q.y, q.z, q.w);
+    }
+    const float sx = r1.y, sy = r1.z, sz = r1.w;
+    float d, ix, iy, iz;
+    switch ((int)r0.x) {
+      case kEllipsoid:
+        d = sd_ellipsoid(px, py, pz, sx, sy, sz);
+        nrm_ellipsoid(px, py, pz, sx, sy, sz, &ix, &iy, &iz);
+        break;
+      case kBox:
+        d = sd_box(px, py, pz, sx, sy, sz);
+        nrm_box(px, py, pz, sx, sy, sz, &ix, &iy, &iz);
+        break;
+      case kCylinder:
+        d = sd_cylinder(px, py, pz, sx, sy, sz);
+        nrm_cylinder(px, py, pz, sx, sy, sz, &ix, &iy, &iz);
+        break;
+      case kSpheroid:
+        d = sd_spheroid(px, py, pz, sx, sy, sz);
+        nrm_spheroid(px, py, pz, sx, sy, sz, &ix, &iy, &iz);
+        break;
+      default:
+        d = sd_octagon(px, py, pz, sx, sy, sz, false);
+        nrm_octagon(px, py, pz, sx, sy, sz, &ix, &iy, &iz);
+        break;
+    }
+    if (rotated) rotate(&ix, &iy, &iz, -q.x, -q.y, -q.z, q.w);
+    if (d < best) {
+      bx = ix;
+      by = iy;
+      bz = iz;
+    }
+    best = fminf(best, d);
+  }
+  *nx = bx;
+  *ny = by;
+  *nz = bz;
 }
 
 // ---------------------------------------------------------------- column

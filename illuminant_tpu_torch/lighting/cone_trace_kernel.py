@@ -205,8 +205,8 @@ def instance_for(kind: int, f_ints) -> int:
 def field_scalars(volume):
     """The field's kind, its integer and float constants in the source's
     order, and the tensors whose pointers follow them (the ColumnField's
-    planar maps, which the launch packs first; the SdfVolume's data, whose
-    pack the launch builds or finds)."""
+    planar maps and the SdfVolume's data, whose packs the launch builds
+    or finds)."""
     kind = FIELD_KINDS.get(type(volume))
     if kind is None:
         raise TypeError(f"unsupported field {type(volume).__name__}")
@@ -316,9 +316,9 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
                     raw: bool = False, with_steps: bool = False):
     """One K12 launch on the current stream -> the visibility of the
     broadcast ray shape (and, `with_steps`, each ray's steps left, as
-    float32). CUDA tensors only; a ColumnField's maps are packed first
-    (`columns_kernel.pack_maps`, one launch), an SdfVolume's taps at the
-    first march on it (`packed_volume`, one launch)."""
+    float32). CUDA tensors only; a ColumnField's maps are packed once a
+    new set of maps (`columns_kernel.packed`, one launch), an SdfVolume's
+    taps at the first march on it (`packed_volume`, one launch)."""
     global LAUNCHES
     plan = launch_plan(volume, light_center, light_radius, light_ramp_length,
                        shaded_position, enable, quality, raw)
@@ -336,7 +336,7 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
         return (out, steps) if with_steps else out
     field_tensors = plan["field_tensors"]
     if plan["kind"] == FIELD_KINDS[ColumnField]:
-        field_tensors = [columns_kernel.pack_maps(field_tensors[0])]
+        field_tensors = [columns_kernel.packed(volume)]
     elif plan["kind"] == FIELD_KINDS[SdfVolume]:
         field_tensors = [packed_volume(volume), field_tensors[1]]
     ptr_list = [plan["views"][name].data_ptr() for name in RAY_ARGS]

@@ -15,6 +15,11 @@ branchless per particle over planar (N,) components.
   * Otherwise each substep samples the field (`scene_sample_p`) and the
     normal is the field's fast normal at the collision point
     (`scene_normal_p(fast=True)`: closed form on an analytic scene).
+On the card, an AnalyticScene or a ColumnField takes the whole call,
+render data included, as one launch of K4 (`integrate_kernel`,
+`csrc/collide_integrate.cu`); the eager body,
+`integrate_with_distance_field_reference`, is its plain version, and runs
+on the CPU and for a bare SdfVolume.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from ..core.trace import span
 from ..sdf.analytic import (scene_normal_p, scene_sample_grad_p,
                             scene_sample_p)
+from . import integrate_kernel
 from .render_data import RenderDataUniforms, compute_render_data
 from .state import (ParticleState, SystemUniforms,
                     friction_and_maximum_length)
@@ -115,6 +121,20 @@ def integrate_with_distance_field(state: ParticleState, su: SystemUniforms,
     (a mesh rank's capacity shard), which the slot-keyed terms read (the
     redirect fallback's hash, the render data's index). Returns a new
     state."""
+    if integrate_kernel.takes(state.position.device, volume):
+        return integrate_kernel.integrate_cuda(
+            state, su, rd, volume, maximum_z, substeps, first_slot)
+    return integrate_with_distance_field_reference(
+        state, su, rd, volume, maximum_z, substeps, first_slot)
+
+
+def integrate_with_distance_field_reference(
+        state: ParticleState, su: SystemUniforms, rd: RenderDataUniforms,
+        volume, maximum_z: float = 1e9, substeps: int = MAX_STEP_COUNT,
+        first_slot: int = 0) -> ParticleState:
+    """The eager body of `integrate_with_distance_field` on any device and
+    field: the plain version of K4, and the path of the CPU and of a bare
+    SdfVolume."""
     pos = state.position
     vel = state.velocity
     dt = su.dt

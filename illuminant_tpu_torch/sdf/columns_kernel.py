@@ -146,6 +146,24 @@ def pack_maps(maps):
     return pack
 
 
+def packed(field):
+    """The quad pack of a ColumnField's maps (`pack_maps(field.maps_c)`),
+    built at the first call on the field and kept on it; built again once
+    its maps change (another tensor, or the same one written in place).
+    The kernels that sample a field's maps across calls take it here: one
+    pack a new set of maps. An inference tensor, which keeps no version,
+    is packed every call."""
+    maps = field.maps_c
+    if maps.is_inference():
+        return pack_maps(maps.to(torch.float32).contiguous())
+    kept = getattr(field, "_quad_pack", None)
+    if kept is not None and kept[0] is maps and kept[1] == maps._version:
+        return kept[2]
+    pack = pack_maps(maps.to(torch.float32).contiguous())
+    object.__setattr__(field, "_quad_pack", (maps, maps._version, pack))
+    return pack
+
+
 def sample_maps_reference(maps, ty, tx, want_grad: bool = False):
     """Plain PyTorch version of the kernel, float32, same edge rules:
     maps (C, Hc, Wc), ty/tx (N,) texel coords -> (C[+2], N)."""

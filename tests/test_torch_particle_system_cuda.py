@@ -39,9 +39,9 @@ def test_column_field_system_collides_on_the_cpu():
 
 @pytest.mark.cuda
 def test_cuda_column_field_system_matches_cpu():
-    """10 ticks from the same host draws and Noise field: the fused
-    query launches 5
-    times a tick (collision at 3 substeps), the live masks are equal and
+    """10 ticks from the same host draws and Noise field: the collision
+    (3 substeps) is one K4 launch a tick and launches no fused query, the
+    live masks are equal and
     99% of live particles agree within 1e-3 (a particle within the float
     rounding of a collision threshold may resolve the other way)."""
     if not torch.cuda.is_available():
@@ -50,7 +50,8 @@ def test_cuda_column_field_system_matches_cpu():
     (cpu,), img_c, _ = cs.run_small_particles("column_field", "cpu", draws)
     (cuda,), img_g, launches = cs.run_small_particles(
         "column_field", "cuda", draws, [cpu.random_field.data])
-    assert launches == 5 * cs.PARTICLE_TICKS
+    assert launches == dict(column_query=0,
+                            collide_integrate=cs.PARTICLE_TICKS)
     a, b = cpu.state.position.numpy(), cuda.state.position.cpu().numpy()
     live = a[:, 3] > 0
     np.testing.assert_array_equal(live, b[:, 3] > 0)

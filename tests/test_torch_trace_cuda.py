@@ -13,8 +13,10 @@ the kernels' names select what the card cases compare.
 
 The cell: BASELINE config 4 at 1080p on the voxel flagship's ColumnField
 (`chip_smoke.config4_system`) with every one of its 1,048,576 slots
-live. A tick launches the column query K7 and its map pack; a render the
-additive splat K5 (four kernels after a memset of its tile counts).
+live. A tick launches the collision integrate K4, which samples the
+field itself; the column query K7 and its map pack are launched on the
+cell's positions directly; a render launches the additive splat K5 (four
+kernels after a memset of its tile counts).
 """
 
 import re
@@ -29,6 +31,7 @@ import chip_smoke as cs
 K5 = r"\b(bin|scan|scatter|accumulate)_kernel(<\d+>)?\(.*Splat"
 K7_QUERY = r"\bcolumn_query_kernel\b"
 K7_PACK = r"\bpack_quad_kernel\b"
+K4 = r"\bcollide_integrate_kernel\b"
 TOLERANCE = 0.01
 # The profiler's own event for a buffer of device records: it takes the id
 # of the operator open when the buffer was asked for, and so holds that
@@ -166,17 +169,41 @@ def test_cuda_k5_span_holds_the_splat(cell, kernel):
 
 @pytest.mark.cuda
 def test_cuda_k7_spans_hold_the_column_queries(cell):
-    """A tick on the ColumnField: the spans `k7_column_query` and
-    `k7_column_pack` hold K7's kernels by name within 1%, and
-    `illuminant/particles/tick` (inside `illuminant/particles/update`) holds
-    every device operation of the tick, K7's among them."""
-    spans, ops = _profile(lambda: cell.update(cs.DT))
+    """The fused column query with its unit gradient at the cell's
+    1,048,576 positions on its ColumnField (`columns.query`, which packs
+    the maps and queries them; a tick samples the field inside K4): the
+    spans `k7_column_query` and `k7_column_pack` hold K7's kernels by name
+    within 1%."""
+    from illuminant_tpu_torch.sdf import columns
+
+    pos = cell.state.position
+    spans, ops = _profile(lambda: columns.query(
+        cell.volume, pos[:, 0], pos[:, 1], pos[:, 2], want_grad=True,
+        normalize=True))
     for span_name, pattern in (("k7_column_query", K7_QUERY),
                                ("k7_column_pack", K7_PACK)):
         own = _us([op for op in ops if re.search(pattern, op[0])])
         assert own > 0.0, span_name
         got = spans[f"illuminant/kernel/{span_name}"]
         assert abs(got - own) <= TOLERANCE * own, (span_name, got, own)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_span_holds_the_tick_collision(cell):
+    """A tick on the ColumnField: no column query K7 and no map pack run
+    (K4 samples the field on the pack kept from the first tick), the span
+    `k4_integrate` holds K4's kernel by name within 1%, and
+    `illuminant/particles/tick` (inside `illuminant/particles/update`)
+    holds every device operation of the tick, K4's among them."""
+    spans, ops = _profile(lambda: cell.update(cs.DT))
+    for span_name, pattern in (("k7_column_query", K7_QUERY),
+                               ("k7_column_pack", K7_PACK)):
+        assert not [op for op in ops if re.search(pattern, op[0])]
+        assert f"illuminant/kernel/{span_name}" not in spans
+    own = _us([op for op in ops if re.search(K4, op[0])])
+    assert own > 0.0
+    got = spans["illuminant/kernel/k4_integrate"]
+    assert abs(got - own) <= TOLERANCE * own, (got, own)
     every = _us(ops)
     for stage in ("illuminant/particles/tick", "illuminant/particles/update"):
         assert abs(spans[stage] - every) <= TOLERANCE * every, stage
