@@ -254,6 +254,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -462,40 +463,48 @@ def ptxas_summary(log: str) -> dict:
     return short
 
 
+@functools.lru_cache(maxsize=None)
+def _libraries():
+    """Every kernel library of the port by source name (`Library`), found
+    by importing each of the port's modules."""
+    import importlib
+    import pkgutil
+
+    import illuminant_tpu_torch as pkg
+    from illuminant_tpu_torch.core.cuda_build import Library
+
+    libs = {}
+    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        for v in vars(importlib.import_module(m.name)).values():
+            if isinstance(v, Library):
+                libs[v.source.stem] = v
+    return dict(sorted(libs.items()))
+
+
 def phase_build():
     """Build every kernel library from the checkout's sources, one nvcc
     for each source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from illuminant_tpu_torch.core.cuda_build import BUILD_LOGS
-    from illuminant_tpu_torch.lighting import (cone_trace_kernel,
-                                               scan_walk_kernel,
-                                               tiled_lights_kernel)
-    from illuminant_tpu_torch.particles import integrate_kernel
-    from illuminant_tpu_torch.raster import splat_kernel, tile_kernel
-    from illuminant_tpu_torch.sdf import columns_kernel
 
-    def timed(mod):
+    def timed(lib):
         t0 = time.perf_counter()
-        mod.build()
+        lib.build()
         return time.perf_counter() - t0
 
-    mods = {"column_maps": columns_kernel, "tile_raster": tile_kernel,
-            "tiled_lights": tiled_lights_kernel,
-            "cone_trace": cone_trace_kernel, "splat": splat_kernel,
-            "scan_walk": scan_walk_kernel,
-            "collide_integrate": integrate_kernel}
-    with ThreadPoolExecutor(len(mods)) as pool:
-        secs = dict(zip(mods, pool.map(timed, mods.values())))
-    for name, mod in mods.items():
-        log = BUILD_LOGS.get(mod._LIBRARY, "").strip().replace("\n", " | ")
+    libs = _libraries()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        secs = dict(zip(libs, pool.map(timed, libs.values())))
+    for name, lib in libs.items():
+        log = BUILD_LOGS.get(lib.path, "").strip().replace("\n", " | ")
         extra = {}
         if name == "cone_trace":
             # K12's yardstick: the SASS instructions of each instance's
             # march loop body, and every instance's registers and spills.
             extra = dict(march_loop_sass=json.dumps(
-                march_loop_sass(mod._LIBRARY)), ptxas_all=json.dumps(
-                    ptxas_summary(BUILD_LOGS.get(mod._LIBRARY, ""))))
+                march_loop_sass(lib.path)), ptxas_all=json.dumps(
+                    ptxas_summary(BUILD_LOGS.get(lib.path, ""))))
         say("build", kernel=name, seconds=f"{secs[name]:.2f}",
             ptxas=json.dumps(log[-400:]), **extra)
 
@@ -1091,14 +1100,15 @@ def phase_scan_walk_kernel(rec):
         args, kw = flagship_walk(field)
         occ, lx = args[0], args[1]
         extra, fp = args[5], args[6]
-        k1.LAUNCHES = 0
+        _reset_launches()
         got = k1.scan_walk_cuda(*args, **kw)
+        launches = _launches()["k1_scan_walk"]
         ref, first_ms = timed_once(
             lambda: scan_shadows.scan_walk_reference(*args, **kw))
         torch.cuda.synchronize()
         differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-        if k1.LAUNCHES != 1 or differ:
-            raise AssertionError(f"scan_walk ({field}): {k1.LAUNCHES} "
+        if launches != 1 or differ:
+            raise AssertionError(f"scan_walk ({field}): {launches} "
                                  f"launches, {differ} elements differ from "
                                  "the eager loop")
         n_bytes, n_ops = scan_walk_work(occ, lx.shape[0], fp is not None,
@@ -1169,9 +1179,9 @@ def phase_integrate_kernel(rec):
     for cell in ("flagship", "particles"):
         args, kw = integrate_call(cell)
         state, volume, substeps = args[0], args[3], args[5]
-        k4.LAUNCHES = 0
+        _reset_launches()
         got = k4.integrate_cuda(*args, **kw)
-        launches = k4.LAUNCHES
+        launches = _launches()["k4_integrate"]
         ref = integ.integrate_with_distance_field_reference(*args, **kw)
         torch.cuda.synchronize()
         differ = sum(int((getattr(got, p).view(torch.int32)
@@ -1272,10 +1282,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
     ms_per_frame, the extra frame's K12 calls). K1 launches
     SCAN_WALK_PER_FRAME[name] times a frame."""
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
-    from illuminant_tpu_torch.lighting import scan_walk_kernel as k1
-    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster import splat_kernel as k5
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     dev = scene.device
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1284,18 +1291,15 @@ def phase_slice(name, scene, warmup: int, frames: int):
     torch.cuda.reset_peak_memory_stats()
     img, state, avg = _run_frames(scene, warmup, 0, gen, state, avg)
     torch.cuda.synchronize()
-    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
-    ctk.LAUNCHES = k5.LAUNCHES = k1.LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     SLICE_LAST[name] = (img.clone(), float(avg))
-    launches = dict(column_query=ck.QUERY_LAUNCHES,
-                    column_maps_pack=ck.PACK_LAUNCHES,
-                    column_maps_sample=ck.LAUNCHES,
-                    cone_trace=ctk.LAUNCHES, splat=k5.LAUNCHES,
-                    scan_walk=k1.LAUNCHES, collide_integrate=k4.LAUNCHES)
+    launches = _launches("k7_column_query", "k7_column_pack",
+                         "k7_column_sample", "k12_cone_trace", "k5_splat",
+                         "k1_scan_walk", "k4_integrate")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as k12:
         _, state, avg = _run_frames(scene, 1, warmup + frames, gen, state,
@@ -1321,12 +1325,12 @@ def phase_slice(name, scene, warmup: int, frames: int):
     if not math.isfinite(avg_f):
         raise AssertionError(f"{name}: avg_lum {avg_f}")
     packs = 1 if SLICES[name]["field"] == "voxel" else 0
-    expected = dict(column_query=0, column_maps_pack=packs * frames,
-                    column_maps_sample=0,
-                    cone_trace=K12_PER_FRAME[name] * frames,
-                    splat=k5.LAUNCHES_PER_SPLAT * frames,
-                    scan_walk=SCAN_WALK_PER_FRAME[name] * frames,
-                    collide_integrate=frames)
+    expected = dict(k7_column_query=0, k7_column_pack=packs * frames,
+                    k7_column_sample=0,
+                    k12_cone_trace=K12_PER_FRAME[name] * frames,
+                    k5_splat=k5.LAUNCHES_PER_SPLAT * frames,
+                    k1_scan_walk=SCAN_WALK_PER_FRAME[name] * frames,
+                    k4_integrate=frames)
     if launches != expected:
         raise AssertionError(f"{name}: kernels launched {launches} times in "
                              f"{frames} frames, expected {expected}")
@@ -1343,19 +1347,16 @@ def _small_frames(device, draws, **kw):
     """Three frames of the small flagship on `device` from the same state
     with the given spawn draws -> (images int32, positions, avg_lum,
     fused-query launches, pack launches, K12 launches, K4 launches)."""
-    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
-    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.scenes import build_flagship
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     scene = build_flagship(device=device, **SMALL, **kw)
-    ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = ctk.LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
     img, state, avg = _run_frames(
         scene, 3, 0, None, scene.system.state,
         torch.tensor(0.5, device=device), spawn_uniforms=draws)
     return (img.cpu().numpy().astype(np.int32), state.position.cpu().numpy(),
-            float(avg), ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES, ctk.LAUNCHES,
-            k4.LAUNCHES)
+            float(avg), *_launches("k7_column_query", "k7_column_pack",
+                                   "k12_cone_trace", "k4_integrate").values())
 
 
 def _compare_small(phase, cpu, cuda, **fields):
@@ -1940,7 +1941,6 @@ def phase_slice_renderer(name):
     Returns (ms/frame, the extra frame's last K12 call or None, the pack's
     launches in the timed frames)."""
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     renderer, hdr, move, shadow_mode, budget = _build_renderer(
         name, "cuda", FULL["height"], FULL["width"])
@@ -1950,8 +1950,7 @@ def phase_slice_renderer(name):
         renderer_frame(renderer, hdr, move, n, shadow_mode, budget)
         n += 1
     torch.cuda.synchronize()
-    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
-    ctk.LAUNCHES = ctk.PACK_LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     for _ in range(RENDERER_TIMED_FRAMES):
         image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
@@ -1959,8 +1958,10 @@ def phase_slice_renderer(name):
         torch.cuda.synchronize()
         n += 1
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / RENDERER_TIMED_FRAMES
-    launches = ck.LAUNCHES + ck.QUERY_LAUNCHES + ck.PACK_LAUNCHES
-    k12, packs = ctk.LAUNCHES, ctk.PACK_LAUNCHES
+    counts = _launches()
+    launches = sum(counts[k] for k in ("k7_column_sample", "k7_column_query",
+                                       "k7_column_pack"))
+    k12, packs = counts["k12_cone_trace"], counts["k12_volume_pack"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as spy:
         image, lightmap = renderer_frame(renderer, hdr, move, n, shadow_mode,
@@ -2300,19 +2301,16 @@ def run_small_particles(name, device, draws, random_fields=None):
     K4's}). `random_fields`: the Noise fields to use, one a system (a
     device's generator draws its own)."""
     from illuminant_tpu_torch.ops.noise import RandomField
-    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     systems = small_particle_systems(name, device)
     for system, field in zip(systems, random_fields or ()):
         system.random_field = RandomField(data=field.to(device))
-    ck.QUERY_LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
     for tick in draws:
         for system, d in zip(systems, tick):
             system.tick(DT, spawn_uniforms=d)
-    launches = dict(column_query=ck.QUERY_LAUNCHES,
-                    collide_integrate=k4.LAUNCHES)
+    launches = _launches("k7_column_query", "k4_integrate")
     cfg = TiledRasterConfig(height=PARTICLE_SMALL["height"],
                             width=PARTICLE_SMALL["width"])
     img = sum(s.render(cfg)[0] for s in systems)
@@ -2356,8 +2354,8 @@ def phase_reference_particles():
             image_mean_rel_err=f"{img_err:.2e}",
             **{f"{k}_launches": v for k, v in launches.items()})
         with_field = sum(s.volume is not None for s in cuda)
-        expected = dict(column_query=0,
-                        collide_integrate=PARTICLE_TICKS * with_field)
+        expected = dict(k7_column_query=0,
+                        k4_integrate=PARTICLE_TICKS * with_field)
         if not (live > 0 and same_live and within == 1.0
                 and within_1e3 >= 0.99 and img_err <= 0.01):
             raise AssertionError(f"reference_particles ({name}): the card's "
@@ -2418,16 +2416,13 @@ def phase_slice_particles(field, warmup: int):
     the gates: K4 once a tick (the maps packed before, once), K5 once a
     render, 0 reads. Returns (launches, ms_per_frame, the checked render's
     K5 call)."""
-    from illuminant_tpu_torch.particles import integrate_kernel as k4
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
     from illuminant_tpu_torch.sdf.analytic import scene_sample_p
 
     torch.cuda.reset_peak_memory_stats()
     system, sensor, raster, hdr = _particle_cell(field, warmup)
-    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
-    k5.LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
     tick_ms, render_ms = [], []
     t0 = time.perf_counter()
     for _ in range(PARTICLE_TIMED_FRAMES):
@@ -2442,10 +2437,8 @@ def phase_slice_particles(field, warmup: int):
         tick_ms.append(ev[0].elapsed_time(ev[1]))
         render_ms.append(ev[1].elapsed_time(ev[2]))
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / PARTICLE_TIMED_FRAMES
-    launches = dict(column_query=ck.QUERY_LAUNCHES,
-                    column_maps_pack=ck.PACK_LAUNCHES,
-                    column_maps_sample=ck.LAUNCHES, splat=k5.LAUNCHES,
-                    collide_integrate=k4.LAUNCHES)
+    launches = _launches("k7_column_query", "k7_column_pack",
+                         "k7_column_sample", "k5_splat", "k4_integrate")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads:
         system.update(DT)
@@ -2476,13 +2469,13 @@ def phase_slice_particles(field, warmup: int):
         live_particles=live, peak_mem_gb=f"{peak_gb:.3f}",
         image=f"{img_np.shape}/{img_np.dtype}",
         image_mean=f"{img_np[..., :3].mean():.3f}",
-        column_query_per_tick=launches["column_query"]
+        k7_column_query_per_tick=launches["k7_column_query"]
         / PARTICLE_TIMED_FRAMES,
-        column_maps_pack_per_tick=launches["column_maps_pack"]
+        k7_column_pack_per_tick=launches["k7_column_pack"]
         / PARTICLE_TIMED_FRAMES,
-        column_maps_sample_launches=launches["column_maps_sample"],
-        splat_launches=launches["splat"],
-        collide_integrate_per_tick=launches["collide_integrate"]
+        k7_column_sample_launches=launches["k7_column_sample"],
+        k5_splat_launches=launches["k5_splat"],
+        k4_integrate_per_tick=launches["k4_integrate"]
         / PARTICLE_TIMED_FRAMES, host_reads_per_tick=reads.n,
         host_reads_per_render=render_reads.n, sensor=inside,
         sensor_direct=direct,
@@ -2500,10 +2493,10 @@ def phase_slice_particles(field, warmup: int):
     if warmup >= full // PARTICLE_FULL["spawn_max"] and live != full:
         raise AssertionError(f"slice_particles: {live} live particles after "
                              f"the ring filled, expected {full}")
-    expected = dict(column_query=0, column_maps_pack=0,
-                    column_maps_sample=0,
-                    splat=k5.LAUNCHES_PER_SPLAT * PARTICLE_TIMED_FRAMES,
-                    collide_integrate=PARTICLE_TIMED_FRAMES)
+    expected = dict(k7_column_query=0, k7_column_pack=0,
+                    k7_column_sample=0,
+                    k5_splat=k5.LAUNCHES_PER_SPLAT * PARTICLE_TIMED_FRAMES,
+                    k4_integrate=PARTICLE_TIMED_FRAMES)
     if launches != expected:
         raise AssertionError(f"slice_particles: kernels launched "
                              f"{launches} times in {PARTICLE_TIMED_FRAMES} "
@@ -2755,7 +2748,7 @@ def parent_module(root, name):
         spec.loader.exec_module(mod)
     mod = importlib.import_module(f"{pkg_name}.{name}")
     t0 = time.perf_counter()
-    mod.build()
+    mod.LIBRARY.build()
     say("build", kernel=f"parent {name}", root=json.dumps(root),
         seconds=f"{time.perf_counter() - t0:.2f}")
     return mod
@@ -2967,16 +2960,13 @@ def phase_slice_sprites(field, warmup: int, additive: bool, kernel_rec,
     then one frame under the host-read counter whose kernel call is
     checked against its plain version, and the gates. Returns (launches,
     ms_per_frame)."""
-    from illuminant_tpu_torch.raster import tile_kernel as tk
     from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     name = "slice_additive_sprites" if additive else "slice_alpha_sprites"
     kernel = "sprite_accumulate" if additive else "composite_over_tiles"
     torch.cuda.reset_peak_memory_stats()
     system, raster, hdr, kw = sprite_cell(field, warmup, additive, device)
-    tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
-    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    _reset_launches()
     tick_ms, render_ms = [], []
     t0 = time.perf_counter()
     for _ in range(SPRITE_TIMED_FRAMES):
@@ -2991,11 +2981,9 @@ def phase_slice_sprites(field, warmup: int, additive: bool, kernel_rec,
         tick_ms.append(ev[0].elapsed_time(ev[1]))
         render_ms.append(ev[1].elapsed_time(ev[2]))
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / SPRITE_TIMED_FRAMES
-    launches = dict(composite_over_tiles=tk.COMPOSITE_LAUNCHES,
-                    sprite_accumulate=tk.ACCUMULATE_LAUNCHES,
-                    column_query=ck.QUERY_LAUNCHES,
-                    column_maps_pack=ck.PACK_LAUNCHES,
-                    column_maps_sample=ck.LAUNCHES)
+    launches = _launches("k11a_composite", "k11b_sprite_accumulate",
+                         "k7_column_query", "k7_column_pack",
+                         "k7_column_sample")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as tick_reads:
         system.update(DT)
@@ -3027,9 +3015,9 @@ def phase_slice_sprites(field, warmup: int, additive: bool, kernel_rec,
         host_reads_per_tick=tick_reads.n,
         host_reads_per_render=render_reads.n, max_alpha=alpha_max,
         kernel_vs_plain_max_abs_err=err, tol=tol)
-    expected = dict(composite_over_tiles=0 if additive
-                    else SPRITE_TIMED_FRAMES,
-                    sprite_accumulate=SPRITE_TIMED_FRAMES if additive else 0)
+    expected = dict(k11a_composite=0 if additive else SPRITE_TIMED_FRAMES,
+                    k11b_sprite_accumulate=SPRITE_TIMED_FRAMES if additive
+                    else 0)
     got = {k: launches[k] for k in expected}
     if got != expected:
         raise AssertionError(f"{name}: tile kernels launched {got} times in "
@@ -3175,14 +3163,14 @@ def phase_reference_sprites():
     flip). The splat routes within K11b's bound, 1e-5 of (1 + the image's
     largest value); the warps within 1e-5. Each route launches its kernel
     exactly once on the card."""
-    from illuminant_tpu_torch.raster import tile_kernel as tk
 
     for name, (_, _, kernel) in SPRITE_ROUTES.items():
         cpu = _small_sprite_route(name, "cpu")
-        tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
+        _reset_launches()
         cuda = _small_sprite_route(name, "cuda")
-        launches = dict(composite=tk.COMPOSITE_LAUNCHES,
-                        accumulate=tk.ACCUMULATE_LAUNCHES)
+        counts = _launches()
+        launches = dict(composite=counts["k11a_composite"],
+                        accumulate=counts["k11b_sprite_accumulate"])
         d = np.abs(cuda - cpu)
         flipped = (d > 0.0).any(-1).mean()
         tol = (_add_tolerance(torch.as_tensor(cpu))
@@ -3501,10 +3489,11 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
     expected = dict(
         # Each system's collision is one K4 launch a tick; the field's
         # maps were packed at its first tick.
-        column_query=0, column_maps_pack=0, collide_integrate=system_ticks,
-        column_maps_sample=0, composite_over_tiles=MODEL_TIMED_FRAMES,
-        sprite_accumulate=MODEL_TIMED_FRAMES, tiled_lights_fused=0,
-        cone_trace=0, splat=k5.LAUNCHES_PER_SPLAT * MODEL_TIMED_FRAMES)
+        k7_column_query=0, k7_column_pack=0, k4_integrate=system_ticks,
+        k7_column_sample=0, k11a_composite=MODEL_TIMED_FRAMES,
+        k11b_sprite_accumulate=MODEL_TIMED_FRAMES, k10_tiled_lights=0,
+        k12_cone_trace=0, k12_volume_pack=0, k1_scan_walk=0,
+        k5_splat=k5.LAUNCHES_PER_SPLAT * MODEL_TIMED_FRAMES)
     if launches != expected or system_ticks != 3 * MODEL_TIMED_FRAMES:
         raise AssertionError(f"slice_model: launches {launches} in "
                              f"{system_ticks} system ticks, expected "
@@ -3553,8 +3542,6 @@ def small_model(device, draws=None, random_fields=None):
     Noise fields (one a system; None: the device's own) -> (view, draws,
     fused-query launches, K4 launches)."""
     from illuminant_tpu_torch.ops.noise import RandomField
-    from illuminant_tpu_torch.particles import integrate_kernel as k4
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
 
     h, w = MODEL_SMALL["height"], MODEL_SMALL["width"]
     view = model_view(device, MODEL_SMALL, small_column_field(
@@ -3562,10 +3549,11 @@ def small_model(device, draws=None, random_fields=None):
     for sv, field in zip(view.systems, random_fields or ()):
         sv.system.random_field = RandomField(data=field.to(device))
     draws = draws or model_draws(view, MODEL_TICKS)
-    ck.QUERY_LAUNCHES = k4.LAUNCHES = 0
+    _reset_launches()
     for d in draws:
         view.update(DT, spawn_uniforms=d)
-    return view, draws, ck.QUERY_LAUNCHES, k4.LAUNCHES
+    return view, draws, *_launches("k7_column_query",
+                                   "k4_integrate").values()
 
 
 STATE_FIELDS = ("position", "velocity", "color", "render_color",
@@ -3792,33 +3780,20 @@ def lights_frame(cell, events=None):
 
 
 def _reset_launches():
-    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
-    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
-    from illuminant_tpu_torch.particles import integrate_kernel as k4
-    from illuminant_tpu_torch.raster import splat_kernel as k5
-    from illuminant_tpu_torch.raster import tile_kernel as tk
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
+    from illuminant_tpu_torch.core import cuda_build
 
-    k10.LAUNCHES = ctk.LAUNCHES = k5.LAUNCHES = k4.LAUNCHES = 0
-    tk.COMPOSITE_LAUNCHES = tk.ACCUMULATE_LAUNCHES = 0
-    ck.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    cuda_build.reset_launches()
 
 
-def _launches():
-    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
-    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
-    from illuminant_tpu_torch.particles import integrate_kernel as k4
-    from illuminant_tpu_torch.raster import splat_kernel as k5
-    from illuminant_tpu_torch.raster import tile_kernel as tk
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
+def _launches(*kernels):
+    """The kernel launches since `_reset_launches`, by launch-span name:
+    of `kernels`, or of every hand-written kernel (each library's kernels
+    count from its import)."""
+    from illuminant_tpu_torch.core import cuda_build
 
-    return dict(tiled_lights_fused=k10.LAUNCHES, cone_trace=ctk.LAUNCHES,
-                splat=k5.LAUNCHES, collide_integrate=k4.LAUNCHES,
-                column_query=ck.QUERY_LAUNCHES,
-                column_maps_pack=ck.PACK_LAUNCHES,
-                column_maps_sample=ck.LAUNCHES,
-                composite_over_tiles=tk.COMPOSITE_LAUNCHES,
-                sprite_accumulate=tk.ACCUMULATE_LAUNCHES)
+    _libraries()
+    counts = cuda_build.launches()
+    return {k: counts[k] for k in kernels} if kernels else counts
 
 
 def check_fused_lights(args, kwargs, phase):
@@ -3893,11 +3868,12 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
         host_reads_per_frame=reads.n, dropped=n_dropped,
         window_deficit_px=deficit, kept_entries=kept,
         debug_lists="equal", kernel_vs_plain_max_abs_err=err, tol=tol)
-    expected = dict(tiled_lights_fused=LIGHTS_TIMED_FRAMES,
-                    column_query=0, column_maps_pack=LIGHTS_TIMED_FRAMES,
-                    column_maps_sample=0, composite_over_tiles=0,
-                    sprite_accumulate=0, cone_trace=0, splat=0,
-                    collide_integrate=0)
+    expected = dict(k10_tiled_lights=LIGHTS_TIMED_FRAMES,
+                    k7_column_query=0, k7_column_pack=LIGHTS_TIMED_FRAMES,
+                    k7_column_sample=0, k11a_composite=0,
+                    k11b_sprite_accumulate=0, k12_cone_trace=0,
+                    k12_volume_pack=0, k1_scan_walk=0, k5_splat=0,
+                    k4_integrate=0)
     if launches != expected:
         raise AssertionError(f"slice_particle_lights: launches {launches} "
                              f"in {LIGHTS_TIMED_FRAMES} frames, expected "
@@ -4112,7 +4088,6 @@ def _small_lights(case, device):
     -> (image, dropped, K10 launches): 120 lights from a seed, 20% dead,
     over and past the frame, on a box field."""
     from illuminant_tpu_torch.core.config import QualitySettings
-    from illuminant_tpu_torch.lighting import tiled_lights_kernel as k10
     from illuminant_tpu_torch.lighting.environment import (
         LightingEnvironment, LightObstruction)
     from illuminant_tpu_torch.lighting.gbuffer import flat_ground
@@ -4160,12 +4135,13 @@ def _small_lights(case, device):
         src = dict(method="auto", tile=32, tile_capacity=64)
     elif case == "dense_subset":
         src = dict(method="subset", max_lights=n)
-    before = k10.LAUNCHES
+    before = _launches()["k10_tiled_lights"]
     img, dropped = accumulate_particle_lights(
         field, gb, state,
         ParticleLightSource(template=torch_template(**tpl), **src), env,
         QualitySettings(), return_diagnostics=True)
-    return img.cpu().numpy(), int(dropped), k10.LAUNCHES - before
+    return (img.cpu().numpy(), int(dropped),
+            _launches()["k10_tiled_lights"] - before)
 
 
 LIGHT_CASES = {  # case -> K10 launches on the card
@@ -4340,19 +4316,18 @@ def _mesh_run(scene, state, warmup, frames):
     counted), one frame under the host-read counter; -> (last timed
     image, state, avg_lum after it, ms/frame, K5 launches, host reads of
     the extra frame)."""
-    from illuminant_tpu_torch.raster import splat_kernel as k5
 
     dev = scene.device
     gen = torch.Generator(device=dev).manual_seed(0)
     avg = torch.tensor(0.5, device=dev)
     _, state, avg = _run_frames(scene, warmup, 0, gen, state, avg)
     torch.cuda.synchronize()
-    k5.LAUNCHES = 0
+    _reset_launches()
     t0 = time.perf_counter()
     img, state, avg = _run_frames(scene, frames, warmup, gen, state, avg)
     torch.cuda.synchronize()
     ms = 1000.0 * (time.perf_counter() - t0) / frames
-    launches = k5.LAUNCHES
+    launches = _launches()["k5_splat"]
     img, avg_f = img.clone(), float(avg)
     with HostReads() as reads:
         _, state, _ = _run_frames(scene, 1, warmup + frames, gen, state, avg)
@@ -4517,10 +4492,10 @@ def phase_mesh_bands(inputs, device="cuda"):
                 sends, counts, _, _ = _route_all(cfg, d, args, factor)
             budget = sends.shape[2]
             recvs = sends.transpose(0, 1).reshape(d, d * budget, 8)
-            k5.LAUNCHES = 0
+            _reset_launches()
             bands = [praster.raster_band(cfg, d, r, recvs[r])
                      for r in range(d)]
-            launches = k5.LAUNCHES
+            launches = _launches()["k5_splat"]
             with_rows = sum(1 for b in bands if b.shape[0])
             band_err = band_tol = 0.0
             nbytes = ops = plain_ms = 0.0
@@ -4750,7 +4725,7 @@ def main(argv=None) -> int:
         PARENT["cone_trace"] = parent_module(args.parent,
                                              "lighting.cone_trace_kernel")
         say("build", kernel="parent cone_trace", march_loop_sass=json.dumps(
-            march_loop_sass(PARENT["cone_trace"]._LIBRARY)))
+            march_loop_sass(PARENT["cone_trace"].LIBRARY.path)))
     launches, frame_ms = {}, {}
     for name, kw in SLICES.items():
         if name == "slice_family":
@@ -4857,41 +4832,42 @@ def main(argv=None) -> int:
     # the tile kernels' "launches" count their sprite cell's timed
     # renders, their times are at that cell's steady 131,072 particles;
     # K10's count that cell's frames, its time is on its last frame.
-    rows = [("column_query", "illuminant_tpu/sdf/columns_pallas.py:78",
-             kernel["query", True]),
-            ("column_maps_sample", "illuminant_tpu/sdf/columns_pallas.py:78",
+    rows = [("column_query", "k7_column_query",
+             "illuminant_tpu/sdf/columns_pallas.py:78", kernel["query", True]),
+            ("column_maps_sample", "k7_column_sample",
+             "illuminant_tpu/sdf/columns_pallas.py:78",
              kernel["sample", True]),
-            ("column_maps_pack", "illuminant_tpu/sdf/columns_pallas.py:108",
-             kernel["pack"])]
+            ("column_maps_pack", "k7_column_pack",
+             "illuminant_tpu/sdf/columns_pallas.py:108", kernel["pack"])]
     kernels = [{
         "name": name,
         "route": "cuda",
         "source": "illuminant_tpu_torch/csrc/column_maps.cu",
         "replaces": replaces,
-        "launches": launches["slice"][name],
-        "launches_particles": particle_launches[name],
-        "launches_sprites": sprite_launches[False][name],
-        "launches_particle_lights": light_launches[name],
-        "launches_model": model_launches[name],
+        "launches": launches["slice"][span],
+        "launches_particles": particle_launches[span],
+        "launches_sprites": sprite_launches[False][span],
+        "launches_particle_lights": light_launches[span],
+        "launches_model": model_launches[span],
         "max_abs_err": r["err"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0],
         "bound_by": r["bound"][1],
         "library_ms": r.get("library_ms"),
-    } for name, replaces, r in rows]
-    for name, replaces, key, additive in (
-            ("composite_over_tiles", "illuminant_tpu/raster/tiled.py:749",
-             "composite", False),
-            ("sprite_accumulate", "illuminant_tpu/raster/sprites.py:344",
-             "accumulate", True)):
+    } for name, span, replaces, r in rows]
+    for name, span, replaces, key, additive in (
+            ("composite_over_tiles", "k11a_composite",
+             "illuminant_tpu/raster/tiled.py:749", "composite", False),
+            ("sprite_accumulate", "k11b_sprite_accumulate",
+             "illuminant_tpu/raster/sprites.py:344", "accumulate", True)):
         r = kernel[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "illuminant_tpu_torch/csrc/tile_raster.cu",
             "replaces": replaces,
-            "launches": sprite_launches[additive][name],
-            "launches_model": model_launches[name],
+            "launches": sprite_launches[additive][span],
+            "launches_model": model_launches[span],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None})
@@ -4900,7 +4876,7 @@ def main(argv=None) -> int:
         "name": "tiled_lights_fused", "route": "cuda",
         "source": "illuminant_tpu_torch/csrc/tiled_lights.cu",
         "replaces": "illuminant_tpu/lighting/tiled_lights.py:123",
-        "launches": light_launches["tiled_lights_fused"],
+        "launches": light_launches["k10_tiled_lights"],
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": None})
@@ -4913,22 +4889,22 @@ def main(argv=None) -> int:
             ("scan_walk", "illuminant_tpu_torch/csrc/scan_walk.cu",
              "illuminant_tpu/lighting/scan_shadows.py:150",
              kernel["scan_walk_analytic"],
-             dict(launches=launches["slice_analytic"]["scan_walk"],
-                  launches_voxel=launches["slice"]["scan_walk"],
-                  launches_family=launches["slice_family"]["scan_walk"])),
+             dict(launches=launches["slice_analytic"]["k1_scan_walk"],
+                  launches_voxel=launches["slice"]["k1_scan_walk"],
+                  launches_family=launches["slice_family"]["k1_scan_walk"])),
             ("cone_trace", "illuminant_tpu_torch/csrc/cone_trace.cu",
              "illuminant_tpu/lighting/cone_trace.py:42",
              kernel["cone_trace_family"],
-             dict(launches=launches["slice_family_march"]["cone_trace"],
-                  launches_family=launches["slice_family"]["cone_trace"])),
+             dict(launches=launches["slice_family_march"]["k12_cone_trace"],
+                  launches_family=launches["slice_family"]["k12_cone_trace"])),
             ("volume_pack", "illuminant_tpu_torch/csrc/cone_trace.cu",
              "illuminant_tpu/lighting/cone_trace.py:42",
              kernel["volume_pack"], dict(launches=pack_launches)),
             ("splat", "illuminant_tpu_torch/csrc/splat.cu",
              "illuminant_tpu/raster/tiled.py:589", kernel["splat_flagship"],
-             dict(launches=launches["slice"]["splat"],
-                  launches_particles=particle_launches["splat"],
-                  launches_model=model_launches["splat"],
+             dict(launches=launches["slice"]["k5_splat"],
+                  launches_particles=particle_launches["k5_splat"],
+                  launches_model=model_launches["k5_splat"],
                   launches_mesh=mesh_launches)),
             # K4 at the flagship cell's integrate call (the analytic
             # field, one substep); the particle cell's (the ColumnField,
@@ -4937,10 +4913,10 @@ def main(argv=None) -> int:
              "collide_integrate.cu",
              "illuminant_tpu/particles/integrate.py:95",
              kernel["collide_integrate_flagship"],
-             dict(launches=launches["slice_analytic"]["collide_integrate"],
-                  launches_voxel=launches["slice"]["collide_integrate"],
-                  launches_particles=particle_launches["collide_integrate"],
-                  launches_model=model_launches["collide_integrate"],
+             dict(launches=launches["slice_analytic"]["k4_integrate"],
+                  launches_voxel=launches["slice"]["k4_integrate"],
+                  launches_particles=particle_launches["k4_integrate"],
+                  launches_model=model_launches["k4_integrate"],
                   ms_particles=kernel["collide_integrate_particles"]["ms"],
                   plain_ms_particles=kernel[
                       "collide_integrate_particles"]["plain_ms"],

@@ -589,7 +589,7 @@ const void* instance_fn(int instance) {
 // `instance`: field kind * kVariants + the substeps variant.
 extern "C" int collide_integrate(const void* const* ptrs,
                                  const long long* ints, const float* floats,
-                                 void* stream, int instance) {
+                                 int instance, void* stream) {
   const void* fn = instance_fn(instance);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   Particles p;

@@ -333,7 +333,7 @@ Strided strided(const void* ptr, const long long* s) {
 // shared memory.
 extern "C" int cone_trace(const void* const* ptrs, const long long* strides,
                           const long long* ints, const float* floats,
-                          void* stream, int instance) {
+                          int instance, void* stream) {
   Rays r;
   r.center = strided(ptrs[0], strides + 0);
   r.radius = strided(ptrs[1], strides + 3);

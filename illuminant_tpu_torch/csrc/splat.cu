@@ -590,7 +590,7 @@ unsigned int blocks_for(long long n) {
 //       chunk, batch (at most kThreads), taps, direct, lanes.
 // Four launches on `stream`; `launched` gets how many were made.
 extern "C" int splat(const void* const* ptrs, const long long* strides,
-                     const long long* ints, void* stream, int* launched) {
+                     const long long* ints, int* launched, void* stream) {
   *launched = 0;
   Splat s;
   s.x = (const float*)ptrs[0];

@@ -35,15 +35,20 @@ import ctypes
 import torch
 
 from ..core import cuda_build
-from ..core.trace import launch
 from ..core.config import QualitySettings
 from ..sdf import columns, columns_kernel
 from ..sdf.analytic import AnalyticScene
 from ..sdf.columns import ColumnField
 from ..sdf.volume import SdfVolume
 
-_SOURCE = cuda_build.CSRC / "cone_trace.cu"
-_LIBRARY = cuda_build.library_path(_SOURCE)
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_i64p = ctypes.POINTER(ctypes.c_longlong)
+LIBRARY = cuda_build.Library("cone_trace.cu", {
+    "cone_trace": [ctypes.POINTER(ctypes.c_void_p), _i64p, _i64p,
+                   ctypes.POINTER(ctypes.c_float), _i32, _ptr],
+    "cone_trace_pack_volume": [_ptr, _i32, _i32, _i32, _ptr, _ptr],
+    "cone_trace_plan": [_i32, _i32, ctypes.POINTER(ctypes.c_int)]},
+    ["k12_cone_trace", "k12_volume_pack"])
 
 # The field kinds of the source's table.
 FIELD_KINDS = {SdfVolume: 0, AnalyticScene: 1, ColumnField: 2}
@@ -60,35 +65,6 @@ ANALYTIC_SMEM_MAX = 48 * 1024
 PRIMITIVE_RECORD = 12
 # The order of the per-ray arguments in the source's stride table.
 RAY_ARGS = ("center", "radius", "ramp", "origin", "enable")
-
-# Launches since import (or since a caller reset it): the wrapper adds one
-# where it launches the march and nowhere else; PACK_LAUNCHES counts the
-# volume packs (`packed_volume`).
-LAUNCHES = 0
-PACK_LAUNCHES = 0
-
-_lib = None
-
-
-def build():
-    """Compile csrc/cone_trace.cu unless an up-to-date library is there."""
-    return cuda_build.build(_SOURCE, _LIBRARY)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        ptr = ctypes.c_void_p
-        i64p = ctypes.POINTER(ctypes.c_longlong)
-        intp = ctypes.POINTER(ctypes.c_int)
-        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
-            "cone_trace": [ctypes.POINTER(ctypes.c_void_p), i64p, i64p,
-                           ctypes.POINTER(ctypes.c_float), ptr,
-                           ctypes.c_int],
-            "cone_trace_pack_volume": [ptr, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ptr, ptr],
-            "cone_trace_plan": [ctypes.c_int, ctypes.c_int, intp]})
-    return _lib
 
 
 def _ray_view(t, shape, lights: int, points: int, vec: bool):
@@ -153,7 +129,6 @@ def pack_volume_reference(data):
 def pack_volume(data):
     """One launch of the source's pack: `pack_volume_reference(data)` on
     the card, (S, H, W, 4) float32. CUDA tensors only."""
-    global PACK_LAUNCHES
     if data.device.type != "cuda" or data.dtype != torch.float32 or \
             data.dim() != 3 or not data.is_contiguous():
         raise ValueError("pack_volume: a contiguous (S, H, W) float32 CUDA "
@@ -162,12 +137,8 @@ def pack_volume(data):
         raise ValueError(f"pack_volume: {data.numel()} elements reach 2^31")
     out = torch.empty(tuple(data.shape) + (4,), dtype=torch.float32,
                       device=data.device)
-    with launch("k12_volume_pack"), torch.cuda.device(data.device):
-        err = _library().cone_trace_pack_volume(
-            data.data_ptr(), *data.shape, out.data_ptr(),
-            torch.cuda.current_stream(data.device).cuda_stream)
-    cuda_build.check(err, "cone_trace_pack_volume")
-    PACK_LAUNCHES += 1
+    LIBRARY.launch("k12_volume_pack", "cone_trace_pack_volume", data.device,
+                   data.data_ptr(), *data.shape, out.data_ptr())
     return out
 
 
@@ -319,7 +290,6 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
     float32). CUDA tensors only; a ColumnField's maps are packed once a
     new set of maps (`columns_kernel.packed`, one launch), an SdfVolume's
     taps at the first march on it (`packed_volume`, one launch)."""
-    global LAUNCHES
     plan = launch_plan(volume, light_center, light_radius, light_ramp_length,
                        shaded_position, enable, quality, raw)
     dev = shaded_position.device
@@ -347,12 +317,8 @@ def cone_trace_cuda(volume, light_center, light_radius, light_ramp_length,
     strides = (ctypes.c_longlong * len(stride_list))(*stride_list)
     ints = (ctypes.c_longlong * len(plan["ints"]))(*plan["ints"])
     floats = (ctypes.c_float * len(plan["floats"]))(*plan["floats"])
-    with launch("k12_cone_trace"), torch.cuda.device(dev):
-        err = _library().cone_trace(
-            ptrs, strides, ints, floats,
-            torch.cuda.current_stream(dev).cuda_stream, plan["instance"])
-    cuda_build.check(err, "cone_trace")
-    LAUNCHES += 1
+    LIBRARY.launch("k12_cone_trace", "cone_trace", dev, ptrs, strides, ints,
+                   floats, plan["instance"])
     return (out, steps) if with_steps else out
 
 
@@ -365,8 +331,7 @@ def block_plan(volume) -> dict:
     smem = analytic_smem_bytes(f_ints) \
         if instance == INSTANCES["analytic"] else 0
     out = (ctypes.c_int * 4)()
-    cuda_build.check(_library().cone_trace_plan(instance, smem, out),
-                     "cone_trace_plan")
+    LIBRARY.call("cone_trace_plan", instance, smem, out)
     name = next(k for k, v in INSTANCES.items() if v == instance)
     return dict(instance=name, smem_bytes=smem,
                 **dict(zip(("threads", "registers", "spill_bytes",

@@ -26,11 +26,14 @@ import ctypes
 import torch
 
 from ..core import cuda_build
-from ..core.trace import launch
 from .scan_shadows import _BIG, _BOT_FILL, _TOP_FILL
 
-_SOURCE = cuda_build.CSRC / "scan_walk.cu"
-_LIBRARY = cuda_build.library_path(_SOURCE)
+LIBRARY = cuda_build.Library("scan_walk.cu", {
+    "scan_walk": [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_float),
+                                          ctypes.c_void_p],
+    "scan_walk_plan": [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]}, ["k1_scan_walk"])
 
 # The source's limits: a block of at most 1,024 threads, a thread 1, 2 or
 # 4 consecutive rows of the walk (the instances), the columns staged 8, 4,
@@ -40,29 +43,6 @@ MAX_THREADS = 1024
 ROWS_PER_THREAD = (1, 2, 4)
 TILE_COLS = (8, 4, 2, 1)
 SMEM_MAX = 232448
-
-# Launches since import (or since a caller reset it): the wrapper adds one
-# where it launches the kernel and nowhere else.
-LAUNCHES = 0
-
-_lib = None
-
-
-def build():
-    """Compile csrc/scan_walk.cu unless an up-to-date library is there."""
-    return cuda_build.build(_SOURCE, _LIBRARY)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        ptr = ctypes.c_void_p
-        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
-            "scan_walk": [ptr] * 8 + [ctypes.POINTER(ctypes.c_int),
-                                      ctypes.POINTER(ctypes.c_float), ptr],
-            "scan_walk_plan": [ctypes.c_int, ctypes.c_int,
-                               ctypes.POINTER(ctypes.c_int)]})
-    return _lib
 
 
 def _padded_rows(rows: int) -> int:
@@ -121,7 +101,6 @@ def scan_walk_cuda(occ, light_x, light_y, light_radius, exit_band: float,
     light_y with near-skip radius light_radius (L,), the arguments as
     `scan_shadows.scan_walk`'s -> (4, C, L, H, W) float32, east, west,
     north, south. CUDA tensors only."""
-    global LAUNCHES
     h, w = occ.shape
     n_lights = light_x.shape[0]
     plan = launch_plan(h, w, n_lights, footprint is not None, bool(extra))
@@ -154,13 +133,10 @@ def scan_walk_cuda(occ, light_x, light_y, light_radius, exit_band: float,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with launch("k1_scan_walk"), torch.cuda.device(dev):
-        err = _library().scan_walk(
-            ptr(occ_c), ptr(foot_c), ptr(top_c), ptr(bot_c),
-            *(t.data_ptr() for t in lights), out.data_ptr(), ints, floats,
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "scan_walk")
-    LAUNCHES += 1
+    LIBRARY.launch("k1_scan_walk", "scan_walk", dev, ptr(occ_c),
+                   ptr(foot_c), ptr(top_c), ptr(bot_c),
+                   *(t.data_ptr() for t in lights), out.data_ptr(), ints,
+                   floats)
     return out
 
 
@@ -170,8 +146,6 @@ def block_plan(height: int, width: int, lights: int, footprint: bool = False,
     spilled bytes a thread and the most threads a block may take."""
     plan = launch_plan(height, width, lights, footprint, extra)
     out = (ctypes.c_int * 3)()
-    cuda_build.check(_library().scan_walk_plan(plan["instance"],
-                                               plan["smem_bytes"], out),
-                     "scan_walk_plan")
+    LIBRARY.call("scan_walk_plan", plan["instance"], plan["smem_bytes"], out)
     return dict(plan, registers=out[0], spill_bytes=out[1],
                 max_threads=out[2])

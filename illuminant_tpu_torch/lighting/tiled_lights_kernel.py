@@ -33,14 +33,16 @@ import torch
 import torch.nn.functional as F
 
 from ..core import cuda_build
-from ..core.trace import launch
 from ..core.upload import upload
 from ..sdf import columns, columns_kernel
 from ..sdf.analytic import scene_sample_p
 from .sphere import _saturate
 
-_SOURCE = cuda_build.CSRC / "tiled_lights.cu"
-_LIBRARY = cuda_build.library_path(_SOURCE)
+LIBRARY = cuda_build.Library("tiled_lights.cu", {
+    "tiled_lights": [ctypes.c_void_p] * 17,
+    "tiled_lights_plan": [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)]},
+    ["k10_tiled_lights"])
 # The kernel's limits: a tile's pixels are a loop of its block; its kept
 # slots (36 B each), its candidate offsets' counters (12 B each) and two
 # chunk lists of 256 ints are in shared memory, at most 198,656 B together
@@ -57,12 +59,6 @@ SKIP_MARGIN = 2.0 ** -12
 DOT_OFFSET = 0.15  # LightCommon.fxh:1-10
 DOT_RAMP_RANGE = 0.15
 DOT_EXPONENT = 0.85
-
-# Launches since import (or since a caller reset it): the wrapper adds one
-# where it launches the kernel and nowhere else.
-LAUNCHES = 0
-
-_lib = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,22 +114,6 @@ class Shading:
         return self.support * (1.0 + SKIP_MARGIN)
 
 
-def build():
-    """Compile csrc/tiled_lights.cu unless an up-to-date library is there."""
-    return cuda_build.build(_SOURCE, _LIBRARY)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        ptr = ctypes.c_void_p
-        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
-            "tiled_lights": [ptr] * 17,
-            "tiled_lights_plan": [ctypes.c_int, ctypes.c_int,
-                                  ctypes.POINTER(ctypes.c_int)]})
-    return _lib
-
-
 def check_sizes(sh: Shading):
     """Raise unless the kernel takes the tile, the capacity and the
     candidate window of `sh`."""
@@ -153,9 +133,7 @@ def launch_plan(sh: Shading) -> dict:
     registers and spilled bytes a thread."""
     check_sizes(sh)
     out = (ctypes.c_int * 5)()
-    cuda_build.check(_library().tiled_lights_plan(sh.capacity, sh.offsets,
-                                                  out),
-                     "tiled_lights_plan")
+    LIBRARY.call("tiled_lights_plan", sh.capacity, sh.offsets, out)
     return dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
                      "spill_bytes"), out))
 
@@ -523,7 +501,6 @@ def tiled_lights_fused(z, relative_y, normal, factor, position, color,
     a CUDA tensor launches
     K10 on the current stream (after the ColumnField's map pack and the
     zeroing of the two diagnostics), or raises."""
-    global LAUNCHES
     _check(z, relative_y, normal, factor, position, color, active,
            light_occlusion)
     if mode not in FACTOR_MODES or (mode == "column_ao") != (
@@ -581,20 +558,16 @@ def tiled_lights_fused(z, relative_y, normal, factor, position, color,
         kept = torch.full((n_tiles, sh.capacity), -1, dtype=torch.int32,
                           device=dev)
         count = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    with launch("k10_tiled_lights"), torch.cuda.device(dev):
-        err = _library().tiled_lights(
-            z.data_ptr(), relative_y.data_ptr(), normal.data_ptr(),
-            factor.data_ptr(), position.data_ptr(), color.data_ptr(),
-            active.data_ptr(), light_occlusion.data_ptr(),
-            None if pack is None else pack.data_ptr(), out.data_ptr(),
-            diag.data_ptr(), None if kept is None else kept.data_ptr(),
-            None if count is None else count.data_ptr(),
-            ctypes.cast(ints, ctypes.c_void_p),
-            ctypes.cast(floats, ctypes.c_void_p),
-            None if geometry is None else ctypes.cast(geometry,
-                                                      ctypes.c_void_p),
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(err, "tiled_lights")
-    LAUNCHES += 1
+    LIBRARY.launch(
+        "k10_tiled_lights", "tiled_lights", dev,
+        z.data_ptr(), relative_y.data_ptr(), normal.data_ptr(),
+        factor.data_ptr(), position.data_ptr(), color.data_ptr(),
+        active.data_ptr(), light_occlusion.data_ptr(),
+        None if pack is None else pack.data_ptr(), out.data_ptr(),
+        diag.data_ptr(), None if kept is None else kept.data_ptr(),
+        None if count is None else count.data_ptr(),
+        ctypes.cast(ints, ctypes.c_void_p),
+        ctypes.cast(floats, ctypes.c_void_p),
+        None if geometry is None else ctypes.cast(geometry, ctypes.c_void_p))
     result = (out, diag[0], diag[1:].view(torch.float32)[0])
     return result + (kept, count) if debug else result

@@ -31,7 +31,6 @@ import ctypes
 import torch
 
 from ..core import cuda_build
-from ..core.trace import launch
 from ..lighting.cone_trace_kernel import analytic_records
 from ..sdf import columns, columns_kernel
 from ..sdf.analytic import AnalyticScene
@@ -39,8 +38,14 @@ from ..sdf.columns import ColumnField
 from .render_data import RenderDataUniforms
 from .state import ParticleState, SystemUniforms
 
-_SOURCE = cuda_build.CSRC / "collide_integrate.cu"
-_LIBRARY = cuda_build.library_path(_SOURCE)
+LIBRARY = cuda_build.Library("collide_integrate.cu", {
+    "collide_integrate": [ctypes.POINTER(ctypes.c_void_p),
+                          ctypes.POINTER(ctypes.c_longlong),
+                          ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                          ctypes.c_void_p],
+    "collide_integrate_plan": [ctypes.c_int, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)]},
+    ["k4_integrate"])
 
 # The source's field kinds (its Kind enum); an instance is kind *
 # VARIANTS + the substeps' variant: the count for 0 to MAX_SUBSTEPS
@@ -79,32 +84,6 @@ BEZIERS = ("color_from_life", "color_from_velocity", "size_from_life",
 # Bytes a slot moves: position, velocity and colour rows read, position,
 # velocity, render colour and render data rows written.
 BYTES_PER_SLOT = 7 * 16
-
-# Launches since import (or since a caller reset it): the wrapper adds one
-# where it launches the kernel and nowhere else.
-LAUNCHES = 0
-
-_lib = None
-
-
-def build():
-    """Compile csrc/collide_integrate.cu unless an up-to-date library is
-    there."""
-    return cuda_build.build(_SOURCE, _LIBRARY)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        ptr = ctypes.c_void_p
-        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
-            "collide_integrate": [ctypes.POINTER(ctypes.c_void_p),
-                                  ctypes.POINTER(ctypes.c_longlong),
-                                  ctypes.POINTER(ctypes.c_float), ptr,
-                                  ctypes.c_int],
-            "collide_integrate_plan": [ctypes.c_int, ctypes.c_int,
-                                       ctypes.POINTER(ctypes.c_int)]})
-    return _lib
 
 
 def takes(device, volume) -> bool:
@@ -251,7 +230,6 @@ def integrate_cuda(state: ParticleState, su: SystemUniforms,
     `integrate_with_distance_field` with its arguments (see there). CUDA
     tensors only; a ColumnField's maps are packed once a new set of maps
     (`columns_kernel.packed`, one launch)."""
-    global LAUNCHES
     n = state.capacity
     plan = launch_plan(n, volume, int(substeps), maximum_z, first_slot)
     dev = state.position.device
@@ -283,12 +261,8 @@ def integrate_cuda(state: ParticleState, su: SystemUniforms,
         ptrs = (ctypes.c_void_p * len(ptr_list))(*ptr_list)
         ints = (ctypes.c_longlong * len(int_list))(*int_list)
         floats = (ctypes.c_float * len(float_list))(*float_list)
-        with launch("k4_integrate"), torch.cuda.device(dev):
-            err = _library().collide_integrate(
-                ptrs, ints, floats, torch.cuda.current_stream(dev).cuda_stream,
-                plan["instance"])
-        cuda_build.check(err, "collide_integrate")
-        LAUNCHES += 1
+        LIBRARY.launch("k4_integrate", "collide_integrate", dev, ptrs, ints,
+                       floats, plan["instance"])
     new_pos, new_vel, render_color, render_data = outs
     return state.replace(position=new_pos, velocity=new_vel,
                          render_color=render_color, render_data=render_data)
@@ -300,8 +274,8 @@ def block_plan(volume, substeps: int = 1) -> dict:
     bytes a thread, resident blocks an SM."""
     plan = launch_plan(1, volume, substeps)
     out = (ctypes.c_int * 4)()
-    cuda_build.check(_library().collide_integrate_plan(
-        plan["instance"], plan["smem_bytes"], out), "collide_integrate_plan")
+    LIBRARY.call("collide_integrate_plan", plan["instance"],
+                 plan["smem_bytes"], out)
     kind = next(k for k, v in FIELD_KINDS.items() if v == plan["kind"])
     return dict(instance=f"{kind}/{substeps}", smem_bytes=plan["smem_bytes"],
                 **dict(zip(("threads", "registers", "spill_bytes",

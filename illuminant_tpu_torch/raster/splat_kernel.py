@@ -28,11 +28,13 @@ import numpy as np
 import torch
 
 from ..core import cuda_build
-from ..core.trace import launch
 from . import tiled
 
-_SOURCE = cuda_build.CSRC / "splat.cu"
-_LIBRARY = cuda_build.library_path(_SOURCE)
+_i64p, _intp = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
+LIBRARY = cuda_build.Library("splat.cu", {
+    "splat": [ctypes.POINTER(ctypes.c_void_p), _i64p, _i64p, _intp,
+              ctypes.c_void_p],
+    "splat_plan": [ctypes.c_int] * 4 + [_intp]}, ["k5_splat"])
 
 # The source's Kind.
 KERNELS = {"point": 0, "quad": 1, "gauss": 2, "round": 3}
@@ -57,29 +59,6 @@ THREADS = 256
 BATCH_SMEM_BYTES = 56 * 1024
 # Dynamic shared memory a block can use on an H100.
 MAX_SMEM_BYTES = 232448
-
-# Kernel launches since import (or since a caller reset it): the wrapper
-# adds one for each kernel it launches and nowhere else.
-LAUNCHES = 0
-
-_lib = None
-
-
-def build():
-    """Compile csrc/splat.cu unless an up-to-date library is there."""
-    return cuda_build.build(_SOURCE, _LIBRARY)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        i64p = ctypes.POINTER(ctypes.c_longlong)
-        intp = ctypes.POINTER(ctypes.c_int)
-        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
-            "splat": [ctypes.POINTER(ctypes.c_void_p), i64p, i64p,
-                      ctypes.c_void_p, intp],
-            "splat_plan": [ctypes.c_int] * 4 + [intp]})
-    return _lib
 
 
 def support_taps(kernel: str, radius):
@@ -196,7 +175,6 @@ def splat_cuda(cfg, x, y, color, size, live, debug: bool = False):
     (`debug`: and the bins the kernels made: `counts`, `offsets` and
     `chunk_offsets` as `bin_plan` gives them). CUDA tensors only; views of
     any stride are read in place."""
-    global LAUNCHES
     plan = launch_plan(cfg, x, y, color, size, live)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev
@@ -217,13 +195,8 @@ def splat_cuda(cfg, x, y, color, size, live, debug: bool = False):
     ptrs = (ctypes.c_void_p * len(ptr_list))(*ptr_list)
     strides = (ctypes.c_longlong * 6)(*plan["strides"])
     ints = (ctypes.c_longlong * len(plan["ints"]))(*plan["ints"])
-    launched = ctypes.c_int(0)
-    with launch("k5_splat"), torch.cuda.device(dev):
-        err = _library().splat(ptrs, strides, ints,
-                               torch.cuda.current_stream(dev).cuda_stream,
-                               ctypes.byref(launched))
-    LAUNCHES += launched.value
-    cuda_build.check(err, "splat")
+    LIBRARY.launch("k5_splat", "splat", dev, ptrs, strides, ints,
+                   reports=True)
     return (img, _bins_view(bins, plan)) if debug else img
 
 
@@ -240,9 +213,8 @@ def block_plan(cfg) -> dict:
     an SM, and the particles of its chunk and of a batch."""
     batch, taps = batch_size(cfg), profile_taps(cfg)
     out = (ctypes.c_int * 5)()
-    cuda_build.check(_library().splat_plan(
-        batch, taps, cfg.tile + 2 * cfg.apron, cfg.channels, out),
-        "splat_plan")
+    LIBRARY.call("splat_plan", batch, taps, cfg.tile + 2 * cfg.apron,
+                 cfg.channels, out)
     return dict(zip(("threads", "smem_bytes", "registers", "spill_bytes",
                      "blocks_per_sm"), out), chunk=chunk_size(cfg),
                 batch=batch,

@@ -34,14 +34,18 @@ import ctypes
 import torch
 
 from ..core import cuda_build
-from ..core.trace import launch
-# Read by tools/torch_tile_study.py, which builds variants of the source.
-from ..core.cuda_build import NVCC_FLAGS, nvcc as _nvcc  # noqa: F401
 from .tiled import (KERNEL_GAUSS, KERNEL_POINT, KERNEL_QUAD, KERNEL_ROUND,
                     TiledRasterConfig, _profile)
 
-_SOURCE = cuda_build.CSRC / "tile_raster.cu"
-_LIBRARY = cuda_build.library_path(_SOURCE)
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+LIBRARY = cuda_build.Library("tile_raster.cu", {
+    "tile_composite": [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr,
+                       _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _ptr],
+    "tile_accumulate": [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _ptr,
+                        ctypes.c_longlong, _ptr, _i32, _i32, _i32, _i32,
+                        _i32, _ptr],
+    "tile_plan": [_i32, _i32, _i32, _i32, ctypes.POINTER(ctypes.c_int)]},
+    ["k11a_composite", "k11b_sprite_accumulate"])
 # The kernels' coverage kinds, in the source's `Kind` order.
 KINDS = {KERNEL_QUAD: 0, KERNEL_GAUSS: 1, KERNEL_ROUND: 2, KERNEL_POINT: 4}
 SPRITE = 3
@@ -53,31 +57,6 @@ CODE_BITS = 4
 MAX_ACCUMULATE_PARTICLES = 1 << (31 - CODE_BITS)
 _BAYER = ((0, 8, 2, 10), (12, 4, 14, 6), (3, 11, 1, 9), (15, 7, 13, 5))
 
-# Launches since import (or since a caller reset them): each wrapper adds
-# one where it launches its kernel and nowhere else.
-COMPOSITE_LAUNCHES = 0   # composite_over_tiles (K11a)
-ACCUMULATE_LAUNCHES = 0  # sprite_accumulate (K11b)
-_lib = None
-
-
-def build():
-    """Compile csrc/tile_raster.cu unless an up-to-date library is there."""
-    return cuda_build.build(_SOURCE, _LIBRARY)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
-            "tile_composite": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
-                               ptr, i32, i32, i32, i32, i32, i32, ptr],
-            "tile_accumulate": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
-                                ctypes.c_longlong, ptr, i32, i32, i32, i32,
-                                i32, ptr],
-            "tile_plan": [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]})
-    return _lib
-
 
 def launch_plan(accumulate: bool, tile: int, ranks: int,
                 table_floats: int) -> dict:
@@ -87,8 +66,8 @@ def launch_plan(accumulate: bool, tile: int, ranks: int,
     bytes, resident blocks an SM, registers and spilled bytes a thread.
     `table_floats`: 2 x B x R x S of a sprite table, 0 for a profile."""
     out = (ctypes.c_int * 7)()
-    cuda_build.check(_library().tile_plan(int(accumulate), tile, ranks,
-                                          table_floats, out), "tile_plan")
+    LIBRARY.call("tile_plan", int(accumulate), tile, ranks, table_floats,
+                 out)
     return dict(zip(("threads", "chunk", "table_floats", "smem_bytes",
                      "blocks_per_sm", "registers", "spill_bytes"), out))
 
@@ -246,7 +225,6 @@ def composite_over_tiles(cfg: TiledRasterConfig, bins, records, coverage,
     sprite table's (row_factors, col_factors). `dither`: the 4 x 4 Bayer
     discard (fx:158-175). A CPU tensor runs the plain version; a CUDA
     tensor launches K11a on the current stream, or raises."""
-    global COMPOSITE_LAUNCHES
     sprite = not isinstance(coverage, str)
     if not sprite and coverage not in KINDS:
         raise ValueError(f"unknown kernel {coverage!r}")
@@ -270,16 +248,13 @@ def composite_over_tiles(cfg: TiledRasterConfig, bins, records, coverage,
     out = torch.empty((cfg.height, cfg.width, 4), dtype=torch.float32,
                       device=records.device)
     b, r, s = rows.shape if sprite else (1, 1, 1)
-    with launch("k11a_composite"), torch.cuda.device(records.device):
-        err = _library().tile_composite(
-            ids.data_ptr(), starts.data_ptr(), records.data_ptr(),
-            rows.data_ptr(), cols.data_ptr(), b, r, s,
-            background.data_ptr() if background is not None else None,
-            out.data_ptr(), cfg.height, cfg.width, cfg.tile, cfg.apron,
-            SPRITE if sprite else KINDS[coverage], int(bool(dither)),
-            torch.cuda.current_stream(records.device).cuda_stream)
-    cuda_build.check(err, "tile_composite")
-    COMPOSITE_LAUNCHES += 1
+    LIBRARY.launch(
+        "k11a_composite", "tile_composite", records.device,
+        ids.data_ptr(), starts.data_ptr(), records.data_ptr(),
+        rows.data_ptr(), cols.data_ptr(), b, r, s,
+        background.data_ptr() if background is not None else None,
+        out.data_ptr(), cfg.height, cfg.width, cfg.tile, cfg.apron,
+        SPRITE if sprite else KINDS[coverage], int(bool(dither)))
     return out
 
 
@@ -352,7 +327,6 @@ def sprite_accumulate(cfg: TiledRasterConfig, bins, records, table):
 
 def _accumulate(cfg: TiledRasterConfig, bins, records, table, keep):
     """Launch K11b with `keep` as its filter's scratch list."""
-    global ACCUMULATE_LAUNCHES
     ids, starts = bins
     rows, cols = table
     _launchable("sprite_accumulate", cfg,
@@ -363,15 +337,12 @@ def _accumulate(cfg: TiledRasterConfig, bins, records, table, keep):
     out = torch.empty((cfg.height, cfg.width, cfg.channels),
                       dtype=torch.float32, device=records.device)
     b, r, s = rows.shape
-    with launch("k11b_sprite_accumulate"), torch.cuda.device(records.device):
-        err = _library().tile_accumulate(
-            ids.data_ptr(), starts.data_ptr(), records.data_ptr(),
-            rows.data_ptr(), cols.data_ptr(), b, r, s, keep.data_ptr(),
-            ids.shape[0], out.data_ptr(), cfg.height, cfg.width, cfg.tile,
-            cfg.apron, cfg.channels,
-            torch.cuda.current_stream(records.device).cuda_stream)
-    cuda_build.check(err, "tile_accumulate")
-    ACCUMULATE_LAUNCHES += 1
+    LIBRARY.launch(
+        "k11b_sprite_accumulate", "tile_accumulate", records.device,
+        ids.data_ptr(), starts.data_ptr(), records.data_ptr(),
+        rows.data_ptr(), cols.data_ptr(), b, r, s, keep.data_ptr(),
+        ids.shape[0], out.data_ptr(), cfg.height, cfg.width, cfg.tile,
+        cfg.apron, cfg.channels)
     return out
 
 

@@ -29,10 +29,6 @@ import ctypes
 import torch
 
 from ..core import cuda_build
-from ..core.trace import launch
-
-_SOURCE = cuda_build.CSRC / "column_maps.cu"
-_LIBRARY = cuda_build.library_path(_SOURCE)
 
 MAX_MAPS = 8
 # The fused query's ColumnField constants, in the order of the source's
@@ -40,35 +36,15 @@ MAX_MAPS = 8
 QUERY_GEOMETRY = ("ex", "ey", "ez", "z_offset", "scale_x", "scale_y", "rx",
                   "ry", "sx_c", "sy_c", "z_lo", "z_hi")
 
-# Launches since import (or since a caller reset them): each wrapper adds
-# one where it launches its kernel and nowhere else.
-LAUNCHES = 0        # sample_maps
-QUERY_LAUNCHES = 0  # query_columns
-PACK_LAUNCHES = 0   # pack_maps
-_lib = None
-
-
-def build():
-    """Compile csrc/column_maps.cu unless an up-to-date library is there."""
-    return cuda_build.build(_SOURCE, _LIBRARY)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        _lib = cuda_build.load(_SOURCE, _LIBRARY, {
-            "column_maps_pack": [ptr, ptr, i32, i32, i32, ptr],
-            "column_maps_sample": [ptr, ptr, ptr, ptr, i32, i32, i32, i64,
-                                   i32, ptr],
-            "column_query": [ptr, i32, i32, ctypes.POINTER(ctypes.c_float),
-                             ptr, i64, ptr, i64, ptr, i64, i64, i32, i32,
-                             ptr, ptr, ptr, ptr, ptr]})
-    return _lib
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIBRARY = cuda_build.Library("column_maps.cu", {
+    "column_maps_pack": [_ptr, _ptr, _i32, _i32, _i32, _ptr],
+    "column_maps_sample": [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i64,
+                           _i32, _ptr],
+    "column_query": [_ptr, _i32, _i32, ctypes.POINTER(ctypes.c_float), _ptr,
+                     _i64, _ptr, _i64, _ptr, _i64, _i64, _i32, _i32, _ptr,
+                     _ptr, _ptr, _ptr, _ptr]},
+    ["k7_column_pack", "k7_column_sample", "k7_column_query"])
 
 
 def _on_cuda(name: str, tensors):
@@ -124,7 +100,6 @@ def pack_maps(maps):
     """Pack the (C, Hc, Wc) maps into (Hc, Wc, R) texel records (see
     `pack_maps_reference`). A CPU tensor runs the plain version; a CUDA
     tensor launches the pack kernel on the current stream, or raises."""
-    global PACK_LAUNCHES
     _check_maps("pack_maps", maps)
     n_maps, hc, wc = maps.shape
     if not 1 <= n_maps <= MAX_MAPS:
@@ -137,12 +112,8 @@ def pack_maps(maps):
         raise ValueError("pack_maps: maps must be contiguous")
     pack = torch.empty((hc, wc, _record(n_maps)), dtype=torch.float32,
                        device=maps.device)
-    with launch("k7_column_pack"), torch.cuda.device(maps.device):
-        err = _library().column_maps_pack(
-            maps.data_ptr(), pack.data_ptr(), n_maps, hc, wc,
-            _stream(maps.device))
-    cuda_build.check(err, "column_maps_pack")
-    PACK_LAUNCHES += 1
+    LIBRARY.launch("k7_column_pack", "column_maps_pack", maps.device,
+                   maps.data_ptr(), pack.data_ptr(), n_maps, hc, wc)
     return pack
 
 
@@ -207,7 +178,6 @@ def sample_maps(maps, ty, tx, want_grad: bool = False):
     A CPU tensor runs the plain version; a CUDA tensor packs the maps
     (`pack_maps`, C <= 8) and launches the sampler on the current stream,
     or raises."""
-    global LAUNCHES
     _check(maps, ty, tx)
     if maps.device.type == "cpu":
         return sample_maps_reference(maps, ty, tx, want_grad)
@@ -222,12 +192,9 @@ def sample_maps(maps, ty, tx, want_grad: bool = False):
     if n == 0:
         return out
     pack = pack_maps(maps)
-    with launch("k7_column_sample"), torch.cuda.device(maps.device):
-        err = _library().column_maps_sample(
-            pack.data_ptr(), ty.data_ptr(), tx.data_ptr(), out.data_ptr(),
-            n_maps, hc, wc, n, int(bool(want_grad)), _stream(maps.device))
-    cuda_build.check(err, "column_maps_sample")
-    LAUNCHES += 1
+    LIBRARY.launch("k7_column_sample", "column_maps_sample", maps.device,
+                   pack.data_ptr(), ty.data_ptr(), tx.data_ptr(),
+                   out.data_ptr(), n_maps, hc, wc, n, int(bool(want_grad)))
     return out
 
 
@@ -249,7 +216,6 @@ def query_columns(pack, geometry, x, y, z, want_grad: bool = False,
     where it vanishes, with `normalize`). CUDA tensors only: the plain
     version is `columns.query_reference`, which `columns.query` takes for
     CPU tensors."""
-    global QUERY_LAUNCHES
     _on_cuda("query_columns", [pack, x, y, z])
     hc, wc, rec = pack.shape
     if (pack.dtype != torch.float32 or not pack.is_contiguous()
@@ -269,11 +235,8 @@ def query_columns(pack, geometry, x, y, z, want_grad: bool = False,
         return tuple(outs) if want_grad else outs[0]
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     geom = (ctypes.c_float * len(QUERY_GEOMETRY))(*map(float, geometry))
-    with launch("k7_column_query"), torch.cuda.device(x.device):
-        err = _library().column_query(
-            pack.data_ptr(), hc, wc, geom, *args[0], *args[1], *args[2], n,
-            int(bool(want_grad)), int(bool(normalize)), *ptrs,
-            _stream(x.device))
-    cuda_build.check(err, "column_query")
-    QUERY_LAUNCHES += 1
+    LIBRARY.launch("k7_column_query", "column_query", x.device,
+                   pack.data_ptr(), hc, wc, geom, *args[0], *args[1],
+                   *args[2], n, int(bool(want_grad)), int(bool(normalize)),
+                   *ptrs)
     return tuple(outs) if want_grad else outs[0]

@@ -81,15 +81,15 @@ def _ancestors(event):
 
 @pytest.mark.cuda
 def test_cuda_k12_once_a_frame_and_no_scan(cell):
-    from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
-    from illuminant_tpu_torch.lighting import scan_walk_kernel as swk
+    from illuminant_tpu_torch.core import cuda_build
 
-    k12, k1 = ctk.LAUNCHES, swk.LAUNCHES
+    before = cuda_build.launches()
     for _ in range(3):
         cell.step()
     torch.cuda.synchronize()
-    assert ctk.LAUNCHES - k12 == 3
-    assert swk.LAUNCHES - k1 == 0
+    after = cuda_build.launches()
+    assert after["k12_cone_trace"] - before["k12_cone_trace"] == 3
+    assert after["k1_scan_walk"] - before["k1_scan_walk"] == 0
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from illuminant_tpu.lighting import environment as jenv
 from illuminant_tpu.sdf import columns as jcols
 from illuminant_tpu.sdf import columns_pallas
 from illuminant_tpu.sdf import volume as jvol
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.core import interop
 from illuminant_tpu_torch.sdf import columns, columns_kernel
 from illuminant_tpu_torch.sdf.volume import SdfVolume
@@ -271,10 +272,10 @@ def test_cuda_kernel_matches_plain(want_grad):
     maps, ty, tx = _maps_and_coords(5, shape=(5, 135, 240), n=1 << 20)
     dev = torch.device("cuda")
     m, y, x = (torch.as_tensor(a, device=dev) for a in (maps, ty, tx))
-    before = columns_kernel.LAUNCHES
+    before = cuda_build.launches()["k7_column_sample"]
     out = columns_kernel.sample_maps(m, y, x, want_grad)
     torch.cuda.synchronize()
-    assert columns_kernel.LAUNCHES == before + 1
+    assert cuda_build.launches()["k7_column_sample"] == before + 1
     ref = columns_kernel.sample_maps_reference(m, y, x, want_grad)
     # Both float32 with the same tap order and, with -fmad=false, the same
     # rounding of every product and sum.

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.lighting import environment as env_t
 from illuminant_tpu_torch.sdf import columns, columns_kernel
 from illuminant_tpu_torch.sdf import volume as vol
@@ -114,11 +115,11 @@ def test_cuda_fused_query_matches_plain(mode):
     p = torch.as_tensor(_edge_points(field), device="cuda")
     want_grad = mode != "distance"
     normalize = mode == "normal"
-    before = columns_kernel.QUERY_LAUNCHES
+    before = cuda_build.launches()["k7_column_query"]
     out = columns.query(field, p[:, 0], p[:, 1], p[:, 2], want_grad,
                         normalize)
     torch.cuda.synchronize()
-    assert columns_kernel.QUERY_LAUNCHES == before + 1
+    assert cuda_build.launches()["k7_column_query"] == before + 1
     ref = columns.query_reference(field, p[:, 0], p[:, 1], p[:, 2],
                                   want_grad, normalize)
     out, ref = (out, ref) if want_grad else ((out,), (ref,))
@@ -145,9 +146,9 @@ def test_cuda_pack_and_sample_match_plain():
                                columns_kernel.pack_maps_reference(maps),
                                rtol=0, atol=0)
     for want_grad in (False, True):
-        before = columns_kernel.LAUNCHES
+        before = cuda_build.launches()["k7_column_sample"]
         out = columns_kernel.sample_maps(maps, ty, tx, want_grad)
         torch.cuda.synchronize()
-        assert columns_kernel.LAUNCHES == before + 1
+        assert cuda_build.launches()["k7_column_sample"] == before + 1
         ref = columns_kernel.sample_maps_reference(maps, ty, tx, want_grad)
         torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.core.config import QualitySettings
 from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
 from illuminant_tpu_torch.lighting import environment as tenv
@@ -144,10 +145,10 @@ def test_cuda_matches_plain(name, per_point, raw):
     f = field(name, "cuda")
     args = rays("cuda", per_point, seed=FIELDS.index(name))
     q = QualitySettings()
-    before = ctk.LAUNCHES
+    before = cuda_build.launches()["k12_cone_trace"]
     out = cone_trace(f, *args, q, raw=raw)
     torch.cuda.synchronize()
-    assert ctk.LAUNCHES == before + 1
+    assert cuda_build.launches()["k12_cone_trace"] == before + 1
     ref = cone_trace_reference(f, *args, q, raw=raw)
     assert out.shape == ref.shape == (4,) + GRID
     assert within_bound(out, ref), float((out - ref).abs().max())
@@ -261,10 +262,10 @@ def test_cuda_pack_follows_the_volume():
     vol = field("volume", "cuda")
     args = rays("cuda")
     q = QualitySettings()
-    before = ctk.PACK_LAUNCHES
+    before = cuda_build.launches()["k12_volume_pack"]
     cone_trace(vol, *args, q)
     cone_trace(vol, *args, q)
-    assert ctk.PACK_LAUNCHES == before + 1
+    assert cuda_build.launches()["k12_volume_pack"] == before + 1
     assert torch.equal(ctk.packed_volume(vol),
                        ctk.pack_volume_reference(vol.data))
     env = tenv.LightingEnvironment()
@@ -273,7 +274,7 @@ def test_cuda_pack_follows_the_volume():
         device="cuda"), 2, 2)
     new = tvol.update_slices(vol, 2, slab)
     out = cone_trace(new, *args, q)
-    assert ctk.PACK_LAUNCHES == before + 2
+    assert cuda_build.launches()["k12_volume_pack"] == before + 2
     assert torch.equal(ctk.packed_volume(new),
                        ctk.pack_volume_reference(new.data))
     ref = cone_trace_reference(new, *args, q)
@@ -282,4 +283,4 @@ def test_cuda_pack_follows_the_volume():
     new.data[0].add_(1.0)  # in place: the pack is built again
     assert torch.equal(ctk.packed_volume(new),
                        ctk.pack_volume_reference(new.data))
-    assert ctk.PACK_LAUNCHES == before + 3
+    assert cuda_build.launches()["k12_volume_pack"] == before + 3

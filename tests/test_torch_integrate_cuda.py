@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.lighting.environment import LightObstruction
 from illuminant_tpu_torch.ops.bezier import (MODE_BOUNCE_BIT, MODE_EXP,
                                              MODE_LOOP_BIT, MODE_SINE,
@@ -362,11 +363,11 @@ def test_cuda_flagship_scene_equals_eager(n, substeps):
     su_c, rd_c = flagship_uniforms("cpu")
     scene, st = flagship_scene("cuda"), as_state(rows, "cuda")
     first_slot = 0 if n == FULL else 77777
-    k4.LAUNCHES = 0
+    cuda_build.reset_launches()
     got = integ.integrate_with_distance_field(st, su, rd, scene, 50.0,
                                               substeps, first_slot)
     torch.cuda.synchronize()
-    assert k4.LAUNCHES == 1
+    assert cuda_build.launches()["k4_integrate"] == 1
     card = integ.integrate_with_distance_field_reference(
         st, su, rd, scene, 50.0, substeps, first_slot)
     cpu = integ.integrate_with_distance_field_reference(
@@ -387,12 +388,12 @@ def test_cuda_mixed_scene_equals_eager(count):
     su, rd = flagship_uniforms("cuda")
     su_c, rd_c = flagship_uniforms("cpu")
     scene, st = mixed_scene(count, "cuda"), as_state(rows, "cuda")
-    k4.LAUNCHES = 0
+    cuda_build.reset_launches()
     got = integ.integrate_with_distance_field(st, su, rd, scene, 50.0,
                                               substeps, 3)
     card = integ.integrate_with_distance_field_reference(
         st, su, rd, scene, 50.0, substeps, 3)
-    assert k4.LAUNCHES == 1
+    assert cuda_build.launches()["k4_integrate"] == 1
     cpu = integ.integrate_with_distance_field_reference(
         as_state(rows, "cpu"), su_c, rd_c, mixed_scene(count, "cpu"), 50.0,
         substeps, 3)
@@ -427,11 +428,11 @@ def test_cuda_scene_in_device_memory_is_bounded(name, substeps):
     scene, st = build("cuda"), as_state(rows, "cuda")
     assert k4.launch_plan(n, scene, substeps)["kind"] == \
         k4.FIELD_KINDS["analytic_global"]
-    k4.LAUNCHES = 0
+    cuda_build.reset_launches()
     got = integ.integrate_with_distance_field(st, su, rd, scene, 50.0,
                                               substeps, 3)
     torch.cuda.synchronize()
-    assert k4.LAUNCHES == 1
+    assert cuda_build.launches()["k4_integrate"] == 1
     card = integ.integrate_with_distance_field_reference(
         st, su, rd, scene, 50.0, substeps, 3)
     cpu = integ.integrate_with_distance_field_reference(
@@ -467,11 +468,11 @@ def test_cuda_runtime_substeps_equal_eager(column_cell, substeps):
             (field, su_col, rd_col, _to_cpu(su_col), _to_cpu(rd_col),
              _to_cpu(field))):
         st = as_state(rows, "cuda")
-        k4.LAUNCHES = 0
+        cuda_build.reset_launches()
         got = integ.integrate_with_distance_field(st, s_u, r_d, volume,
                                                   50.0, substeps, 21)
         torch.cuda.synchronize()
-        assert k4.LAUNCHES == 1
+        assert cuda_build.launches()["k4_integrate"] == 1
         card = integ.integrate_with_distance_field_reference(
             st, s_u, r_d, volume, 50.0, substeps, 21)
         cpu = integ.integrate_with_distance_field_reference(
@@ -510,11 +511,13 @@ def test_cuda_column_field_equals_eager(column_cell, n, substeps):
     rows = state_rows(n, seed=2 * n + substeps)
     st = as_state(rows, "cuda")
     ck.packed(field)
-    k4.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    cuda_build.reset_launches()
     got = integ.integrate_with_distance_field(st, su, rd, field, 50.0,
                                               substeps, 5)
     torch.cuda.synchronize()
-    assert (k4.LAUNCHES, ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES) == (1, 0, 0)
+    counts = cuda_build.launches()
+    assert (counts["k4_integrate"], counts["k7_column_query"],
+            counts["k7_column_pack"]) == (1, 0, 0)
     card = integ.integrate_with_distance_field_reference(
         st, su, rd, field, 50.0, substeps, 5)
     cpu = integ.integrate_with_distance_field_reference(
@@ -553,16 +556,16 @@ def test_cuda_every_render_option(column_cell):
 def test_cuda_tick_launches_k4_and_no_column_query(column_cell):
     """The config-4 system's ticks on the ColumnField: one K4 launch a
     tick, no column query, the field's pack built once."""
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
-
     import chip_smoke as cs
 
     _, system = particle_cell(torch.device("cuda"))
-    k4.LAUNCHES = ck.QUERY_LAUNCHES = ck.PACK_LAUNCHES = 0
+    cuda_build.reset_launches()
     ticks = sum(system.update(cs.DT) for _ in range(3))
     torch.cuda.synchronize()
     assert ticks == 3
-    assert (k4.LAUNCHES, ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES) == (3, 0, 1)
+    counts = cuda_build.launches()
+    assert (counts["k4_integrate"], counts["k7_column_query"],
+            counts["k7_column_pack"]) == (3, 0, 1)
 
 
 def _profile(fn):

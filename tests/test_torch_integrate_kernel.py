@@ -309,7 +309,7 @@ def test_uniform_table_is_the_sources():
     kUniformFloats."""
     import re
 
-    src = k4._SOURCE.read_text()
+    src = k4.LIBRARY.source.read_text()
 
     def ints(name):
         body = re.search(name + r"\[kSegments\] = \{([^}]*)\}", src).group(1)

@@ -27,6 +27,14 @@ NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
     "raster.splat_kernel", "parallel.mesh", "parallel.raster", "entry")]
 
 
+# The hand-written kernels by launch-span name, each counted in
+# `cuda_build.launches()`.
+KERNELS = ("k1_scan_walk", "k4_integrate", "k5_splat", "k7_column_pack",
+           "k7_column_sample", "k7_column_query", "k10_tiled_lights",
+           "k11a_composite", "k11b_sprite_accumulate", "k12_cone_trace",
+           "k12_volume_pack")
+
+
 def test_import_leaves_jax_out():
     """Every module of the port imported in a fresh interpreter: jax is
     not in sys.modules afterwards."""
@@ -49,24 +57,26 @@ def test_import_leaves_jax_out():
 
 
 def test_kernel_modules_load_nothing_at_import():
-    """Importing the kernel wrappers builds and loads no library: the
-    CUDA sources compile at the first launch, on the card."""
+    """Importing every module of the port builds and loads no kernel
+    library: each CUDA source has one `Library`, none loaded, and every
+    kernel's launch count is 0 under its launch-span name."""
     code = (
-        "import illuminant_tpu_torch.raster.tile_kernel as t\n"
-        "import illuminant_tpu_torch.sdf.columns_kernel as c\n"
-        "import illuminant_tpu_torch.lighting.tiled_lights_kernel as k\n"
-        "import illuminant_tpu_torch.lighting.cone_trace_kernel as m\n"
-        "import illuminant_tpu_torch.raster.splat_kernel as s\n"
-        "import illuminant_tpu_torch.raster.render\n"
-        "import illuminant_tpu_torch.lighting.particle_light\n"
-        "from illuminant_tpu_torch.core.cuda_build import BUILD_LOGS\n"
-        "assert t._lib is None, 'tile_raster'\n"
-        "assert k._lib is None and k.LAUNCHES == 0, 'tiled_lights'\n"
-        "assert c._lib is None, 'column_maps'\n"
-        "assert m._lib is None and m.LAUNCHES == 0, 'cone_trace'\n"
-        "assert s._lib is None and s.LAUNCHES == 0, 'splat'\n"
-        "assert not BUILD_LOGS\n"
-        "assert t.COMPOSITE_LAUNCHES == t.ACCUMULATE_LAUNCHES == 0\n")
+        "import importlib, pkgutil, sys\n"
+        "import illuminant_tpu_torch as p\n"
+        "from illuminant_tpu_torch.core import cuda_build\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "libs = {id(v): v for k, mod in list(sys.modules.items())\n"
+        "        if k.startswith('illuminant_tpu_torch.')\n"
+        "        for v in vars(mod).values()\n"
+        "        if isinstance(v, cuda_build.Library)}.values()\n"
+        "sources = sorted(lib.source.name for lib in libs)\n"
+        "assert sources == sorted(f.name for f in\n"
+        "                         cuda_build.CSRC.glob('*.cu')), sources\n"
+        "assert not [lib.source.name for lib in libs if lib.loaded]\n"
+        "assert not cuda_build.BUILD_LOGS\n"
+        f"assert cuda_build.launches() == dict.fromkeys({KERNELS!r}, 0), \\\n"
+        "    cuda_build.launches()\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.parallel import mesh as pmesh
 from illuminant_tpu_torch.parallel import raster as praster
 from illuminant_tpu_torch.raster import splat_kernel, tiled
@@ -90,11 +91,11 @@ def test_cuda_bands_match_plain(d, frame, kernel):
     cfg = tiled.TiledRasterConfig(height=h, width=w, kernel=kernel,
                                   channels=3)
     args = cloud(4096, h, w, "cuda", seed=d)
-    before = splat_kernel.LAUNCHES
+    before = cuda_build.launches()["k5_splat"]
     recv, out = bands(cfg, d, args)
     torch.cuda.synchronize()
     with_rows = sum(1 for b in out if b.shape[0])
-    assert splat_kernel.LAUNCHES - before == \
+    assert cuda_build.launches()["k5_splat"] - before == \
         splat_kernel.LAUNCHES_PER_SPLAT * with_rows
     for r in range(d):
         if not out[r].shape[0]:

@@ -50,8 +50,8 @@ def test_cuda_column_field_system_matches_cpu():
     (cpu,), img_c, _ = cs.run_small_particles("column_field", "cpu", draws)
     (cuda,), img_g, launches = cs.run_small_particles(
         "column_field", "cuda", draws, [cpu.random_field.data])
-    assert launches == dict(column_query=0,
-                            collide_integrate=cs.PARTICLE_TICKS)
+    assert launches == dict(k7_column_query=0,
+                            k4_integrate=cs.PARTICLE_TICKS)
     a, b = cpu.state.position.numpy(), cuda.state.position.cpu().numpy()
     live = a[:, 3] > 0
     np.testing.assert_array_equal(live, b[:, 3] > 0)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.core.config import QualitySettings
 from illuminant_tpu_torch.lighting import scan_shadows
 from illuminant_tpu_torch.lighting import scan_walk_kernel as k1
@@ -118,9 +119,9 @@ def test_cpu_walk_is_the_plain_loop(shape, variant):
     flipped back, north and south transposed back; no kernel is
     touched."""
     occ, lx, ly, lr, band, extra, fp = _walk_inputs(*shape, variant)
-    k1.LAUNCHES = 0
+    cuda_build.reset_launches()
     out = scan_shadows.scan_walk(occ, lx, ly, lr, band, extra, fp)
-    assert k1.LAUNCHES == 0
+    assert cuda_build.launches()["k1_scan_walk"] == 0
     east, west = scan_shadows._bidirectional_scan(occ, lx, ly, lr, band,
                                                   extra, fp)
     north, south = scan_shadows._bidirectional_scan(

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.lighting import scan_shadows
 from illuminant_tpu_torch.lighting import scan_walk_kernel as k1
 from illuminant_tpu_torch.lighting.environment import LightObstruction
@@ -132,11 +133,11 @@ def test_cuda_walk_equals_eager_loop(case):
     of every sector bit for bit, the arg-min k included; one launch."""
     _needs_card()
     args = _walk_args(case, "cuda")
-    k1.LAUNCHES = 0
+    cuda_build.reset_launches()
     got = k1.scan_walk_cuda(*args)
     ref = scan_shadows.scan_walk_reference(*args)
     torch.cuda.synchronize()
-    assert k1.LAUNCHES == 1
+    assert cuda_build.launches()["k1_scan_walk"] == 1
     _bits_equal(got, ref, case)
 
 
@@ -196,11 +197,11 @@ def test_cuda_one_launch_a_scan_visibility_call():
                        device="cuda")
     rad = torch.tensor([4.0, 3.0], device="cuda")
     ramp = torch.tensor([200.0, 150.0], device="cuda")
-    k1.LAUNCHES = 0
+    cuda_build.reset_launches()
     for n in range(1, 4):
         scan_shadows.scan_visibility(scene, 96, 160, pos, rad, ramp,
                                      QualitySettings())
-        assert k1.LAUNCHES == n
+        assert cuda_build.launches()["k1_scan_walk"] == n
 
 
 def _draws(n, spawn_max=SMALL["spawn_max"], seed=0):
@@ -237,11 +238,11 @@ def test_cuda_small_frame_equals_eager_walk_frame(field):
     """Three small flagship frames through K1 equal the frames through
     the eager walk on the card bit for bit: image, particles, exposure."""
     _needs_card()
-    k1.LAUNCHES = 0
+    cuda_build.reset_launches()
     got = _small_frames(field, scan_shadows.scan_walk)
-    assert k1.LAUNCHES == 3
+    assert cuda_build.launches()["k1_scan_walk"] == 3
     ref = _small_frames(field, scan_shadows.scan_walk_reference)
-    assert k1.LAUNCHES == 3
+    assert cuda_build.launches()["k1_scan_walk"] == 3
     for a, b in zip(got, ref):
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.raster import splat_kernel, tiled
 
 KERNELS = ["point", "quad", "gauss", "round"]
@@ -85,10 +86,11 @@ def test_cuda_matches_plain(kernel, channels):
     _needs_card()
     cfg = config(kernel, channels)
     args = cloud(20000, "cuda", seed=KERNELS.index(kernel), pile=500)
-    before = splat_kernel.LAUNCHES
+    before = cuda_build.launches()["k5_splat"]
     out, diag = tiled.rasterize_tiled(cfg, *args)
     torch.cuda.synchronize()
-    assert splat_kernel.LAUNCHES == before + splat_kernel.LAUNCHES_PER_SPLAT
+    assert cuda_build.launches()["k5_splat"] == \
+        before + splat_kernel.LAUNCHES_PER_SPLAT
     assert diag["dropped"] == 0
     ref, _ = tiled.rasterize_tiled_reference(cfg, *args)
     assert out.shape == ref.shape == (H, W, channels)
@@ -175,13 +177,13 @@ def test_cuda_all_dead_and_all_off_screen():
     _needs_card()
     cfg = config("gauss", 4)
     x, y, color, size, live = cloud(3000, "cuda")
-    before = splat_kernel.LAUNCHES
+    before = cuda_build.launches()["k5_splat"]
     for args in ((x, y, color, size, torch.zeros_like(live)),
                  (x + 1e4, y, color, size, live)):
         out, bins = splat_kernel.splat_cuda(cfg, *args, debug=True)
         torch.cuda.synchronize()
         assert not bool(out.any()) and int(bins["offsets"][-1]) == 0
-    assert splat_kernel.LAUNCHES == before + 2 * \
+    assert cuda_build.launches()["k5_splat"] == before + 2 * \
         splat_kernel.LAUNCHES_PER_SPLAT
 
 

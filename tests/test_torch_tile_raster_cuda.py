@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.raster import sprites, tile_kernel, tiled
 
 H, W = 96, 160
@@ -121,11 +122,11 @@ def test_cuda_composite_equals_plain(kernel, dither):
                 else kernel)
     bg = torch.rand((H, W, 4), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3))
-    before = tile_kernel.COMPOSITE_LAUNCHES
+    before = cuda_build.launches()["k11a_composite"]
     out = tile_kernel.composite_over_tiles(cfg, bins, rec, coverage, bg,
                                            dither)
     torch.cuda.synchronize()
-    assert tile_kernel.COMPOSITE_LAUNCHES == before + 1
+    assert cuda_build.launches()["k11a_composite"] == before + 1
     ref = tile_kernel.composite_over_tiles_reference(cfg, bins, rec,
                                                      coverage, bg, dither)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
@@ -166,11 +167,11 @@ def test_cuda_sprite_accumulate_matches_plain(channels):
     x, y, color, size, live, rot = _particles(400, 2, hot=1100,
                                               device="cuda")
     table = _table("cuda")
-    before = tile_kernel.ACCUMULATE_LAUNCHES
+    before = cuda_build.launches()["k11b_sprite_accumulate"]
     out, _ = sprites.rasterize_sprites(cfg, table, x, y, color, size, live,
                                        rotation=rot)
     torch.cuda.synchronize()
-    assert tile_kernel.ACCUMULATE_LAUNCHES == before + 1
+    assert cuda_build.launches()["k11b_sprite_accumulate"] == before + 1
     bins = tiled.bin_footprints(cfg, x, y, live)
     rec = torch.cat([x[:, None], y[:, None], color,
                      torch.zeros_like(x)[:, None],

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.lighting import environment as tenv
 from illuminant_tpu_torch.lighting import tiled_lights as ttl
 from illuminant_tpu_torch.lighting import tiled_lights_kernel as tk
@@ -128,13 +129,20 @@ def _needs_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU build")
 
 
+def _counts():
+    """The launches of K10, the column query and the map pack."""
+    counts = cuda_build.launches()
+    return tuple(counts[k] for k in ("k10_tiled_lights", "k7_column_query",
+                                     "k7_column_pack"))
+
+
 def _held_to_plain(args, column=None):
     """Launch K10 once with its debug lists, run the plain version on the
     same inputs, and hold them to each other."""
-    before = tk.LAUNCHES
+    before = cuda_build.launches()["k10_tiled_lights"]
     out = tk.tiled_lights_fused(*args, column=column, debug=True)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES == before + 1
+    assert cuda_build.launches()["k10_tiled_lights"] == before + 1
     ref = tk.tiled_lights_fused_reference(*args, column=column, debug=True)
     img, want = out[0], ref[0]
     assert img.shape == want.shape
@@ -210,7 +218,6 @@ def test_cuda_route_through_accumulate():
     agrees with the same call on the CPU."""
     _needs_card()
     from illuminant_tpu_torch.lighting.gbuffer import flat_ground
-    from illuminant_tpu_torch.sdf import columns_kernel as ck
     from illuminant_tpu_torch.sdf.columns import build_column_maps
     from illuminant_tpu_torch.sdf.volume import (SdfVolumeConfig,
                                                  generate_volume)
@@ -236,13 +243,13 @@ def test_cuda_route_through_accumulate():
         column = build_column_maps(generate_volume(
             cfg, lenv.pack_obstructions(device=dev)))
         env = lenv.uniforms(device=dev)
-        before = (tk.LAUNCHES, ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES)
+        before = _counts()
         img, diag = ttl.accumulate_sphere_lights_tiled(
             column, flat_ground(H, W, env), torch.as_tensor(pos, device=dev),
             torch.as_tensor(col, device=dev),
             torch.ones(64, dtype=torch.bool, device=dev), template, env,
             tile=32, capacity=32)
-        after = (tk.LAUNCHES, ck.QUERY_LAUNCHES, ck.PACK_LAUNCHES)
+        after = _counts()
         on_card = int(dev == "cuda")
         assert [b - a for a, b in zip(before, after)] == [on_card, 0,
                                                           on_card]

@@ -42,7 +42,6 @@ and power limit. Exits 2 without a card.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -78,7 +77,8 @@ PTXAS = {}
 
 
 def build_all(modules):
-    """Each variant's library -> (kernel, variant): path."""
+    """Each variant's library, built -> (kernel, variant):
+    `cuda_build.Library` with its wrapper's entry points."""
     from illuminant_tpu_torch.core import cuda_build
 
     out_dir = ROOT / "build" / "march_study"
@@ -86,40 +86,23 @@ def build_all(modules):
 
     def make(key):
         kernel, name = key
-        mod = modules[kernel]
-        if VARIANTS[key] is None:
-            lib = mod.build()
-            PTXAS[name] = cs.ptxas_summary(cuda_build.BUILD_LOGS.get(lib,
-                                                                     ""))
-            return key, lib
-        old, new = VARIANTS[key]
-        text = mod._SOURCE.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{key}: {old!r} is not in the source")
-        source = out_dir / f"{kernel}_{name}.cu"
-        source.write_text(text.replace(old, new))
-        lib = out_dir / f"lib{kernel}_{name}.so"
-        proc = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS,
-                               "-I", str(cuda_build.CSRC), "-o", str(lib),
-                               str(source)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {key}:\n"
-                               + proc.stdout + proc.stderr)
-        PTXAS[name] = cs.ptxas_summary(proc.stdout + proc.stderr)
+        lib = base = modules[kernel].LIBRARY
+        if VARIANTS[key] is not None:
+            old, new = VARIANTS[key]
+            text = base.source.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{key}: {old!r} is not in the source")
+            source = out_dir / f"{kernel}_{name}.cu"
+            source.write_text(text.replace(old, new))
+            lib = cuda_build.Library(source, base.entry_points, base.kernels,
+                                     path=out_dir / f"lib{kernel}_{name}.so")
+        lib.build()
+        PTXAS[name] = cs.ptxas_summary(cuda_build.BUILD_LOGS.get(lib.path,
+                                                                 ""))
         return key, lib
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         return dict(pool.map(make, VARIANTS))
-
-
-def load(mod, path):
-    """The wrapper's library from `path`, loaded as the build's is."""
-    saved = mod._LIBRARY, mod._lib
-    mod._LIBRARY, mod._lib = path, None
-    try:
-        return mod._library()
-    finally:
-        mod._LIBRARY, mod._lib = saved
 
 
 def march_inputs(cs):
@@ -263,13 +246,12 @@ def main(argv=None) -> int:
     global CHUNK, DIRECT, LANES
     CHUNK, DIRECT, LANES = k5.CHUNK, k5.DIRECT, dict(k5.LANES)
     modules = {"cone_trace": ctk, "splat": k5}
-    libs = {key: load(modules[key[0]], path)
-            for key, path in build_all(modules).items()}
+    libs = build_all(modules)
     card = cs.card_line()
     local = {name.split("_GLOBAL__N_")[-1][-40:]: sum(
         1 for _, ins in body if ins.split()[0].startswith(("LDL", "STL")))
         for name, body in cs.sass_functions(libs["splat", "build"]
-                                            ._name).items()}
+                                            .path).items()}
     print(json.dumps(dict(ptxas=PTXAS, splat_local_memory_ops=local)),
           flush=True)
     if opts.only == "splat":
@@ -284,7 +266,7 @@ def main(argv=None) -> int:
 
         def run(choice, a=a, raw=raw):
             variant, order = choice.split("/")
-            ctk._lib = libs["cone_trace", variant]
+            ctk.LIBRARY = libs["cone_trace", variant]
             args = a if order == "tiles" else flat(a)
             out = ctk.cone_trace_cuda(*args, raw, with_steps=True)
             return tuple(t.reshape(ctk.launch_plan(*a, raw)["shape"])
@@ -297,7 +279,7 @@ def main(argv=None) -> int:
         row = dict(kernel="cone_trace", inputs=name,
                    rays=int(base[0].numel()),
                    **turns(choices, run, base, name), card=card)
-        ctk._lib = libs["cone_trace", "build"]
+        ctk.LIBRARY = libs["cone_trace", "build"]
         print(json.dumps(row), flush=True)
     del march
     if opts.only == "cone_trace":
@@ -307,7 +289,7 @@ def main(argv=None) -> int:
         if opts.parent else None
     for name, args in splat_inputs(cs, scene, field).items():
         def run(choice, args=args):
-            k5._lib = libs["splat", choice if ("splat", choice) in libs
+            k5.LIBRARY = libs["splat", choice if ("splat", choice) in libs
                            else "build"]
             key, value = (choice.split("_") + [""])[:2]
             k5.DIRECT = int(value) if key == "direct" else DIRECT
@@ -341,7 +323,7 @@ def main(argv=None) -> int:
             if not err <= tol:
                 raise AssertionError(f"{name} {c}: {err} > {tol}")
             times[c].append(cs.device_ms(call, REPS))
-        k5._lib, k5.CHUNK, k5.DIRECT, k5.LANES = libs["splat", "build"], \
+        k5.LIBRARY, k5.CHUNK, k5.DIRECT, k5.LANES = libs["splat", "build"], \
             CHUNK, DIRECT, dict(LANES)
         times.update({f"{k}_device_ms": [v]
                       for k, v in stage_ms(lambda: k5.splat_cuda(*args))

@@ -31,8 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -71,40 +69,30 @@ REPS = 20
 
 
 def build_all(tk):
-    """Each variant's library -> name: path."""
+    """Each variant's library, built -> name: `cuda_build.Library` with
+    the wrappers' entry points."""
+    from illuminant_tpu_torch.core import cuda_build
+
     out_dir = ROOT / "build" / "tile_study"
     out_dir.mkdir(parents=True, exist_ok=True)
-    text = tk._SOURCE.read_text()
+    base = tk.LIBRARY
+    text = base.source.read_text()
 
     def make(name):
-        if VARIANTS[name] is None:
-            return name, tk.build()
-        old, new = VARIANTS[name]
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} is not in the source")
-        source = out_dir / f"{name}.cu"
-        source.write_text(text.replace(old, new))
-        lib = out_dir / f"lib{name}.so"
-        proc = subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", str(lib),
-                               str(source)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n"
-                               + proc.stdout + proc.stderr)
+        lib = base
+        if VARIANTS[name] is not None:
+            old, new = VARIANTS[name]
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: {old!r} is not in the source")
+            source = out_dir / f"{name}.cu"
+            source.write_text(text.replace(old, new))
+            lib = cuda_build.Library(source, base.entry_points, base.kernels,
+                                     path=out_dir / f"lib{name}.so")
+        lib.build()
         return name, lib
 
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         return dict(pool.map(make, VARIANTS))
-
-
-def load(tk, path):
-    """The wrappers' library from `path`, loaded as `tk._library` loads
-    the build's."""
-    saved = tk._LIBRARY, tk._lib
-    tk._LIBRARY, tk._lib = path, None
-    try:
-        return tk._library()
-    finally:
-        tk._LIBRARY, tk._lib = saved
 
 
 def main() -> int:
@@ -115,7 +103,7 @@ def main() -> int:
     from illuminant_tpu_torch.raster import sprites, tiled
     from illuminant_tpu_torch.raster import tile_kernel as tk
 
-    libs = {name: load(tk, path) for name, path in build_all(tk).items()}
+    libs = build_all(tk)
     table = cs.sprite_appearance().sprite_table("cuda")
     card = cs.card_line()
     for case, h, w, t, n, sprite, names in CASES:
@@ -124,7 +112,7 @@ def main() -> int:
         cfg = tiled.TiledRasterConfig(height=h, width=w, tile=t,
                                       apron=min(9, t))
         bg = cs.lit_floor(h, w, "cuda")
-        tk._lib = libs["build"]
+        tk.LIBRARY = libs["build"]
         calls = {}
         if sprite:
             with cs.KernelInputs("composite_over_tiles") as spy:
@@ -151,18 +139,18 @@ def main() -> int:
                    card=card)
         for key, (fname, args) in calls.items():
             fn = getattr(tk, fname)
-            tk._lib = libs["build"]
+            tk.LIBRARY = libs["build"]
             base = fn(*args)
             turns = {name: [] for name in names}
             for name in names + names[::-1]:
-                tk._lib = libs[name]
+                tk.LIBRARY = libs[name]
                 if not torch.equal(fn(*args), base):
                     raise AssertionError(f"{case} {key}: {name} changed the "
                                          "image")
                 turns[name].append(cs.device_ms(lambda: fn(*args), REPS))
             for name, ms in turns.items():
                 row[f"{key}_{name}_ms"] = round(min(ms), 4)
-        tk._lib = libs["build"]
+        tk.LIBRARY = libs["build"]
         print(json.dumps(row), flush=True)
         del calls, bg
         torch.cuda.empty_cache()
