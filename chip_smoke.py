@@ -1219,6 +1219,89 @@ def phase_integrate_kernel(rec):
     return rec
 
 
+def spawn_call(cell: str):
+    """The spawn's call in one frame of a benchmark cell (`framebench/`),
+    on its own steady population from a fixed seed: "flagship"
+    (flagship-scan-1080p: 4,096 rows, the emission path and the velocity
+    matrix animated at the frame's time) or "particles"
+    (particles-collide-1080p: 4,096 rows, static uniforms) -> the call's
+    (args, kwargs) as `spawn_kernel.spawn_cuda` takes them."""
+    from framebench.lib.loader import json_file, module
+    from illuminant_tpu_torch.particles import spawn_kernel as k4b
+
+    config, workload = {
+        "flagship": ("flagship-analytic-1080p", "flagship-scan-1080p"),
+        "particles": ("particles-config4-1080p",
+                      "particles-collide-1080p")}[cell]
+    built = module("scenes", config).build(
+        json_file("configs", config), json_file("workloads", workload),
+        2_718_281_828, torch.device("cuda"))
+    with KernelInputs("spawn_cuda", k4b) as spy:
+        built.step()
+    torch.cuda.synchronize()
+    built.release()
+    return spy.calls[-1]
+
+
+def phase_spawn_kernel(rec):
+    """`[kernel] name=spawn` (K4b) on the spawn calls of the flagship's
+    and the particle cell's frames (4,096 rows into 1,048,576 slots): the
+    kernel against its plain version on copies of the same CUDA state,
+    its rows NaN (the recorded state already holds the frame's own spawn,
+    which a kernel that wrote nothing would match): every row of the
+    ring, the cursor and the total bit for bit, rows written, one launch
+    a call. Its time by CUDA-graph replay beside its byte bound
+    (`spawn_kernel.bytes_moved`: 48 B a computed row, 48 B a written one,
+    the uniforms once, at 3.35 TB/s: it is bound by latency) and its
+    block, and the plain version run as the frame ran it (`plain_ms`, the
+    host's launches in it)."""
+    from illuminant_tpu_torch.particles import spawn_kernel as k4b
+    from illuminant_tpu_torch.particles import spawner
+
+    def fresh(state):
+        return state.replace(**{p: torch.full_like(getattr(state, p),
+                                                   float("nan"))
+                                for p in ("position", "velocity", "color")})
+
+    for cell in ("flagship", "particles"):
+        args, kw = spawn_call(cell)
+        state, u, count, spawn_max, draws, sub_rings, shard, t = args
+        _reset_launches()
+        got = k4b.spawn_cuda(fresh(state), *args[1:], **kw)
+        launches = _launches()["k4b_spawn"]
+        ref = spawner.spawn_reference(fresh(state), u, count, spawn_max,
+                                      None, draws, sub_rings, shard, t)
+        torch.cuda.synchronize()
+        differ = sum(int((getattr(got, p).view(torch.int32)
+                          != getattr(ref, p).view(torch.int32)).sum())
+                     for p in ("position", "velocity", "color",
+                               "write_cursor", "total_spawned"))
+        written = int((~torch.isnan(got.position)).any(dim=1).sum())
+        if launches != 1 or differ or not written:
+            raise AssertionError(
+                f"spawn ({cell}): {launches} launches, {differ} elements "
+                f"differ from the plain version, {written} rows written")
+        n_bytes = k4b.bytes_moved(u, int(count), written)
+        bound = _bound(n_bytes, 0.0)
+        scratch = fresh(state)
+        ms = device_ms(lambda: k4b.spawn_cuda(scratch, *args[1:], **kw),
+                       KERNEL_REPS)
+        plain_ms = eager_ms(lambda: spawner.spawn_reference(
+            scratch, u, count, spawn_max, None, draws, sub_rings, shard, t),
+            3)
+        say("kernel", name="spawn", inputs=cell, rows=spawn_max,
+            slots=state.capacity, animated=u.position_path is not None,
+            elements_differ=differ, launches=launches, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+            bound_by=bound[1], share_of_bound=f"{bound[0] / ms:.3f}",
+            written=written, bytes=n_bytes, **k4b.block_plan())
+        rec["spawn_" + cell] = dict(ms=ms, plain_ms=plain_ms, err=0.0,
+                                    bound=bound)
+        args = kw = got = ref = state = scratch = None
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_voxel_march_kernel(field, scene):
     """K12 on the voxel flagship's ColumnField at 1080p (the voxel slice's
     loaded static field and its maps): the sphere lights' rays as the
@@ -1276,7 +1359,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
     debug mode. Every slice collides in K4 once a frame; the voxel slice
     packs its frame's new maps for it once a frame and launches the fused
     query and the sampler never; the analytic slices launch none of the
-    column kernels. K5 launches once a frame, K12
+    column kernels. Every slice spawns through K4b once a frame. K5 launches once a frame, K12
     K12_PER_FRAME[name] times; a frame reads the device
     FLAGSHIP_READS_PER_FRAME times. Returns (launches, state,
     ms_per_frame, the extra frame's K12 calls). K1 launches
@@ -1299,7 +1382,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
     SLICE_LAST[name] = (img.clone(), float(avg))
     launches = _launches("k7_column_query", "k7_column_pack",
                          "k7_column_sample", "k12_cone_trace", "k5_splat",
-                         "k1_scan_walk", "k4_integrate")
+                         "k1_scan_walk", "k4_integrate", "k4b_spawn")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as k12:
         _, state, avg = _run_frames(scene, 1, warmup + frames, gen, state,
@@ -1330,7 +1413,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
                     k12_cone_trace=K12_PER_FRAME[name] * frames,
                     k5_splat=k5.LAUNCHES_PER_SPLAT * frames,
                     k1_scan_walk=SCAN_WALK_PER_FRAME[name] * frames,
-                    k4_integrate=frames)
+                    k4_integrate=frames, k4b_spawn=frames)
     if launches != expected:
         raise AssertionError(f"{name}: kernels launched {launches} times in "
                              f"{frames} frames, expected {expected}")
@@ -2413,8 +2496,8 @@ def phase_slice_particles(field, warmup: int):
     frames, each fenced by a synchronize, with CUDA events splitting the
     tick from the render; then one more tick and one more render under
     the host-read counter (the render also under the sync debug mode), and
-    the gates: K4 once a tick (the maps packed before, once), K5 once a
-    render, 0 reads. Returns (launches, ms_per_frame, the checked render's
+    the gates: K4 and K4b once a tick (the maps packed before, once), K5
+    once a render, 0 reads. Returns (launches, ms_per_frame, the checked render's
     K5 call)."""
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
@@ -2438,7 +2521,8 @@ def phase_slice_particles(field, warmup: int):
         render_ms.append(ev[1].elapsed_time(ev[2]))
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / PARTICLE_TIMED_FRAMES
     launches = _launches("k7_column_query", "k7_column_pack",
-                         "k7_column_sample", "k5_splat", "k4_integrate")
+                         "k7_column_sample", "k5_splat", "k4_integrate",
+                         "k4b_spawn")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads:
         system.update(DT)
@@ -2476,7 +2560,9 @@ def phase_slice_particles(field, warmup: int):
         k7_column_sample_launches=launches["k7_column_sample"],
         k5_splat_launches=launches["k5_splat"],
         k4_integrate_per_tick=launches["k4_integrate"]
-        / PARTICLE_TIMED_FRAMES, host_reads_per_tick=reads.n,
+        / PARTICLE_TIMED_FRAMES,
+        k4b_spawn_per_tick=launches["k4b_spawn"] / PARTICLE_TIMED_FRAMES,
+        host_reads_per_tick=reads.n,
         host_reads_per_render=render_reads.n, sensor=inside,
         sensor_direct=direct,
         sensor_edge=edge, deeper_than_collision_distance=f"{deep:.5f}")
@@ -2496,7 +2582,8 @@ def phase_slice_particles(field, warmup: int):
     expected = dict(k7_column_query=0, k7_column_pack=0,
                     k7_column_sample=0,
                     k5_splat=k5.LAUNCHES_PER_SPLAT * PARTICLE_TIMED_FRAMES,
-                    k4_integrate=PARTICLE_TIMED_FRAMES)
+                    k4_integrate=PARTICLE_TIMED_FRAMES,
+                    k4b_spawn=PARTICLE_TIMED_FRAMES)
     if launches != expected:
         raise AssertionError(f"slice_particles: kernels launched "
                              f"{launches} times in {PARTICLE_TIMED_FRAMES} "
@@ -3486,10 +3573,15 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
         image_mean=f"{img_np[..., :3].mean():.3f}",
         refresh_carried_state=carried,
         sparks_spawned_after_refresh=spawned)
+    # A tick spawns through K4b once a plain spawner (each spawns every
+    # tick at the model's fixed rate); the feedback spawner stays eager.
+    plain_spawners = sum(not getattr(s, "is_feedback", False)
+                         for sv in view.systems for s in sv.system.spawners)
     expected = dict(
         # Each system's collision is one K4 launch a tick; the field's
         # maps were packed at its first tick.
         k7_column_query=0, k7_column_pack=0, k4_integrate=system_ticks,
+        k4b_spawn=plain_spawners * MODEL_TIMED_FRAMES,
         k7_column_sample=0, k11a_composite=MODEL_TIMED_FRAMES,
         k11b_sprite_accumulate=MODEL_TIMED_FRAMES, k10_tiled_lights=0,
         k12_cone_trace=0, k12_volume_pack=0, k1_scan_walk=0,
@@ -3873,7 +3965,7 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
                     k7_column_sample=0, k11a_composite=0,
                     k11b_sprite_accumulate=0, k12_cone_trace=0,
                     k12_volume_pack=0, k1_scan_walk=0, k5_splat=0,
-                    k4_integrate=0)
+                    k4_integrate=0, k4b_spawn=0)
     if launches != expected:
         raise AssertionError(f"slice_particle_lights: launches {launches} "
                              f"in {LIGHTS_TIMED_FRAMES} frames, expected "
@@ -4715,6 +4807,7 @@ def main(argv=None) -> int:
     kernel = phase_kernel(field)
     phase_scan_walk_kernel(kernel)
     phase_integrate_kernel(kernel)
+    phase_spawn_kernel(kernel)
     kernel.update(phase_sprite_kernels(parent=parent_module(
         args.parent, "raster.tile_kernel") if args.parent else None))
     parent_lights = None
@@ -4921,7 +5014,18 @@ def main(argv=None) -> int:
                   plain_ms_particles=kernel[
                       "collide_integrate_particles"]["plain_ms"],
                   bound_ms_particles=kernel[
-                      "collide_integrate_particles"]["bound"][0]))):
+                      "collide_integrate_particles"]["bound"][0])),
+            # K4b at the flagship cell's spawn call (animated uniforms);
+            # the particle cell's (static ones) beside it.
+            ("spawn", "illuminant_tpu_torch/csrc/spawn.cu",
+             "illuminant_tpu/particles/spawner.py:65",
+             kernel["spawn_flagship"],
+             dict(launches=launches["slice_analytic"]["k4b_spawn"],
+                  launches_particles=particle_launches["k4b_spawn"],
+                  ms_particles=kernel["spawn_particles"]["ms"],
+                  plain_ms_particles=kernel["spawn_particles"]["plain_ms"],
+                  bound_ms_particles=kernel["spawn_particles"][
+                      "bound"][0]))):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts, "max_abs_err": r["err"],

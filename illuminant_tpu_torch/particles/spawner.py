@@ -9,7 +9,12 @@ discard, written at the ring cursor; `spawn_feedback` (SpawnParticles.fx
 PS_SpawnFeedback :55-118) takes its inputs from another system's
 particles. A spawn writes at most `spawn_max` slots per tick, masked by
 the actual count, or partitioned into `sub_rings` segments; a mesh rank
-writes only its own slots (`shard`).
+writes only its own slots (`shard`). The spawn's animated uniforms (an
+emission path, animated post-matrices) are evaluated where the spawn
+runs, at the `time` the spawn is given: on the card `spawn` is one launch
+of K4b (`spawn_kernel`, `csrc/spawn.cu`), which evaluates them from the
+time on the device; the eager body, `spawn_reference`, is its plain
+version and runs on the CPU.
 
 Randomness: the JAX package draws three (spawn_max, 4) uniform arrays
 from a threefry key (spawner.py:108-111), which PyTorch cannot reproduce.
@@ -28,8 +33,10 @@ import torch
 from ..core.pytree import tensor_dataclass
 from ..core.trace import span
 from ..core.upload import cached_upload
-from ..ops.bezier import BezierM, evaluate_bezier_matrix
+from ..ops.bezier import (BezierM, ClampedBezier, evaluate_bezier,
+                          evaluate_bezier_matrix)
 from ..ops.coords import mul_point_rows
+from . import spawn_kernel
 from .formula import (FORMULA_SPHERICAL, Formula1, Formula3, Formula4,
                       evaluate_formula)
 from .state import ParticleState
@@ -43,8 +50,9 @@ class SpawnUniforms:
     position_constant_count: torch.Tensor  # ()
     config: torch.Tensor  # (9, 4), pack order ParticleSpawner.cs:220-227
     formula_types: torch.Tensor  # (4,)
-    position_matrix: torch.Tensor  # (4, 4) row-vector convention
-    velocity_matrix: torch.Tensor  # (4, 4)
+    # (4, 4) row-vector convention; None where an animation gives it.
+    position_matrix: Optional[torch.Tensor]
+    velocity_matrix: Optional[torch.Tensor]
     axis_mask: torch.Tensor  # (3,)
     align_velocity_and_position: torch.Tensor  # ()
     attribute_discard_threshold: torch.Tensor  # ()
@@ -53,6 +61,68 @@ class SpawnUniforms:
     # Per-position-constant color multipliers (PatternSpawner's pixel
     # colors); None for plain spawners.
     position_colors: Optional[torch.Tensor] = None  # (P, 4)
+    # Animated uniforms, each evaluated at the spawn's `time` wrapped by
+    # its period in `animation_periods` (torch.remainder where the period
+    # is > 0): an emission path (3 channels) whose value replaces the xyz
+    # of every position constant (the flagship's), and animated
+    # Parameter<DynamicMatrix> post-matrices that replace position_matrix
+    # / velocity_matrix. None: static.
+    position_path: Optional[ClampedBezier] = None
+    position_animation: Optional[BezierM] = None
+    velocity_animation: Optional[BezierM] = None
+    animation_periods: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+
+
+def _animates(u: SpawnUniforms, time) -> bool:
+    """Whether `u` has animated uniforms; raises where it has and `time`
+    is None, since they have no time of their own."""
+    if (u.position_path is None and u.position_animation is None
+            and u.velocity_animation is None):
+        return False
+    if time is None:
+        raise ValueError("spawn: animated uniforms need the spawn's time")
+    return True
+
+
+def animated(u: SpawnUniforms, time) -> SpawnUniforms:
+    """`u` with its animated uniforms evaluated eagerly at `time` (a
+    host float or a 0-d tensor; ops/bezier.py) into the static ones; `u`
+    itself where it has none."""
+    if not _animates(u, time):
+        return u
+    path, position, velocity = (u.position_path, u.position_animation,
+                                u.velocity_animation)
+    dev = u.position_constants.device
+
+    def at(curve, period):
+        t = torch.as_tensor(time, dtype=torch.float32,
+                            device=curve.range_and_count.device)
+        return torch.remainder(t, period) if period > 0 else t
+
+    p_path, p_position, p_velocity = u.animation_periods
+    changes = {}
+    if path is not None:
+        pc = u.position_constants.clone()
+        pc[:, :3] = evaluate_bezier(path, at(path, p_path)).to(dev)[None, :]
+        changes["position_constants"] = pc
+    if position is not None:
+        changes["position_matrix"] = evaluate_bezier_matrix(
+            position, at(position, p_position)).to(dev)
+    if velocity is not None:
+        changes["velocity_matrix"] = evaluate_bezier_matrix(
+            velocity, at(velocity, p_velocity)).to(dev)
+    return u.replace(position_path=None, position_animation=None,
+                     velocity_animation=None, **changes)
+
+
+def _moved(x, device):
+    """A tensor dataclass (a BezierM, its controls) with every tensor on
+    `device`: `x` itself where they all are there."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    was = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    now = {k: _moved(v, device) for k, v in was.items()}
+    return x if all(now[k] is v for k, v in was.items()) else x.replace(**now)
 
 
 def _draws(spawn_max: int, device, generator, uniforms):
@@ -121,11 +191,22 @@ def _advance(state: ParticleState, count, n: int) -> ParticleState:
         total_spawned=(state.total_spawned + count).to(torch.int32))
 
 
+def _check_ring(capacity: int, spawn_max: int, sub_rings: int, shard):
+    n_ranks = 1 if shard is None else shard[1]
+    n = capacity * n_ranks
+    if sub_rings < 1 or spawn_max % sub_rings or n % sub_rings:
+        raise ValueError(f"sub_rings={sub_rings} must divide both spawn_max "
+                         f"{spawn_max} and the capacity {n}")
+    if sub_rings > 1 and sub_rings % n_ranks:
+        raise ValueError(f"sub_rings={sub_rings} is not a multiple of the "
+                         f"{n_ranks} shards")
+
+
 @span("illuminant/particle_spawn")
 def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
           generator: Optional[torch.Generator] = None,
           uniforms: Optional[Sequence] = None,
-          sub_rings: int = 1, shard=None) -> ParticleState:
+          sub_rings: int = 1, shard=None, time=None) -> ParticleState:
     """Write up to `spawn_max` new particles at the ring cursor, the first
     `count` of them (a host int, or a 0-d tensor), as one window modulo
     the capacity; a window longer than the capacity keeps each slot's
@@ -148,20 +229,40 @@ def spawn(state: ParticleState, u: SpawnUniforms, count, spawn_max: int,
 
     Randomness comes from `generator` (draws on the state's device) or
     from `uniforms`, three (spawn_max, 4) arrays in [0, 1) standing in for
-    the JAX package's random1..3.
+    the JAX package's random1..3. `time` (a host float, or a 0-d tensor on
+    the state's device) is the time the animated uniforms are evaluated
+    at; uniforms with animations require it.
 
     Updates state.position / velocity / color IN PLACE (the counterpart of
     the JAX step donating the state buffers) and returns the state with
-    the cursor and total advanced."""
+    the cursor and total advanced (new tensors). On the card it is one
+    launch of K4b (`spawn_kernel.spawn_cuda`); the CPU runs
+    `spawn_reference`."""
+    if spawn_kernel.takes(state.position.device):
+        _check_ring(state.capacity, spawn_max, sub_rings, shard)
+        _animates(u, time)
+        draws = _draws(spawn_max, state.position.device, generator,
+                       uniforms)
+        return spawn_kernel.spawn_cuda(state, u, count, spawn_max, draws,
+                                       sub_rings, shard, time)
+    return spawn_reference(state, u, count, spawn_max, generator, uniforms,
+                           sub_rings, shard, time)
+
+
+def spawn_reference(state: ParticleState, u: SpawnUniforms, count,
+                    spawn_max: int,
+                    generator: Optional[torch.Generator] = None,
+                    uniforms: Optional[Sequence] = None,
+                    sub_rings: int = 1, shard=None,
+                    time=None) -> ParticleState:
+    """`spawn`'s plain version, the eager body (K4b's reference): the
+    animated uniforms evaluated by `animated`, then the window's rows as
+    masked batches, written by `_write_rows`."""
+    _check_ring(state.capacity, spawn_max, sub_rings, shard)
+    u = animated(u, time)
     n_local = state.capacity
     rank, n_ranks = (0, 1) if shard is None else shard
     n = n_local * n_ranks
-    if sub_rings < 1 or spawn_max % sub_rings or n % sub_rings:
-        raise ValueError(f"sub_rings={sub_rings} must divide both spawn_max "
-                         f"{spawn_max} and the capacity {n}")
-    if sub_rings > 1 and sub_rings % n_ranks:
-        raise ValueError(f"sub_rings={sub_rings} is not a multiple of the "
-                         f"{n_ranks} shards")
     dev = state.position.device
     f32 = torch.float32
     count = _count(count, dev)
@@ -369,19 +470,38 @@ class Spawner:
         c, o, s = self.life.constant, self.life.offset, self.life.random_scale
         return max(c + o * s, c - o * s)
 
-    def _post_matrix(self, name, m, now, device):
-        """A static matrix, or an animated Parameter<DynamicMatrix> (a
-        BezierM) evaluated at the current time."""
-        if m is None:
-            return cached_upload(self, name, np.eye(4), device)
+    def _post_matrix(self, name, m, device):
+        """(static matrix, animation): a static matrix (the identity for
+        None) uploaded once, or an animated Parameter<DynamicMatrix> (a
+        BezierM) handed to the spawn, which evaluates it at its `time`,
+        moved to `device` once."""
         if isinstance(m, BezierM):
-            return evaluate_bezier_matrix(m, now).to(device)
-        return cached_upload(self, name, m, device)
+            cache = self.__dict__.setdefault("_animations", {})
+            key = (name, str(device))
+            hit = cache.get(key)
+            if hit is None or hit[0] is not m:
+                hit = cache[key] = (m, _moved(m, torch.device(device
+                                                              or "cpu")))
+            return None, hit[1]
+        return cached_upload(self, name, np.eye(4) if m is None else m,
+                             device), None
 
-    def uniforms(self, now: float, device=None) -> SpawnUniforms:
+    def _position_constants(self, device):
+        """(position constants (P, 4), their count, colours or None)."""
         pos_constants = [(*self.position.constant, self.life.constant)]
         for p in self.additional_positions:
             pos_constants.append((*p, self.life.constant))
+        return (cached_upload(self, "position_constants", pos_constants,
+                              device),
+                cached_upload(self, "position_constant_count",
+                              float(len(pos_constants)), device), None)
+
+    def uniforms(self, now: float, device=None) -> SpawnUniforms:
+        """The spawn's uniforms on `device`: the same object while every
+        value is the same, so that what a spawn keeps on it (K4b's launch
+        arrays) carries from tick to tick. Animated post-matrices are
+        evaluated by the spawn, at its `time`; `now` is the transforms'
+        common argument, which a spawner's uniforms do not depend on."""
         config = np.zeros((9, 4), np.float32)
         # Pack order (ParticleSpawner.cs:220-227).
         config[0] = (*self.position.random_scale, self.life.random_scale)
@@ -403,24 +523,33 @@ class Spawner:
         align = (self.align_velocity_and_position
                  and self.position.type == FORMULA_SPHERICAL
                  and self.velocity.type == FORMULA_SPHERICAL)
-        return SpawnUniforms(
-            position_constants=up("position_constants", pos_constants),
-            position_constant_count=up("position_constant_count",
-                                       float(len(pos_constants))),
+        constants, count, colors = self._position_constants(device)
+        position_matrix, position_animation = self._post_matrix(
+            "position_matrix", self.position_post_matrix, device)
+        velocity_matrix, velocity_animation = self._post_matrix(
+            "velocity_matrix", self.velocity_post_matrix, device)
+        fields = dict(
+            position_constants=constants, position_constant_count=count,
             config=up("config", config),
             formula_types=up("formula_types", [self.position.type,
                                                self.velocity.type, 0.0, 0.0]),
-            position_matrix=self._post_matrix(
-                "position_matrix", self.position_post_matrix, now, device),
-            velocity_matrix=self._post_matrix(
-                "velocity_matrix", self.velocity_post_matrix, now, device),
+            position_matrix=position_matrix,
+            velocity_matrix=velocity_matrix,
             axis_mask=up("axis_mask", self.axis_mask),
             align_velocity_and_position=up("align", 1.0 if align else 0.0),
             attribute_discard_threshold=up(
                 "discard", self.alpha_discard_threshold / 255.0),
             polygon_rate=up("polygon_rate", self.polygon_rate),
             polygon_loop=up("polygon_loop",
-                            1.0 if self.polygon_loop else 0.0))
+                            1.0 if self.polygon_loop else 0.0),
+            position_colors=colors, position_animation=position_animation,
+            velocity_animation=velocity_animation)
+        last = self.__dict__.get("_last_uniforms")
+        if last is not None and all(getattr(last, k) is v
+                                    for k, v in fields.items()):
+            return last
+        self._last_uniforms = SpawnUniforms(**fields)
+        return self._last_uniforms
 
 
 # --------------------------------------------------------------------------
@@ -445,15 +574,16 @@ class FeedbackUniforms:
 def spawn_feedback(state: ParticleState, source: ParticleState,
                    u: FeedbackUniforms, count, spawn_max: int,
                    generator: Optional[torch.Generator] = None,
-                   uniforms: Optional[Sequence] = None) -> ParticleState:
+                   uniforms: Optional[Sequence] = None,
+                   time=None) -> ParticleState:
     """PS_SpawnFeedback as a masked batch over spawn_max slots: new
     particle j reads source slot (source_index + j / instance_multiplier)
     and spawns if that particle's life lies in the source range. `source`
     may be `state` itself (self-feedback): the source rows are gathered
-    before the window is written. Randomness and the in-place write as in
-    `spawn`."""
+    before the window is written. Randomness, `time` and the in-place
+    write as in `spawn`; it runs eagerly on every device."""
     n = state.capacity
-    b = u.base
+    b = animated(u.base, time)
     dev = state.position.device
     count = _count(count, dev)
     rel = torch.arange(spawn_max, dtype=torch.int32, device=dev)
@@ -625,17 +755,15 @@ class PatternSpawner(Spawner):
     def pattern_size(self) -> int:
         return len(self._pattern_positions)
 
-    def uniforms(self, now: float, device=None) -> SpawnUniforms:
-        u = super().uniforms(now, device)
+    def _position_constants(self, device):
+        """The pattern's pixels as position constants, with their colours
+        (the plain spawner's without a pixel above the threshold)."""
         if self.pattern_size == 0:
-            return u
+            return super()._position_constants(device)
         base = np.asarray([(*self.position.constant, self.life.constant)],
                           np.float32)
         pc = self._pattern_positions + base
-        return u.replace(
-            position_constants=cached_upload(self, "pattern_positions", pc,
-                                             device),
-            position_constant_count=cached_upload(
-                self, "pattern_count", float(len(pc)), device),
-            position_colors=cached_upload(self, "pattern_colors",
-                                          self._pattern_colors, device))
+        return (cached_upload(self, "pattern_positions", pc, device),
+                cached_upload(self, "pattern_count", float(len(pc)), device),
+                cached_upload(self, "pattern_colors", self._pattern_colors,
+                              device))

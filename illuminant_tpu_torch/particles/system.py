@@ -211,10 +211,10 @@ class ParticleSystem:
                 if count:
                     state = spawner_mod.spawn_feedback(
                         state, state if self_feed else s.source.state, u,
-                        count, s.spawn_max, **draws)
+                        count, s.spawn_max, time=now, **draws)
             elif count:
                 state = spawner_mod.spawn(state, s.uniforms(now, dev), count,
-                                          s.spawn_max, **draws)
+                                          s.spawn_max, time=now, **draws)
 
         pos, vel = state.position, state.velocity
         with span("illuminant/particles/transforms"):

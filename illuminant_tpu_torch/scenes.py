@@ -76,8 +76,7 @@ from .lighting.volumetric import support_radius_px as volumetric_support_px
 from .lighting.windowed import accumulate_windowed, window_for_support
 from .ops import tonemap as tm
 from .ops.bezier import (DynamicMatrix, constant_bezier, evaluate_bezier,
-                         evaluate_bezier_matrix, pack_bezier,
-                         pack_bezier_matrix)
+                         pack_bezier, pack_bezier_matrix)
 from .parallel.mesh import (check_mesh, gather_slots, mesh_device,
                             reduce_histogram, row_band)
 from .parallel.raster import rasterize_tiled_sharded
@@ -498,7 +497,6 @@ class _FlagshipFrame:
         self.animate_field = animate_field
         self.substeps = substeps
         self.su, self.rd, self.grav_u = su, rd, grav_u
-        self.spawn_u = spawn_u
         self.spawner = spawner
         self.raster_config = raster_config
         self.extra = extra
@@ -523,6 +521,12 @@ class _FlagshipFrame:
             [(cx - ring * 0.5, cy, 30.0), (cx, cy - ring * 0.4, 34.0),
              (cx + ring * 0.5, cy, 30.0), (cx, cy + ring * 0.4, 26.0)],
             min_value=0.0, max_value=6.0, device=device)
+        # The spawn's uniforms with the emission path; it and the animated
+        # velocity post-matrix are evaluated by the spawn at the frame's
+        # time wrapped at 6 s and 4 s (on the card inside K4b's launch).
+        self.spawn_u = spawn_u.replace(
+            position_path=self.spawn_path_bezier,
+            animation_periods=(6.0, 0.0, 4.0))
         self.hist_bounds = bucket_boundaries(max_value=64.0)
         self.white = tm.uncharted2_tonemap(
             torch.tensor(4.0, dtype=f32, device=device))
@@ -695,19 +699,12 @@ class _FlagshipFrame:
 
     def particles(self, state, field, t, spawn_count, generator,
                   spawn_uniforms):
-        """Bezier-path spawn, gravity, then SDF collision."""
-        spawn_pos = evaluate_bezier(self.spawn_path_bezier,
-                                    torch.remainder(t, 6.0))
-        pc = self.spawn_u.position_constants.clone()
-        pc[:, :3] = spawn_pos[None, :]
-        u = self.spawn_u.replace(
-            position_constants=pc,
-            velocity_matrix=evaluate_bezier_matrix(
-                self.spawner.velocity_post_matrix, torch.remainder(t, 4.0)))
-        state = spawn(state, u, spawn_count, self.spawner.spawn_max,
+        """Bezier-path spawn at time `t`, gravity, then SDF collision."""
+        state = spawn(state, self.spawn_u, spawn_count,
+                      self.spawner.spawn_max,
                       generator=None if spawn_uniforms is not None
                       else generator, uniforms=spawn_uniforms,
-                      sub_rings=self.sub_rings, shard=self.shard)
+                      sub_rings=self.sub_rings, shard=self.shard, time=t)
         with span("illuminant/particles/transforms"):
             pos, vel = tx.apply_gravity(state.position, state.velocity,
                                         self.grav_u, self.su)

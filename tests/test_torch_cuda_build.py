@@ -16,14 +16,15 @@ from illuminant_tpu_torch.core import cuda_build
 from illuminant_tpu_torch.lighting import (cone_trace_kernel,
                                            scan_walk_kernel,
                                            tiled_lights_kernel)
-from illuminant_tpu_torch.particles import integrate_kernel
+from illuminant_tpu_torch.particles import integrate_kernel, spawn_kernel
 from illuminant_tpu_torch.raster import splat_kernel, tile_kernel
 from illuminant_tpu_torch.sdf import columns_kernel
 
 STREAM = 0xC0FFEE
 LIBRARIES = {m.LIBRARY.source.name: m.LIBRARY for m in (
     scan_walk_kernel, cone_trace_kernel, tiled_lights_kernel,
-    integrate_kernel, splat_kernel, tile_kernel, columns_kernel)}
+    integrate_kernel, spawn_kernel, splat_kernel, tile_kernel,
+    columns_kernel)}
 
 
 class FakeEntry:
