@@ -22,8 +22,10 @@ Span names, "illuminant/<layer>/<stage>":
   illuminant/lighting/*, illuminant/scan_shadows, illuminant/sphere_lights,
   illuminant/tiled_particle_lights
                                the light families and the shadow scan
-  illuminant/renderer/*        `LightingRenderer`'s public calls and
-                               light passes
+  illuminant/renderer/*        `LightingRenderer`'s public calls, its
+                               G-buffer, its field regeneration
+                               (`field_regen`, one `field_slab` a slab
+                               written) and its light passes
   illuminant/particles/*       `ParticleSystem.update`, `tick`, the
                                transforms, `render`
   illuminant/particle_spawn, illuminant/particle_integrate

@@ -278,8 +278,10 @@ class LightingRenderer:
                 break
             start = invalid[0]
             count = min(SLICES_PER_UPDATE, slice_count - start)
-            volume = vol.update_slices(volume, start, vol.generate_slab(
-                self.sdf_config, obstructions, start, count))
+            # One span a slab written: their count is the slabs a frame.
+            with span("illuminant/renderer/field_slab"):
+                volume = vol.update_slices(volume, start, vol.generate_slab(
+                    self.sdf_config, obstructions, start, count))
             done = set(range(start, start + count))
             invalid = [s for s in invalid if s not in done]
         # The world z up to which every slice is valid.

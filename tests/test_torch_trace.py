@@ -44,6 +44,7 @@ RENDERER_SPANS = {
     "illuminant/renderer/update_fields": None,
     "illuminant/renderer/gbuffer": "illuminant/renderer/update_fields",
     "illuminant/renderer/field_regen": "illuminant/renderer/update_fields",
+    "illuminant/renderer/field_slab": "illuminant/renderer/field_regen",
     "illuminant/renderer/render_lighting": None,
     "illuminant/renderer/light_pass/additive":
         "illuminant/renderer/render_lighting",
