@@ -1302,6 +1302,79 @@ def phase_spawn_kernel(rec):
     return rec
 
 
+def modifier_call():
+    """The modifier chain's call in one frame of the particle cell
+    (particles-collide-1080p: VectorField, Gravity and Noise over
+    1,048,576 slots), on its own steady population from a fixed seed ->
+    the call's (args, kwargs) as `modifier_kernel.modifiers_cuda` takes
+    them."""
+    from framebench.lib.loader import json_file, module
+    from illuminant_tpu_torch.particles import modifier_kernel as k4c
+
+    built = module("scenes", "particles-config4-1080p").build(
+        json_file("configs", "particles-config4-1080p"),
+        json_file("workloads", "particles-collide-1080p"), 2_718_281_828,
+        torch.device("cuda"))
+    with KernelInputs("modifiers_cuda", k4c) as spy:
+        built.step()
+    torch.cuda.synchronize()
+    built.release()
+    return spy.calls[-1]
+
+
+def phase_modifier_kernel(rec):
+    """`[kernel] name=modifiers` (K4c) on the modifier chain of the
+    particle cell's frame (VectorField, Gravity, Noise over 1,048,576
+    slots): the kernel, writing into NaN-filled rows (a kernel that wrote
+    nothing fails), against its plain version on the same CUDA tensors:
+    every element of both rows bit for bit, one launch a call. Its time by
+    CUDA-graph replay beside its byte bound (`modifier_kernel.bytes_moved`:
+    64 B a slot and the uniforms once, at 3.35 TB/s) and its block, and the
+    plain version run as the tick ran it (`plain_ms`, the host's launches
+    in it) and captured in a CUDA graph (`graph_ms`)."""
+    from illuminant_tpu_torch.particles import modifier_kernel as k4c
+    from illuminant_tpu_torch.particles.transforms import \
+        apply_modifiers_reference
+
+    args, kw = modifier_call()
+    position, velocity, steps = args[:3]
+
+    def nans():
+        return (torch.full_like(position, float("nan")),
+                torch.full_like(velocity, float("nan")))
+
+    _reset_launches()
+    got = k4c.modifiers_cuda(*args, **kw, out=nans())
+    launches = _launches()["k4c_modifiers"]
+    ref = apply_modifiers_reference(*args)
+    torch.cuda.synchronize()
+    differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                 for a, b in zip(got, ref))
+    if launches != 1 or differ:
+        raise AssertionError(f"modifiers: {launches} launches, {differ} "
+                             "elements differ from the plain version")
+    prog = k4c.program(steps)
+    n = position.shape[0]
+    n_bytes = k4c.bytes_moved(prog, n)
+    bound = _bound(n_bytes, 0.0)
+    scratch = nans()
+    ms = device_ms(lambda: k4c.modifiers_cuda(*args, **kw, out=scratch),
+                   KERNEL_REPS)
+    plain_ms = eager_ms(lambda: apply_modifiers_reference(*args), 3)
+    graph_ms = device_ms(lambda: apply_modifiers_reference(*args), 2)
+    say("kernel", name="modifiers", inputs="particles", slots=n,
+        steps="+".join(f"{kind}{a or ''}" for kind, a in prog),
+        live=int((position[:, 3] > 0).sum()), elements_differ=differ,
+        launches=launches, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        graph_ms=f"{graph_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+        bound_by=bound[1], share_of_bound=f"{bound[0] / ms:.3f}",
+        bytes=n_bytes, **k4c.block_plan())
+    rec["modifiers_particles"] = dict(ms=ms, plain_ms=plain_ms,
+                                      graph_ms=graph_ms, err=0.0,
+                                      bound=bound)
+    return rec
+
+
 def phase_voxel_march_kernel(field, scene):
     """K12 on the voxel flagship's ColumnField at 1080p (the voxel slice's
     loaded static field and its maps): the sphere lights' rays as the
@@ -1382,7 +1455,8 @@ def phase_slice(name, scene, warmup: int, frames: int):
     SLICE_LAST[name] = (img.clone(), float(avg))
     launches = _launches("k7_column_query", "k7_column_pack",
                          "k7_column_sample", "k12_cone_trace", "k5_splat",
-                         "k1_scan_walk", "k4_integrate", "k4b_spawn")
+                         "k1_scan_walk", "k4_integrate", "k4b_spawn",
+                         "k4c_modifiers")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as k12:
         _, state, avg = _run_frames(scene, 1, warmup + frames, gen, state,
@@ -1413,7 +1487,8 @@ def phase_slice(name, scene, warmup: int, frames: int):
                     k12_cone_trace=K12_PER_FRAME[name] * frames,
                     k5_splat=k5.LAUNCHES_PER_SPLAT * frames,
                     k1_scan_walk=SCAN_WALK_PER_FRAME[name] * frames,
-                    k4_integrate=frames, k4b_spawn=frames)
+                    k4_integrate=frames, k4b_spawn=frames,
+                    k4c_modifiers=frames)
     if launches != expected:
         raise AssertionError(f"{name}: kernels launched {launches} times in "
                              f"{frames} frames, expected {expected}")
@@ -2380,8 +2455,8 @@ def small_particle_systems(name, device):
 def run_small_particles(name, device, draws, random_fields=None):
     """PARTICLE_TICKS ticks of case `name` on `device` with the given
     draws -> (systems, the sum of their rendered images as numpy, the
-    launches {"column_query": the fused query's, "collide_integrate":
-    K4's}). `random_fields`: the Noise fields to use, one a system (a
+    ticks' launches {"k7_column_query": the fused query's,
+    "k4_integrate": K4's, "k4c_modifiers": K4c's}). `random_fields`: the Noise fields to use, one a system (a
     device's generator draws its own)."""
     from illuminant_tpu_torch.ops.noise import RandomField
     from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
@@ -2393,7 +2468,7 @@ def run_small_particles(name, device, draws, random_fields=None):
     for tick in draws:
         for system, d in zip(systems, tick):
             system.tick(DT, spawn_uniforms=d)
-    launches = _launches("k7_column_query", "k4_integrate")
+    launches = _launches("k7_column_query", "k4_integrate", "k4c_modifiers")
     cfg = TiledRasterConfig(height=PARTICLE_SMALL["height"],
                             width=PARTICLE_SMALL["width"])
     img = sum(s.render(cfg)[0] for s in systems)
@@ -2411,8 +2486,9 @@ def phase_reference_particles():
     live particles within 1e-3 and all within 0.05 (a particle within the
     float rounding of a collision threshold may resolve the other way on
     the card), images within 1% of
-    their mean. Every system with a field collides in K4 once a tick;
-    nothing launches the fused query."""
+    their mean. Every system with a field collides in K4 once a tick,
+    every system with modifiers runs them in K4c once a tick; nothing
+    launches the fused query."""
     for name in PARTICLE_CASES:
         probe = small_particle_systems(name, "cpu")
         draws = spawn_draws(probe, PARTICLE_TICKS)
@@ -2437,8 +2513,10 @@ def phase_reference_particles():
             image_mean_rel_err=f"{img_err:.2e}",
             **{f"{k}_launches": v for k, v in launches.items()})
         with_field = sum(s.volume is not None for s in cuda)
+        with_modifiers = sum(bool(s._step) for s in cuda)
         expected = dict(k7_column_query=0,
-                        k4_integrate=PARTICLE_TICKS * with_field)
+                        k4_integrate=PARTICLE_TICKS * with_field,
+                        k4c_modifiers=PARTICLE_TICKS * with_modifiers)
         if not (live > 0 and same_live and within == 1.0
                 and within_1e3 >= 0.99 and img_err <= 0.01):
             raise AssertionError(f"reference_particles ({name}): the card's "
@@ -2496,8 +2574,8 @@ def phase_slice_particles(field, warmup: int):
     frames, each fenced by a synchronize, with CUDA events splitting the
     tick from the render; then one more tick and one more render under
     the host-read counter (the render also under the sync debug mode), and
-    the gates: K4 and K4b once a tick (the maps packed before, once), K5
-    once a render, 0 reads. Returns (launches, ms_per_frame, the checked render's
+    the gates: K4, K4b and K4c once a tick (the maps packed before, once),
+    K5 once a render, 0 reads. Returns (launches, ms_per_frame, the checked render's
     K5 call)."""
     from illuminant_tpu_torch.raster import splat_kernel as k5
     from illuminant_tpu_torch.raster.resolve import resolve, to_uint8
@@ -2522,7 +2600,7 @@ def phase_slice_particles(field, warmup: int):
     ms_per_frame = 1e3 * (time.perf_counter() - t0) / PARTICLE_TIMED_FRAMES
     launches = _launches("k7_column_query", "k7_column_pack",
                          "k7_column_sample", "k5_splat", "k4_integrate",
-                         "k4b_spawn")
+                         "k4b_spawn", "k4c_modifiers")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads:
         system.update(DT)
@@ -2562,6 +2640,8 @@ def phase_slice_particles(field, warmup: int):
         k4_integrate_per_tick=launches["k4_integrate"]
         / PARTICLE_TIMED_FRAMES,
         k4b_spawn_per_tick=launches["k4b_spawn"] / PARTICLE_TIMED_FRAMES,
+        k4c_modifiers_per_tick=launches["k4c_modifiers"]
+        / PARTICLE_TIMED_FRAMES,
         host_reads_per_tick=reads.n,
         host_reads_per_render=render_reads.n, sensor=inside,
         sensor_direct=direct,
@@ -2583,7 +2663,8 @@ def phase_slice_particles(field, warmup: int):
                     k7_column_sample=0,
                     k5_splat=k5.LAUNCHES_PER_SPLAT * PARTICLE_TIMED_FRAMES,
                     k4_integrate=PARTICLE_TIMED_FRAMES,
-                    k4b_spawn=PARTICLE_TIMED_FRAMES)
+                    k4b_spawn=PARTICLE_TIMED_FRAMES,
+                    k4c_modifiers=PARTICLE_TIMED_FRAMES)
     if launches != expected:
         raise AssertionError(f"slice_particles: kernels launched "
                              f"{launches} times in {PARTICLE_TIMED_FRAMES} "
@@ -3577,11 +3658,14 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
     # tick at the model's fixed rate); the feedback spawner stays eager.
     plain_spawners = sum(not getattr(s, "is_feedback", False)
                          for sv in view.systems for s in sv.system.spawners)
+    # A tick of a system with modifiers runs them as one K4c launch.
+    modifier_systems = sum(bool(sv.system._step) for sv in view.systems)
     expected = dict(
         # Each system's collision is one K4 launch a tick; the field's
         # maps were packed at its first tick.
         k7_column_query=0, k7_column_pack=0, k4_integrate=system_ticks,
         k4b_spawn=plain_spawners * MODEL_TIMED_FRAMES,
+        k4c_modifiers=modifier_systems * MODEL_TIMED_FRAMES,
         k7_column_sample=0, k11a_composite=MODEL_TIMED_FRAMES,
         k11b_sprite_accumulate=MODEL_TIMED_FRAMES, k10_tiled_lights=0,
         k12_cone_trace=0, k12_volume_pack=0, k1_scan_walk=0,
@@ -3965,7 +4049,7 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
                     k7_column_sample=0, k11a_composite=0,
                     k11b_sprite_accumulate=0, k12_cone_trace=0,
                     k12_volume_pack=0, k1_scan_walk=0, k5_splat=0,
-                    k4_integrate=0, k4b_spawn=0)
+                    k4_integrate=0, k4b_spawn=0, k4c_modifiers=0)
     if launches != expected:
         raise AssertionError(f"slice_particle_lights: launches {launches} "
                              f"in {LIGHTS_TIMED_FRAMES} frames, expected "
@@ -4808,6 +4892,7 @@ def main(argv=None) -> int:
     phase_scan_walk_kernel(kernel)
     phase_integrate_kernel(kernel)
     phase_spawn_kernel(kernel)
+    phase_modifier_kernel(kernel)
     kernel.update(phase_sprite_kernels(parent=parent_module(
         args.parent, "raster.tile_kernel") if args.parent else None))
     parent_lights = None
@@ -5025,7 +5110,17 @@ def main(argv=None) -> int:
                   ms_particles=kernel["spawn_particles"]["ms"],
                   plain_ms_particles=kernel["spawn_particles"]["plain_ms"],
                   bound_ms_particles=kernel["spawn_particles"][
-                      "bound"][0]))):
+                      "bound"][0])),
+            # K4c at the particle cell's modifier chain (VectorField,
+            # Gravity, Noise); its launches the particle cell's ticks, the
+            # flagship's (its Gravity) beside them.
+            ("modifiers", "illuminant_tpu_torch/csrc/modifiers.cu",
+             "illuminant_tpu/particles/transforms.py",
+             kernel["modifiers_particles"],
+             dict(launches=particle_launches["k4c_modifiers"],
+                  launches_flagship=launches["slice_analytic"][
+                      "k4c_modifiers"],
+                  graph_ms=kernel["modifiers_particles"]["graph_ms"]))):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, **counts, "max_abs_err": r["err"],

@@ -5,8 +5,10 @@ Update :634, Reset :518, LiveCount :293, Render :943). A tick runs the
 reference's pass sequence: spawners first (:725-741), then the non-spawn
 transforms in order (:800-817), then the integrator (:834-855). The JAX
 package traces that sequence into one jitted program; here it is an
-ordered list of steps built at construction and at `patch`, run eagerly
-on the system's device. The fixed-timestep accumulator of `update`
+ordered list of steps built at construction and at `patch`, run on the
+system's device (on the card the spawn, the modifier chain and the
+integrate are one kernel launch each: K4b, K4c, K4; on the CPU they run
+eagerly). The fixed-timestep accumulator of `update`
 (ParticleSystem.cs:634-665) runs on the host.
 
 Randomness: the JAX system draws each tick's spawn randomness from
@@ -68,13 +70,6 @@ class ParticleSystemConfig:
     collision_substeps: int = 3
 
 
-def _slot_xy(capacity: int, device):
-    """Flat slot index -> the reference's 256-wide chunk texel grid (the
-    randomness sampling coordinates, ParticleSystem.cs:49)."""
-    i = torch.arange(capacity, dtype=torch.float32, device=device)
-    return torch.stack([i % 256.0, torch.floor(i / 256.0)], dim=-1)
-
-
 class ParticleSystem:
     """One particle system on `device`; transforms (spawners included) are
     fixed at construction and replaced through `patch`."""
@@ -95,7 +90,6 @@ class ParticleSystem:
             device=self.device)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.state = ParticleState.empty(config.capacity, device=self.device)
-        self._slot_xy = _slot_xy(config.capacity, self.device)
         self._uniforms_key = None
         self._tick_index = 0
         self._time = 0.0
@@ -136,9 +130,10 @@ class ParticleSystem:
         raise TypeError(f"unknown transform kind {type(t).__name__}")
 
     def _build_step(self):
-        """The tick's ordered modifier list: (transform, device function)
-        for each non-spawn transform; a Sensor has none (it is measured on
-        demand)."""
+        """The tick's ordered modifier list: (transform, eager function)
+        for each non-spawn transform, which `transforms.apply_modifiers`
+        runs with the transform's uniforms; a Sensor has none (it is
+        measured on demand)."""
         apply = {
             "FMA": tx.apply_fma,
             "MatrixMultiply": tx.apply_matrix_multiply,
@@ -151,17 +146,11 @@ class ParticleSystem:
             if kind == "Sensor":
                 continue
             if kind == "Noise":
-                noise = (tx.apply_spatial_noise if t.spatial
-                         else tx.apply_noise)
-                steps.append((t, self._noise_step(noise)))
+                steps.append((t, tx.apply_spatial_noise if t.spatial
+                              else tx.apply_noise))
             else:
                 steps.append((t, apply[kind]))
         return steps
-
-    def _noise_step(self, noise):
-        def step(pos, vel, u, su):
-            return noise(pos, vel, u, su, self.random_field, self._slot_xy)
-        return step
 
     # -- public surface -----------------------------------------------------
 
@@ -216,10 +205,11 @@ class ParticleSystem:
                 state = spawner_mod.spawn(state, s.uniforms(now, dev), count,
                                           s.spawn_max, time=now, **draws)
 
-        pos, vel = state.position, state.velocity
         with span("illuminant/particles/transforms"):
-            for t, apply in self._step:
-                pos, vel = apply(pos, vel, t.uniforms(now, dev), su)
+            pos, vel = tx.apply_modifiers(
+                state.position, state.velocity,
+                [(apply, t.uniforms(now, dev)) for t, apply in self._step],
+                su, self.random_field)
         state = state.replace(position=pos, velocity=vel)
 
         cfg = self.config

@@ -574,6 +574,55 @@ class VectorField:
 
 
 # --------------------------------------------------------------------------
+# The tick's ordered modifier chain (ParticleSystem.cs:800-817)
+
+
+def slot_xy(capacity: int, device=None):
+    """Flat slot index -> the reference's 256-wide chunk texel grid (the
+    randomness sampling coordinates, ParticleSystem.cs:49): (capacity, 2)
+    float32 (i % 256, floor(i / 256))."""
+    i = torch.arange(capacity, dtype=torch.float32, device=device)
+    return torch.stack([i % 256.0, torch.floor(i / 256.0)], dim=-1)
+
+
+_NOISE_STEPS = (apply_noise, apply_spatial_noise)
+
+
+def apply_modifiers(position, velocity, steps, su: SystemUniforms,
+                    random_field: Optional[noise_ops.RandomField] = None):
+    """Run a tick's modifiers in order: `steps` is a sequence of (eager
+    function, uniforms) pairs, the function one of this module's `apply_*`
+    (the noise steps sample `random_field`). On CUDA tensors the chain is
+    one launch of K4c (particles/modifier_kernel.py), which equals it bit
+    for bit; elsewhere `apply_modifiers_reference`."""
+    if not steps:
+        return position, velocity
+    from . import modifier_kernel
+
+    if modifier_kernel.takes(position.device):
+        return modifier_kernel.modifiers_cuda(position, velocity, steps, su,
+                                              random_field)
+    return apply_modifiers_reference(position, velocity, steps, su,
+                                     random_field)
+
+
+def apply_modifiers_reference(position, velocity, steps, su: SystemUniforms,
+                              random_field=None):
+    """The plain version of `apply_modifiers` on any device: each step's
+    eager function in turn, the noise steps at `slot_xy` of the rows."""
+    grid = None
+    for apply, u in steps:
+        if apply in _NOISE_STEPS:
+            if grid is None:
+                grid = slot_xy(position.shape[0], position.device)
+            position, velocity = apply(position, velocity, u, su,
+                                       random_field, grid)
+        else:
+            position, velocity = apply(position, velocity, u, su)
+    return position, velocity
+
+
+# --------------------------------------------------------------------------
 # Sensor (Transforms.cs:374-486, CollectParticles.fx): counts live
 # particles inside an area with one masked reduction.
 

@@ -706,8 +706,9 @@ class _FlagshipFrame:
                       else generator, uniforms=spawn_uniforms,
                       sub_rings=self.sub_rings, shard=self.shard, time=t)
         with span("illuminant/particles/transforms"):
-            pos, vel = tx.apply_gravity(state.position, state.velocity,
-                                        self.grav_u, self.su)
+            pos, vel = tx.apply_modifiers(
+                state.position, state.velocity,
+                [(tx.apply_gravity, self.grav_u)], self.su)
         state = state.replace(position=pos, velocity=vel)
         return integrate_with_distance_field(
             state, self.su, self.rd, field, substeps=self.substeps,

@@ -41,7 +41,7 @@ def test_column_field_system_collides_on_the_cpu():
 def test_cuda_column_field_system_matches_cpu():
     """10 ticks from the same host draws and Noise field: the collision
     (3 substeps) is one K4 launch a tick and launches no fused query, the
-    live masks are equal and
+    modifiers are one K4c launch a tick, the live masks are equal and
     99% of live particles agree within 1e-3 (a particle within the float
     rounding of a collision threshold may resolve the other way)."""
     if not torch.cuda.is_available():
@@ -51,7 +51,8 @@ def test_cuda_column_field_system_matches_cpu():
     (cuda,), img_g, launches = cs.run_small_particles(
         "column_field", "cuda", draws, [cpu.random_field.data])
     assert launches == dict(k7_column_query=0,
-                            k4_integrate=cs.PARTICLE_TICKS)
+                            k4_integrate=cs.PARTICLE_TICKS,
+                            k4c_modifiers=cs.PARTICLE_TICKS)
     a, b = cpu.state.position.numpy(), cuda.state.position.cpu().numpy()
     live = a[:, 3] > 0
     np.testing.assert_array_equal(live, b[:, 3] > 0)
