@@ -22,10 +22,17 @@ Span names, "illuminant/<layer>/<stage>":
   illuminant/lighting/*, illuminant/scan_shadows, illuminant/sphere_lights,
   illuminant/tiled_particle_lights
                                the light families and the shadow scan
+  illuminant/scan_shadows/readout
+                               the scan's readout, from the column walk's
+                               return to the visibility returned
+  illuminant/sphere_lights/ao  the sphere lights' AO sample
   illuminant/renderer/*        `LightingRenderer`'s public calls, its
-                               G-buffer, its field regeneration
-                               (`field_regen`, one `field_slab` a slab
-                               written) and its light passes
+                               G-buffer (`gbuffer`, inside it
+                               `gbuffer/height_volumes` and
+                               `gbuffer/billboards`), its field
+                               regeneration (`field_regen`, one
+                               `field_slab` a slab written) and its light
+                               passes
   illuminant/particles/*       `ParticleSystem.update`, `tick`, the
                                transforms, `render`
   illuminant/particle_spawn, illuminant/particle_integrate

@@ -229,11 +229,14 @@ class LightingRenderer:
             return gbuf.no_gbuffer(h, w, env_u, self.config.render_scale)
         gbuffer = gbuf.flat_ground(h, w, env_u, self.config.render_scale)
         if env.height_volumes and self.config.two_point_five_d:
-            gbuffer = rasterize_height_volumes(
-                gbuffer, pack_height_volumes(env.height_volumes,
-                                             device=self.device), env_u)
+            with span("illuminant/renderer/gbuffer/height_volumes"):
+                gbuffer = rasterize_height_volumes(
+                    gbuffer, pack_height_volumes(env.height_volumes,
+                                                 device=self.device), env_u)
         if env.billboards:
-            gbuffer = rasterize_billboards(gbuffer, env.billboards, env_u)
+            with span("illuminant/renderer/gbuffer/billboards"):
+                gbuffer = rasterize_billboards(gbuffer, env.billboards,
+                                               env_u)
         for hook in self.on_render_gbuffer:
             gbuffer = hook(gbuffer, env_u)
         return gbuffer

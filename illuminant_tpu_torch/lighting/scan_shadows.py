@@ -320,132 +320,138 @@ def scan_visibility(scene, height: int, width: int, light_position,
         extra, fp = (), None
     band = float(min(1.0, max(nscale, 0.25)))
     east, west, north, south = scan_walk(occ, lx, ly, lr_n, band, extra, fp)
+    # The readout: everything after the column walk.
+    with span("illuminant/scan_shadows/readout"):
+        ys_n = torch.arange(nh, dtype=f32, device=dev)[None, :, None] + 0.5
+        xs_n = torch.arange(nw, dtype=f32, device=dev)[None, None, :] + 0.5
+        dx_n = xs_n - lx[:, None, None]
+        dy_n = ys_n - ly[:, None, None]
+        # Sector select: E/W own |dy| <= |dx|, N/S the rest.
+        horiz = torch.abs(dx_n) >= torch.abs(dy_n)
+        is_east = horiz & (dx_n >= 0.0)
+        is_west = horiz & (dx_n < 0.0)
+        is_north = (~horiz) & (dy_n >= 0.0)
+        sel = [torch.where(is_east, e, torch.where(
+            is_west, w, torch.where(is_north, n, s)))
+            for e, w, n, s in zip(east, west, north, south)]
+        # (min_d, k, neg_k) and, carried, (f_min, h_top, h_bot).
+        min_d, min_k, neg_k, tb_star = sel[0], sel[1], sel[2], tuple(sel[3:])
+        major_n = torch.clamp(torch.maximum(torch.abs(dx_n), torch.abs(dy_n)),
+                              min=1e-3)
+        k_frac = torch.clamp(min_k / major_n, 0.0, 1.0)  # 0 at light, 1 at px
+        exit_frac = torch.clamp(torch.maximum(neg_k, min_k) / major_n, 0.0,
+                                1.0)
+        if halvings:
+            min_d, k_frac, exit_frac, has_blocker, tb_star = \
+                _upsample_nominated(min_d, k_frac, exit_frac, halvings,
+                                    extras=tb_star[1:],
+                                    fmin=tb_star[0] if use_cols else None)
+        else:
+            has_blocker = min_d < 1e8
 
-    ys_n = torch.arange(nh, dtype=f32, device=dev)[None, :, None] + 0.5
-    xs_n = torch.arange(nw, dtype=f32, device=dev)[None, None, :] + 0.5
-    dx_n = xs_n - lx[:, None, None]
-    dy_n = ys_n - ly[:, None, None]
-    # Sector select: E/W own |dy| <= |dx|, N/S the rest.
-    horiz = torch.abs(dx_n) >= torch.abs(dy_n)
-    is_east = horiz & (dx_n >= 0.0)
-    is_west = horiz & (dx_n < 0.0)
-    is_north = (~horiz) & (dy_n >= 0.0)
-    sel = [torch.where(is_east, e, torch.where(
-        is_west, w, torch.where(is_north, n, s)))
-        for e, w, n, s in zip(east, west, north, south)]
-    # (min_d, k, neg_k) and, carried, (f_min, h_top, h_bot).
-    min_d, min_k, neg_k, tb_star = sel[0], sel[1], sel[2], tuple(sel[3:])
-    major_n = torch.clamp(torch.maximum(torch.abs(dx_n), torch.abs(dy_n)),
-                          min=1e-3)
-    k_frac = torch.clamp(min_k / major_n, 0.0, 1.0)  # 0 at light, 1 at px
-    exit_frac = torch.clamp(torch.maximum(neg_k, min_k) / major_n, 0.0, 1.0)
-    if halvings:
-        min_d, k_frac, exit_frac, has_blocker, tb_star = \
-            _upsample_nominated(min_d, k_frac, exit_frac, halvings,
-                                extras=tb_star[1:],
-                                fmin=tb_star[0] if use_cols else None)
-    else:
-        has_blocker = min_d < 1e8
+        # --- READOUT at full shadow resolution (pixel centers at i + 0.5).
+        lx = (light_position[:, 0] - off_x) * render_scale
+        ly = (light_position[:, 1] - off_y) * render_scale
+        ys = torch.arange(height, dtype=f32, device=dev)[None, :, None] + 0.5
+        xs = torch.arange(width, dtype=f32, device=dev)[None, None, :] + 0.5
+        dx = xs - lx[:, None, None]
+        dy = ys - ly[:, None, None]
+        # Major-axis extents -> along-ray world distances (u = frac * major
+        # * sec): cone radii, HACK_DISTANCE_OFFSET and distances are world
+        # units.
+        major = torch.clamp(torch.maximum(torch.abs(dx), torch.abs(dy)),
+                            min=1e-3)
+        if pixel_z is None:
+            pz = torch.zeros((1,) + tuple(min_d.shape[1:]), dtype=f32,
+                             device=dev)
+        else:
+            pz = pixel_z if pixel_z.dim() == 3 else pixel_z[None]
+        lz3 = lz[:, None, None]
+        dz = pz - lz3
+        inv_rs = 1.0 / max(render_scale, 1e-6)
+        ray_len_w = torch.sqrt((dx * dx + dy * dy) * (inv_rs * inv_rs)
+                               + dz * dz)
+        sec = ray_len_w / major
 
-    # --- READOUT at full shadow resolution (pixel centers at i + 0.5).
-    lx = (light_position[:, 0] - off_x) * render_scale
-    ly = (light_position[:, 1] - off_y) * render_scale
-    ys = torch.arange(height, dtype=f32, device=dev)[None, :, None] + 0.5
-    xs = torch.arange(width, dtype=f32, device=dev)[None, None, :] + 0.5
-    dx = xs - lx[:, None, None]
-    dy = ys - ly[:, None, None]
-    # Major-axis extents -> along-ray world distances (u = frac * major
-    # * sec): cone radii, HACK_DISTANCE_OFFSET and distances are world
-    # units.
-    major = torch.clamp(torch.maximum(torch.abs(dx), torch.abs(dy)),
-                        min=1e-3)
-    if pixel_z is None:
-        pz = torch.zeros((1,) + tuple(min_d.shape[1:]), dtype=f32,
-                         device=dev)
-    else:
-        pz = pixel_z if pixel_z.dim() == 3 else pixel_z[None]
-    lz3 = lz[:, None, None]
-    dz = pz - lz3
-    inv_rs = 1.0 / max(render_scale, 1e-6)
-    ray_len_w = torch.sqrt((dx * dx + dy * dy) * (inv_rs * inv_rs)
-                           + dz * dz)
-    sec = ray_len_w / major
+        # createTraceConfig (ConeTrace.fxh:122-139) + coneTraceStep (:51-71).
+        max_radius = torch.clamp(light_radius[:, None, None], MIN_CONE_RADIUS,
+                                 quality.max_cone_radius)
+        ramp = torch.clamp(light_ramp_length[:, None, None], min=16.0)
+        growth = max_radius / ramp * quality.cone_growth_factor
 
-    # createTraceConfig (ConeTrace.fxh:122-139) + coneTraceStep (:51-71).
-    max_radius = torch.clamp(light_radius[:, None, None], MIN_CONE_RADIUS,
-                             quality.max_cone_radius)
-    ramp = torch.clamp(light_ramp_length[:, None, None], min=16.0)
-    growth = max_radius / ramp * quality.cone_growth_factor
-
-    # The exact refine's ray endpoints: light (world) -> the lifted
-    # shaded surface.
-    px_x = xs * inv_rs + off_x
-    px_y = ys * inv_rs + off_y
-    if pixel_offset_xy is not None:
-        px_x = px_x + pixel_offset_xy[..., 0]
-        px_y = px_y + pixel_offset_xy[..., 1]
-    lx_w = light_position[:, 0][:, None, None]
-    ly_w = light_position[:, 1][:, None, None]
-    if max_trace_distance is not None:
-        # The blocker's distance from the pixel along the ray, in world
-        # units (major * sec is the world ray length).
-        u_blocker = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
-        has_blocker = has_blocker & (
-            u_blocker <= max_trace_distance[:, None, None])
-
-    if quality.scan_refine_samples <= 0:
-        # Pure flatland: the scan's own 2D minimum.
-        u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
-        radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
-        vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0, max=1.0)
+        # The exact refine's ray endpoints: light (world) -> the lifted
+        # shaded surface.
+        px_x = xs * inv_rs + off_x
+        px_y = ys * inv_rs + off_y
+        if pixel_offset_xy is not None:
+            px_x = px_x + pixel_offset_xy[..., 0]
+            px_y = px_y + pixel_offset_xy[..., 1]
+        lx_w = light_position[:, 0][:, None, None]
+        ly_w = light_position[:, 1][:, None, None]
         if max_trace_distance is not None:
-            vis = torch.where(has_blocker, vis, 1.0)
-        candidates = ()
-    else:
-        # Refine candidates along the blocker span (scan_shadows.py:
-        # 729-764).
-        fwd = torch.minimum((exit_frac - k_frac) * 0.5, 1.5 / (major * sec))
-        t_star = torch.where(min_d < -1.0, k_frac + fwd,
-                             (k_frac + exit_frac) * 0.5)
-        if quality.scan_refine_samples == 1:
-            candidates = (t_star,)
-        elif quality.scan_refine_samples == 2:
-            candidates = (t_star, exit_frac)
+            # The blocker's distance from the pixel along the ray, in world
+            # units (major * sec is the world ray length).
+            u_blocker = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
+            has_blocker = has_blocker & (
+                u_blocker <= max_trace_distance[:, None, None])
+
+        if quality.scan_refine_samples <= 0:
+            # Pure flatland: the scan's own 2D minimum.
+            u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
+            radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
+            vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0,
+                              max=1.0)
+            if max_trace_distance is not None:
+                vis = torch.where(has_blocker, vis, 1.0)
+            candidates = ()
         else:
-            t_entry = torch.where(min_d < -1.0, (k_frac + exit_frac) * 0.5,
-                                  k_frac)
-            candidates = (t_star, t_entry, exit_frac)
-        vis = torch.ones(min_d.shape, dtype=f32, device=dev)
-    for t in candidates:
-        sz = lz3 + (pz - lz3) * t
-        if use_cols:
-            # Elementwise column reconstruction at the candidate's height.
-            d_i = reconstruct_profile(tb_star[0], tb_star[1], tb_star[2], sz)
-        else:
-            d_i = scene_sample_p(scene, lx_w + (px_x - lx_w) * t,
-                                 ly_w + (px_y - ly_w) * t, sz)
-        u_i = torch.clamp((1.0 - t) * major * sec, min=0.0)
-        radius_i = torch.minimum(growth * u_i + MIN_CONE_RADIUS, max_radius)
-        vis_i = (d_i + HACK_DISTANCE_OFFSET) / radius_i
-        vis = torch.minimum(vis, torch.where(has_blocker, vis_i, 1.0))
-    if candidates:
-        # Compound-umbra guard (scan_shadows.py:791-829): where the 3D ray
-        # at the nominated blocker is at or below the trace plane, the
-        # flatland block applies.
-        ray_z_at_k = lz3 + (pz - lz3) * k_frac
-        ray_z_at_exit = lz3 + (pz - lz3) * exit_frac
-        low_ray = (ray_z_at_k <= trace_z + 0.5) | (
-            (ray_z_at_exit <= trace_z + 0.5) & (min_d < -0.5))
-        u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
-        radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
-        flat_vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0,
-                               max=1.0)
-        vis = torch.where(has_blocker & low_ray, torch.minimum(vis, flat_vis),
-                          vis)
-    final = torch.clamp(
-        torch.clamp(vis - FULLY_SHADOWED_THRESHOLD, 0.0, 1.0)
-        / (UNSHADOWED_THRESHOLD - FULLY_SHADOWED_THRESHOLD), 0.0, 1.0)
-    return final ** quality.occlusion_to_opacity_power
+            # Refine candidates along the blocker span (scan_shadows.py:
+            # 729-764).
+            fwd = torch.minimum((exit_frac - k_frac) * 0.5,
+                                1.5 / (major * sec))
+            t_star = torch.where(min_d < -1.0, k_frac + fwd,
+                                 (k_frac + exit_frac) * 0.5)
+            if quality.scan_refine_samples == 1:
+                candidates = (t_star,)
+            elif quality.scan_refine_samples == 2:
+                candidates = (t_star, exit_frac)
+            else:
+                t_entry = torch.where(min_d < -1.0, (k_frac + exit_frac) * 0.5,
+                                      k_frac)
+                candidates = (t_star, t_entry, exit_frac)
+            vis = torch.ones(min_d.shape, dtype=f32, device=dev)
+        for t in candidates:
+            sz = lz3 + (pz - lz3) * t
+            if use_cols:
+                # Elementwise column reconstruction at the candidate's height.
+                d_i = reconstruct_profile(tb_star[0], tb_star[1], tb_star[2],
+                                          sz)
+            else:
+                d_i = scene_sample_p(scene, lx_w + (px_x - lx_w) * t,
+                                     ly_w + (px_y - ly_w) * t, sz)
+            u_i = torch.clamp((1.0 - t) * major * sec, min=0.0)
+            radius_i = torch.minimum(growth * u_i + MIN_CONE_RADIUS,
+                                     max_radius)
+            vis_i = (d_i + HACK_DISTANCE_OFFSET) / radius_i
+            vis = torch.minimum(vis, torch.where(has_blocker, vis_i, 1.0))
+        if candidates:
+            # Compound-umbra guard (scan_shadows.py:791-829): where the 3D ray
+            # at the nominated blocker is at or below the trace plane, the
+            # flatland block applies.
+            ray_z_at_k = lz3 + (pz - lz3) * k_frac
+            ray_z_at_exit = lz3 + (pz - lz3) * exit_frac
+            low_ray = (ray_z_at_k <= trace_z + 0.5) | (
+                (ray_z_at_exit <= trace_z + 0.5) & (min_d < -0.5))
+            u0 = torch.clamp((1.0 - k_frac) * major * sec, min=0.0)
+            radius0 = torch.minimum(growth * u0 + MIN_CONE_RADIUS, max_radius)
+            flat_vis = torch.clamp((min_d + HACK_DISTANCE_OFFSET) / radius0,
+                                   max=1.0)
+            vis = torch.where(has_blocker & low_ray,
+                              torch.minimum(vis, flat_vis), vis)
+        final = torch.clamp(
+            torch.clamp(vis - FULLY_SHADOWED_THRESHOLD, 0.0, 1.0)
+            / (UNSHADOWED_THRESHOLD - FULLY_SHADOWED_THRESHOLD), 0.0, 1.0)
+        return final ** quality.occlusion_to_opacity_power
 
 
 def _upsample_nominated(min_d, k_frac, exit_frac, halvings: int, extras=(),

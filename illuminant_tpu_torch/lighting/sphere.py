@@ -176,9 +176,10 @@ def accumulate_sphere_lights(volume, gbuffer: GBuffer, lights: SphereLights,
     `scan_visibility_precomputed` ((L, H, W)): a caller's cone visibility,
     usually a slice of one fused radial scan shared by several light
     families; it implies the scan path. `shadow_mode`: "scan", "march"
-    (the exact cone trace; one device-to-host read a step and chunk of
-    lights) or "none", the host's static skip for a set in which no light
-    casts shadows. `with_specular` adds specularity * opacity * specular
+    (the exact cone trace: on the card one K12 launch for every ray, no
+    host read; on the CPU the plain loop, one host read a step and chunk
+    of lights) or "none", the host's static skip for a set in which no
+    light casts shadows. `with_specular` adds specularity * opacity * specular
     colour (LightCommon.fxh:212-222), the camera straight above each pixel
     at maximum_z + 0.01. Lights packed with a ramp texture take their rgb
     from it (the WithRamp epilogue). The arguments and their defaults are
@@ -246,10 +247,11 @@ def accumulate_sphere_lights(volume, gbuffer: GBuffer, lights: SphereLights,
 
     if with_ao:
         # AO only on upward-facing surfaces (SphereLightCore.fxh:77).
-        ao_radius = lplane(lights.more[:, 0]) * torch.clamp(nz, min=0.0)
-        pre_trace = pre_trace * compute_ao_p(
-            volume, wx, wy, wz, nz, ao_radius, lplane(lights.more[:, 3]),
-            visible, pixel_grid=(xs, ys))
+        with span("illuminant/sphere_lights/ao"):
+            ao_radius = lplane(lights.more[:, 0]) * torch.clamp(nz, min=0.0)
+            pre_trace = pre_trace * compute_ao_p(
+                volume, wx, wy, wz, nz, ao_radius, lplane(lights.more[:, 3]),
+                visible, pixel_grid=(xs, ys))
 
     cast_shadows = lplane(lights.properties[:, 3]) \
         * gbuffer.enable_shadows[None]

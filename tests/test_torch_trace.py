@@ -19,6 +19,7 @@ FRAME_SPANS = {
     "illuminant/frame/lighting": None,
     "illuminant/lighting/fused_scan": "illuminant/frame/lighting",
     "illuminant/scan_shadows": "illuminant/sphere_lights",
+    "illuminant/scan_shadows/readout": "illuminant/scan_shadows",
     "illuminant/sphere_lights": "illuminant/frame/lighting",
     "illuminant/frame/particles": None,
     "illuminant/particle_spawn": "illuminant/frame/particles",
