@@ -36,7 +36,11 @@ column walk) at one launch a `scan_visibility` call (SCAN_WALK_PER_FRAME),
 and `[kernel] name=scan_walk` holds K1 on the analytic and the voxel
 flagship's own walks (270 x 480, 8 lights) to the eager loop bit for bit,
 timed beside its byte bound, the eager loop as the frame runs it
-(`plain_ms`) and that loop captured in a CUDA graph (`graph_ms`). Each
+(`plain_ms`) and that loop captured in a CUDA graph (`graph_ms`); K2
+(`csrc/scan_readout.cu`, the readout after the walk) launches as often,
+and `[kernel] name=scan_readout` holds it on the flagship scan and the
+2.5D renderer cells' readouts to its plain version bit for bit, timed
+the same way beside its bound (`scan_readout_work`). Each
 slice line gives ms/frame, live particles, avg_lum, the peak device
 memory and the launch counts. `reference` holds the card's
 voxel frame at both presets (K4 once a frame, the fused query never),
@@ -295,10 +299,10 @@ SLICES = {
 K12_PER_FRAME = {"slice": 0, "slice_analytic": 0, "slice_parity": 0,
                  "slice_family": 1, "slice_family_parity": 1,
                  "slice_family_march": 3}
-# K1 launches a frame of each slice: one a `scan_visibility` call. The
-# sphere lights' scan (fused with the sun's and the line light's where the
-# families are on); the volumetric light's windowed scan; under the march
-# the line light's own scan.
+# K1 (and K2) launches a frame of each slice: one a `scan_visibility`
+# call. The sphere lights' scan (fused with the sun's and the line
+# light's where the families are on); the volumetric light's windowed
+# scan; under the march the line light's own scan.
 SCAN_WALK_PER_FRAME = {"slice": 1, "slice_analytic": 1, "slice_parity": 1,
                        "slice_family": 2, "slice_family_parity": 2,
                        "slice_family_march": 2}
@@ -1139,6 +1143,146 @@ def phase_scan_walk_kernel(rec):
     return rec
 
 
+# Float32 operations of one readout point outside the field (K2): the
+# sector select (the texel's offset, the fraction, the mask: 12), the
+# ray geometry (dx, dy, |.|, max, clamp, the root's six, sec: 14), the
+# cone (clamp, max_radius, growth: 4), the trace budget (4), a
+# candidate's t, its endpoints and height (10), its cone radius and ratio
+# (8), the guard (12), the thresholds and the power (6); each staged
+# channel of a halving (the row and column passes: 6 products, 3 sums; 4
+# channels, 7 carried) and the normalisation (6). The field: a primitive's
+# operations by type (sdf_fields.cuh: the box 19, the ellipsoid 35, the
+# cylinder 22, the spheroid 29, the octagon 46; a rotation 30 more), an
+# extruded polygon's 12 and 22 an edge; the carried reconstruction 11.
+SCAN_READOUT_OPS = 62
+SCAN_READOUT_CANDIDATE_OPS = 18
+SCAN_READOUT_UPSAMPLE_OPS = 9
+SCAN_READOUT_NORMALISE_OPS = 6
+PRIMITIVE_OPS = {1: 35, 2: 19, 3: 22, 4: 29, 5: 46}
+ROTATION_OPS = 30
+POLYGON_OPS = 12
+POLYGON_EDGE_OPS = 22
+CARRIED_OPS = 11
+
+
+def scan_readout_work(args, kw):
+    """(bytes, operations) of one K2 call: the selected sector's channels
+    of each nomination texel read once, the per-pixel heights and offsets
+    read once (per lane where they are per lane), the visibility written
+    once; every point's readout, its candidates' field evaluations (the
+    scene counted as sdf_fields.cuh evaluates it) and its halvings'
+    upsample."""
+    from illuminant_tpu_torch.lighting import scan_readout_kernel as k2
+    from illuminant_tpu_torch.sdf.analytic import AnalyticScene
+
+    scene, walk, quality = args[0], args[1], args[7]
+    height, width, halvings, use_cols = args[9], args[10], args[12], args[13]
+    lights, nh, nw = walk.shape[2], walk.shape[3], walk.shape[4]
+    channels = 6 if use_cols else 3
+    n_bytes = 4 * (channels * lights * nh * nw + lights * height * width)
+    for key in ("pixel_z", "pixel_offset_xy"):
+        if kw.get(key) is not None:
+            n_bytes += 4 * kw[key].numel()
+    points = lights * height * width
+    candidates = min(max(quality.scan_refine_samples, 0), 3)
+    field = 0
+    if use_cols:
+        field = CARRIED_OPS
+    elif isinstance(scene, AnalyticScene) and candidates:
+        records, _ = k2.k12.analytic_records(scene)
+        for r in records.tolist():
+            field += PRIMITIVE_OPS[int(r[0])] + (ROTATION_OPS if r[1] > 0.5
+                                                 else 0)
+        if scene.polygons is not None:
+            p = scene.polygons
+            field += p.capacity * (POLYGON_OPS + POLYGON_EDGE_OPS
+                                   * int(p.vertices.shape[1]))
+    staged = k2.CHANNELS[use_cols]
+    per_point = (SCAN_READOUT_OPS + candidates * (SCAN_READOUT_CANDIDATE_OPS
+                                                  + field)
+                 + (halvings * staged * SCAN_READOUT_UPSAMPLE_OPS
+                    + SCAN_READOUT_NORMALISE_OPS if halvings else 0))
+    return n_bytes, points * per_point
+
+
+def scan_readout_call(cell: str):
+    """The readout's call in one frame of a benchmark cell (`framebench/`)
+    from a fixed seed: "flagship" (flagship-scan-1080p: 8 lanes, its
+    4-primitive analytic scene) or "renderer_25d" (renderer-25d-1080p: 16
+    lanes, the turned box and three extruded prisms) -> the call's (args,
+    kwargs) as `scan_readout_kernel.scan_readout_cuda` takes them."""
+    from framebench.lib.loader import json_file, module
+    from illuminant_tpu_torch.lighting import scan_readout_kernel as k2
+
+    config, workload = {
+        "flagship": ("flagship-analytic-1080p", "flagship-scan-1080p"),
+        "renderer_25d": ("renderer-25d-scan-1080p",
+                         "renderer-25d-1080p")}[cell]
+    built = module("scenes", config).build(
+        json_file("configs", config), json_file("workloads", workload),
+        2_718_281_828, torch.device("cuda"))
+    with KernelInputs("scan_readout_cuda", k2) as spy:
+        built.step()
+    torch.cuda.synchronize()
+    built.release()
+    if len(spy.calls) != 1:
+        raise AssertionError(f"the {cell} frame read the scan out "
+                             f"{len(spy.calls)} times; expected 1")
+    return spy.calls[0]
+
+
+def phase_scan_readout_kernel(rec):
+    """`[kernel] name=scan_readout` (K2) on the readouts of the flagship
+    scan cell's frame (8 lanes) and the 2.5D renderer cell's (16 lanes),
+    540 x 960 from a 270 x 480 walk: the kernel against its plain version
+    on the same CUDA tensors (every pixel bit for bit; one launch), its
+    time by CUDA-graph replay beside its bound (bytes or operations, the
+    larger: `scan_readout_work`) and its block, and the plain version run
+    as the frame ran it (`plain_ms`) and captured in a CUDA graph
+    (`graph_ms`)."""
+    from illuminant_tpu_torch.lighting import scan_readout_kernel as k2
+    from illuminant_tpu_torch.lighting import scan_shadows
+
+    for cell in ("flagship", "renderer_25d"):
+        args, kw = scan_readout_call(cell)
+        _reset_launches()
+        got = k2.scan_readout_cuda(*args, **kw)
+        launches = _launches()["k2_scan_readout"]
+        ref = scan_shadows.scan_readout_reference(*args, **kw)
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        if launches != 1 or differ:
+            raise AssertionError(f"scan_readout ({cell}): {launches} "
+                                 f"launches, {differ} pixels differ from "
+                                 "the plain version")
+        n_bytes, n_ops = scan_readout_work(args, kw)
+        bound = _bound(n_bytes, n_ops)
+        name, _, f_ints, _, _ = k2._field(args[0], args[7], args[13])
+        plan = k2.block_plan(args[9], args[10], args[1].shape[2], args[12],
+                             name, k2.k12.analytic_smem_bytes(f_ints) // 4
+                             if name == "analytic" else 0)
+        ms = device_ms(lambda: k2.scan_readout_cuda(*args, **kw),
+                       KERNEL_REPS)
+        plain_ms = eager_ms(
+            lambda: scan_shadows.scan_readout_reference(*args, **kw), 3)
+        graph_ms = device_ms(
+            lambda: scan_shadows.scan_readout_reference(*args, **kw), 2)
+        say("kernel", name="scan_readout", inputs=cell,
+            grid=f"{args[9]}x{args[10]}", lanes=args[1].shape[2],
+            halvings=args[12], instance=name, elements_differ=differ,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            graph_ms=f"{graph_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+            bound_by=bound[1], share_of_bound=f"{bound[0] / ms:.3f}",
+            bytes=n_bytes, operations=n_ops, **{k: plan[k] for k in (
+                "smem_bytes", "registers", "spill_bytes", "blocks_per_sm")})
+        rec["scan_readout_" + cell] = dict(ms=ms, plain_ms=plain_ms,
+                                           graph_ms=graph_ms, err=0.0,
+                                           bound=bound)
+        args = kw = got = ref = None
+        torch.cuda.empty_cache()
+    return rec
+
+
 def integrate_call(cell: str):
     """The collision integrate's call in one frame of a benchmark cell
     (`framebench/`), on its own steady population from a fixed seed:
@@ -1435,7 +1579,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
     column kernels. Every slice spawns through K4b once a frame. K5 launches once a frame, K12
     K12_PER_FRAME[name] times; a frame reads the device
     FLAGSHIP_READS_PER_FRAME times. Returns (launches, state,
-    ms_per_frame, the extra frame's K12 calls). K1 launches
+    ms_per_frame, the extra frame's K12 calls). K1 and K2 launch
     SCAN_WALK_PER_FRAME[name] times a frame."""
     from illuminant_tpu_torch.lighting import cone_trace_kernel as ctk
     from illuminant_tpu_torch.raster import splat_kernel as k5
@@ -1455,8 +1599,8 @@ def phase_slice(name, scene, warmup: int, frames: int):
     SLICE_LAST[name] = (img.clone(), float(avg))
     launches = _launches("k7_column_query", "k7_column_pack",
                          "k7_column_sample", "k12_cone_trace", "k5_splat",
-                         "k1_scan_walk", "k4_integrate", "k4b_spawn",
-                         "k4c_modifiers")
+                         "k1_scan_walk", "k2_scan_readout", "k4_integrate",
+                         "k4b_spawn", "k4c_modifiers")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with HostReads() as reads, KernelInputs("cone_trace_cuda", ctk) as k12:
         _, state, avg = _run_frames(scene, 1, warmup + frames, gen, state,
@@ -1487,6 +1631,7 @@ def phase_slice(name, scene, warmup: int, frames: int):
                     k12_cone_trace=K12_PER_FRAME[name] * frames,
                     k5_splat=k5.LAUNCHES_PER_SPLAT * frames,
                     k1_scan_walk=SCAN_WALK_PER_FRAME[name] * frames,
+                    k2_scan_readout=SCAN_WALK_PER_FRAME[name] * frames,
                     k4_integrate=frames, k4b_spawn=frames,
                     k4c_modifiers=frames)
     if launches != expected:
@@ -1592,16 +1737,16 @@ def phase_reference_analytic():
 
 
 # Fused-query launches of one voxel full-family frame at the fast preset:
-# the exact per-candidate refine of the volumetric light's windowed scan
-# (one refine sample; a windowed view never takes the carried refine,
-# lighting/scan_shadows.py), and the projector's AO sample
-# (lighting/projector.py; its cone march runs no step: the flagship's
-# projector has no origin). The collision samples the field inside K4.
-# The sun's and the line light's AO are gated off on the host, the
-# particle lights' template has no AO radius, and every grid query samples
-# the volume itself. The projector's march is one K12 launch; K12 and K4
-# share the frame's one pack of its new maps (`columns_kernel.packed`).
-FAMILY_VOXEL_QUERIES_PER_FRAME = 2
+# the projector's AO sample (lighting/projector.py; its cone march runs no
+# step: the flagship's projector has no origin). The exact per-candidate
+# refine of the volumetric light's windowed scan (a windowed view never
+# takes the carried refine, lighting/scan_shadows.py) samples the field
+# inside K2, the collision inside K4. The sun's and the line light's AO
+# are gated off on the host, the particle lights' template has no AO
+# radius, and every grid query samples the volume itself. The projector's
+# march is one K12 launch; K12, K4 and K2 share the frame's one pack of
+# its new maps (`columns_kernel.packed`).
+FAMILY_VOXEL_QUERIES_PER_FRAME = 1
 
 
 def phase_reference_family():
@@ -1627,7 +1772,7 @@ def phase_reference_family():
         else:
             expected = 0
             ok = within == 1.0 and within_1e3 >= 0.999
-        # K12's and K4's pack: once a frame's new maps.
+        # K12's, K4's and K2's pack: once a frame's new maps.
         want_packs = expected + (3 if voxel else 0)
         if (queries, packs, k12, k4_launches) != (expected, want_packs, 3,
                                                   3):
@@ -3669,6 +3814,7 @@ def phase_slice_model(field, warmup: int, kernel_rec, device="cuda"):
         k7_column_sample=0, k11a_composite=MODEL_TIMED_FRAMES,
         k11b_sprite_accumulate=MODEL_TIMED_FRAMES, k10_tiled_lights=0,
         k12_cone_trace=0, k12_volume_pack=0, k1_scan_walk=0,
+        k2_scan_readout=0,
         k5_splat=k5.LAUNCHES_PER_SPLAT * MODEL_TIMED_FRAMES)
     if launches != expected or system_ticks != 3 * MODEL_TIMED_FRAMES:
         raise AssertionError(f"slice_model: launches {launches} in "
@@ -4048,7 +4194,8 @@ def phase_slice_lights(field, env_host, warmup: int, device="cuda"):
                     k7_column_query=0, k7_column_pack=LIGHTS_TIMED_FRAMES,
                     k7_column_sample=0, k11a_composite=0,
                     k11b_sprite_accumulate=0, k12_cone_trace=0,
-                    k12_volume_pack=0, k1_scan_walk=0, k5_splat=0,
+                    k12_volume_pack=0, k1_scan_walk=0,
+                    k2_scan_readout=0, k5_splat=0,
                     k4_integrate=0, k4b_spawn=0, k4c_modifiers=0)
     if launches != expected:
         raise AssertionError(f"slice_particle_lights: launches {launches} "
@@ -4890,6 +5037,7 @@ def main(argv=None) -> int:
                     maximum_z=scene.environment.maximum_z)
     kernel = phase_kernel(field)
     phase_scan_walk_kernel(kernel)
+    phase_scan_readout_kernel(kernel)
     phase_integrate_kernel(kernel)
     phase_spawn_kernel(kernel)
     phase_modifier_kernel(kernel)
@@ -5070,6 +5218,19 @@ def main(argv=None) -> int:
              dict(launches=launches["slice_analytic"]["k1_scan_walk"],
                   launches_voxel=launches["slice"]["k1_scan_walk"],
                   launches_family=launches["slice_family"]["k1_scan_walk"])),
+            # K2 at the flagship scan cell's readout; the 2.5D renderer
+            # cell's (16 lanes, prisms and a turned box) beside it.
+            ("scan_readout", "illuminant_tpu_torch/csrc/scan_readout.cu",
+             "illuminant_tpu/lighting/scan_shadows.py:581",
+             kernel["scan_readout_flagship"],
+             dict(launches=launches["slice_analytic"]["k2_scan_readout"],
+                  launches_voxel=launches["slice"]["k2_scan_readout"],
+                  launches_family=launches["slice_family"]["k2_scan_readout"],
+                  ms_renderer_25d=kernel["scan_readout_renderer_25d"]["ms"],
+                  plain_ms_renderer_25d=kernel[
+                      "scan_readout_renderer_25d"]["plain_ms"],
+                  bound_ms_renderer_25d=kernel[
+                      "scan_readout_renderer_25d"]["bound"][0])),
             ("cone_trace", "illuminant_tpu_torch/csrc/cone_trace.cu",
              "illuminant_tpu/lighting/cone_trace.py:42",
              kernel["cone_trace_family"],

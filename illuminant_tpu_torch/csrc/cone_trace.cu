@@ -120,12 +120,6 @@ enum Instance {
   kAnalyticGlobal = 3   // AnalyticScene too large for shared memory
 };
 
-struct Fields {
-  Volume volume;
-  Analytic analytic;
-  Column column;
-};
-
 // x ** power as torch.pow(tensor, scalar) computes it for the powers it
 // special-cases, powf otherwise.
 __device__ __forceinline__ float scalar_pow(float x, float p) {
@@ -133,43 +127,6 @@ __device__ __forceinline__ float scalar_pow(float x, float p) {
   if (p == 2.0f) return x * x;
   if (p == 0.5f) return sqrtf(x);
   return powf(x, p);
-}
-
-// Floats of an AnalyticScene's arrays: records, vertices and next
-// vertices, z ranges, active flags (each run starts 8-byte aligned).
-__host__ __device__ __forceinline__ int analytic_floats(const Analytic& a) {
-  const int pe = a.polygons.count * a.polygons.edges;
-  return a.count * kPrimitiveRecord + 4 * pe + 3 * a.polygons.count;
-}
-
-// The block's copy of the scene in shared memory: the same arrays, the
-// pointers moved there.
-__device__ __forceinline__ Analytic stage_analytic(const Analytic& a,
-                                                   float* sm) {
-  Analytic s = a;
-  const int n_rec = a.count * kPrimitiveRecord;
-  const int pe2 = 2 * a.polygons.count * a.polygons.edges;
-  const int np = a.polygons.count;
-  const float* src[5] = {a.records, a.polygons.vertices,
-                         a.polygons.next_vertices, a.polygons.z_range,
-                         a.polygons.active};
-  const int len[5] = {n_rec, pe2, pe2, 2 * np, np};
-  float* dst[5];
-  int off = 0;
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    dst[k] = sm + off;
-    for (int j = threadIdx.x; j < len[k]; j += kThreads)
-      dst[k][j] = __ldg(src[k] + j);
-    off += len[k];
-  }
-  s.records = dst[0];
-  s.polygons.vertices = dst[1];
-  s.polygons.next_vertices = dst[2];
-  s.polygons.z_range = dst[3];
-  s.polygons.active = dst[4];
-  __syncthreads();
-  return s;
 }
 
 // __launch_bounds__' minimum blocks an SM, each instance's: the most that
@@ -182,7 +139,7 @@ constexpr int min_blocks() {
 
 template <int F>
 __global__ void __launch_bounds__(kThreads, min_blocks<F>())
-    cone_trace_kernel(Rays r, Quality q, Fields f) {
+    cone_trace_kernel(Rays r, Quality q, FieldTable f) {
   extern __shared__ float4 smem4[];
   int l, p;
   bool valid;
@@ -203,7 +160,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<F>())
     p = i - l * r.points;
   }
   Analytic scene = f.analytic;
-  if (F == kAnalytic) scene = stage_analytic(f.analytic, (float*)smem4);
+  if (F == kAnalytic)
+    scene = stage_analytic(f.analytic, (float*)smem4, kThreads);
   if (!valid) return;
   const int i = l * r.points + p;
   // The volume's max_valid_z, read once a ray rather than once a step.
@@ -360,47 +318,20 @@ extern "C" int cone_trace(const void* const* ptrs, const long long* strides,
   const void* const* fp = ptrs + 7;
   if (ints[0] * ints[1] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
 
-  Fields f = {};
+  FieldTable f;
+  if (!fields_from(kind, fi, ff, fp, &f)) return (int)cudaErrorInvalidValue;
   const int inst = instance;
   size_t smem = 0;
   if (kind == kVolume) {
-    f.volume.pack = (const float4*)fp[0];
-    f.volume.max_valid_z = (const float*)fp[1];
-    f.volume.slices = (int)fi[0];
-    f.volume.height = (int)fi[1];
-    f.volume.width = (int)fi[2];
-    f.volume.ex = ff[0];
-    f.volume.ey = ff[1];
-    f.volume.ez = ff[2];
-    f.volume.z_offset = ff[3];
-    f.volume.z_to_slice = ff[4];
-    f.volume.scale_x = ff[5];
-    f.volume.scale_y = ff[6];
     if (inst != kVolume) return (int)cudaErrorInvalidValue;
   } else if (kind == kAnalytic) {
-    f.analytic.records = (const float*)fp[0];
-    f.analytic.count = (int)fi[0];
-    f.analytic.batched = (int)fi[1];
-    f.analytic.polygons.count = (int)fi[2];
-    f.analytic.polygons.edges = (int)fi[3];
-    f.analytic.polygons.vertices = (const float*)fp[1];
-    f.analytic.polygons.next_vertices = (const float*)fp[2];
-    f.analytic.polygons.z_range = (const float*)fp[3];
-    f.analytic.polygons.active = (const float*)fp[4];
-    f.analytic.maximum_distance = ff[0];
     if (inst == kAnalytic) {
       smem = sizeof(float) * (size_t)analytic_floats(f.analytic);
       if (smem > (size_t)kAnalyticSmemMax) return (int)cudaErrorInvalidValue;
     } else if (inst != kAnalyticGlobal) {
       return (int)cudaErrorInvalidValue;
     }
-  } else if (kind == kColumn) {
-    f.column.pack = (const float*)fp[0];
-    f.column.hc = (int)fi[0];
-    f.column.wc = (int)fi[1];
-    f.column.g = illum_columns::geometry_from(ff);
-    if (inst != kColumn) return (int)cudaErrorInvalidValue;
-  } else {
+  } else if (inst != kColumn) {
     return (int)cudaErrorInvalidValue;
   }
   const long long n = (long long)r.lights * r.points;

@@ -4,6 +4,7 @@
 // polygons of its height volumes), and the ColumnField reconstruction,
 // which is column_query.cuh's `column_distance` (shared with K7 and K10).
 // The cone-trace march (cone_trace.cu, K12) samples them once a step; the
+// scan readout (scan_readout.cu, K2) at each refine candidate; the
 // collision integrate (collide_integrate.cu, K4) once a substep, and takes
 // the scene's closed-form collision normal (`analytic_normal_fast`; the
 // normals that are not closed forms are sdf_gradients.cuh's).
@@ -366,6 +367,43 @@ __device__ __forceinline__ float analytic_distance(const Analytic& s,
   return d;
 }
 
+// Floats of an AnalyticScene's arrays: records, vertices and next
+// vertices, z ranges, active flags (each run starts 8-byte aligned).
+__host__ __device__ __forceinline__ int analytic_floats(const Analytic& a) {
+  const int pe = a.polygons.count * a.polygons.edges;
+  return a.count * kPrimitiveRecord + 4 * pe + 3 * a.polygons.count;
+}
+
+// The block's copy of the scene in shared memory: the same arrays, the
+// pointers moved there; `threads`, the block's size, copy in turn.
+__device__ __forceinline__ Analytic stage_analytic(const Analytic& a,
+                                                   float* sm, int threads) {
+  Analytic s = a;
+  const int n_rec = a.count * kPrimitiveRecord;
+  const int pe2 = 2 * a.polygons.count * a.polygons.edges;
+  const int np = a.polygons.count;
+  const float* src[5] = {a.records, a.polygons.vertices,
+                         a.polygons.next_vertices, a.polygons.z_range,
+                         a.polygons.active};
+  const int len[5] = {n_rec, pe2, pe2, 2 * np, np};
+  float* dst[5];
+  int off = 0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    dst[k] = sm + off;
+    for (int j = threadIdx.x; j < len[k]; j += threads)
+      dst[k][j] = __ldg(src[k] + j);
+    off += len[k];
+  }
+  s.records = dst[0];
+  s.polygons.vertices = dst[1];
+  s.polygons.next_vertices = dst[2];
+  s.polygons.z_range = dst[3];
+  s.polygons.active = dst[4];
+  __syncthreads();
+  return s;
+}
+
 // ------------------------------------------------------ analytic normals
 
 // The closed-form primitive normals of ops/sdf_primitives.py (nrm_*_p),
@@ -529,6 +567,61 @@ struct Column {
 __device__ __forceinline__ float column_distance(const Column& c, float x,
                                                  float y, float z) {
   return illum_columns::column_distance(c.pack, c.hc, c.wc, c.g, x, y, z);
+}
+
+// ------------------------------------------------------------ the table
+
+// The field of a launch, whichever kind it is.
+struct FieldTable {
+  Volume volume;
+  Analytic analytic;
+  Column column;
+};
+
+// A launch's field from the wrapper's table (the kind, then its ints,
+// floats and pointers, lighting/cone_trace_kernel.py:field_scalars'
+// order): kind 0 an SdfVolume (slices, height, width; ex, ey, ez,
+// z_offset, z_to_slice, scale_x, scale_y; the tap pack, max_valid_z),
+// 1 an AnalyticScene (count, batched, polygons, edges; maximum_distance;
+// records, vertices, next vertices, z ranges, active flags), 2 a
+// ColumnField (hc, wc; the 12 geometry floats; the map pack). False for
+// another kind.
+inline bool fields_from(int kind, const long long* fi, const float* ff,
+                        const void* const* fp, FieldTable* f) {
+  *f = FieldTable{};
+  if (kind == 0) {
+    f->volume.pack = (const float4*)fp[0];
+    f->volume.max_valid_z = (const float*)fp[1];
+    f->volume.slices = (int)fi[0];
+    f->volume.height = (int)fi[1];
+    f->volume.width = (int)fi[2];
+    f->volume.ex = ff[0];
+    f->volume.ey = ff[1];
+    f->volume.ez = ff[2];
+    f->volume.z_offset = ff[3];
+    f->volume.z_to_slice = ff[4];
+    f->volume.scale_x = ff[5];
+    f->volume.scale_y = ff[6];
+  } else if (kind == 1) {
+    f->analytic.records = (const float*)fp[0];
+    f->analytic.count = (int)fi[0];
+    f->analytic.batched = (int)fi[1];
+    f->analytic.polygons.count = (int)fi[2];
+    f->analytic.polygons.edges = (int)fi[3];
+    f->analytic.polygons.vertices = (const float*)fp[1];
+    f->analytic.polygons.next_vertices = (const float*)fp[2];
+    f->analytic.polygons.z_range = (const float*)fp[3];
+    f->analytic.polygons.active = (const float*)fp[4];
+    f->analytic.maximum_distance = ff[0];
+  } else if (kind == 2) {
+    f->column.pack = (const float*)fp[0];
+    f->column.hc = (int)fi[0];
+    f->column.wc = (int)fi[1];
+    f->column.g = illum_columns::geometry_from(ff);
+  } else {
+    return false;
+  }
+  return true;
 }
 
 }  // namespace illum_fields

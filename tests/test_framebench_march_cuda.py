@@ -90,6 +90,7 @@ def test_cuda_k12_once_a_frame_and_no_scan(cell):
     after = cuda_build.launches()
     assert after["k12_cone_trace"] - before["k12_cone_trace"] == 3
     assert after["k1_scan_walk"] - before["k1_scan_walk"] == 0
+    assert after["k2_scan_readout"] - before["k2_scan_readout"] == 0
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 """The benchmark's 2.5D renderer cell (`renderer-25d-1080p`) on the card, at
-its own size: K1 once a frame (the additive pass's scan) and neither K12,
-its volume pack nor the column kernels K7; the new spans once a frame
-each, inside their stages under torch.profiler (the G-buffer's rasters in
-`update_fields`, the scan's readout and the AO sample in
+its own size: K1 and K2 once a frame (the additive pass's scan) and
+neither K12, its volume pack nor the column kernels K7; the new spans once
+a frame each, inside their stages under torch.profiler (the G-buffer's
+rasters in `update_fields`, the scan's readout and the AO sample in
 `render_lighting`), holding device time; and a traced run that reads the
 cell's three per-layer metrics.
 
@@ -94,11 +94,13 @@ def test_cuda_k1_once_a_frame_no_march_no_columns(cell):
     torch.cuda.synchronize()
     after = cuda_build.launches()
     delta = {k: after[k] - before[k] for k in (
-        "k1_scan_walk", "k12_cone_trace", "k12_volume_pack",
-        "k7_column_query", "k7_column_pack", "k7_column_sample")}
-    assert delta == dict(k1_scan_walk=3, k12_cone_trace=0,
-                         k12_volume_pack=0, k7_column_query=0,
-                         k7_column_pack=0, k7_column_sample=0), delta
+        "k1_scan_walk", "k2_scan_readout", "k12_cone_trace",
+        "k12_volume_pack", "k7_column_query", "k7_column_pack",
+        "k7_column_sample")}
+    assert delta == dict(k1_scan_walk=3, k2_scan_readout=3,
+                         k12_cone_trace=0, k12_volume_pack=0,
+                         k7_column_query=0, k7_column_pack=0,
+                         k7_column_sample=0), delta
 
 
 @pytest.mark.cuda

@@ -93,10 +93,12 @@ def test_cuda_k12_and_its_pack_once_a_frame_no_scan_no_columns(cell):
     # Counters: a kernel whose wrapper was never imported reads 0.
     delta = {k: after[k] - before[k] for k in (
         "k12_cone_trace", "k12_volume_pack", "k1_scan_walk",
-        "k7_column_query", "k7_column_pack", "k7_column_sample")}
+        "k2_scan_readout", "k7_column_query", "k7_column_pack",
+        "k7_column_sample")}
     assert delta == dict(k12_cone_trace=3, k12_volume_pack=3,
-                         k1_scan_walk=0, k7_column_query=0,
-                         k7_column_pack=0, k7_column_sample=0), delta
+                         k1_scan_walk=0, k2_scan_readout=0,
+                         k7_column_query=0, k7_column_pack=0,
+                         k7_column_sample=0), delta
 
 
 @pytest.mark.cuda

@@ -29,8 +29,8 @@ NEW_MODULES = [f"illuminant_tpu_torch.{m}" for m in (
 
 # The hand-written kernels by launch-span name, each counted in
 # `cuda_build.launches()`.
-KERNELS = ("k1_scan_walk", "k4_integrate", "k4b_spawn", "k4c_modifiers",
-           "k5_splat", "k7_column_pack", "k7_column_sample",
+KERNELS = ("k1_scan_walk", "k2_scan_readout", "k4_integrate", "k4b_spawn",
+           "k4c_modifiers", "k5_splat", "k7_column_pack", "k7_column_sample",
            "k7_column_query", "k10_tiled_lights", "k11a_composite",
            "k11b_sprite_accumulate", "k12_cone_trace", "k12_volume_pack")
 
