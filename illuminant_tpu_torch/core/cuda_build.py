@@ -8,7 +8,8 @@ package, unless an up-to-date library is already there, opened with
 ctypes and its entry points declared; every entry point returns a CUDA
 error code. `Library.launch` is the one place a kernel is launched: in
 the launch span (`trace.launch`), on the device's current stream, and
-counted by that span's name in `launches()`.
+counted by that span's name in `launches()` and on that span's record
+(`trace.count`).
 """
 
 from __future__ import annotations
@@ -167,7 +168,8 @@ class Library:
                reports: bool = False):
         """Launch `kernel` through `entry` on `device`'s current stream,
         in the span `illuminant/kernel/<kernel>`; raise on its error code,
-        then count the launch. `reports`: the entry point's last argument
+        then count the launch, in `launches()` and on the span's record
+        of a running recording. `reports`: the entry point's last argument
         before the stream is an int it sets to the kernels it launched,
         which the count adds instead of 1."""
         fn = self._entry(entry)
@@ -176,5 +178,6 @@ class Library:
             args += (ctypes.byref(launched),)
         with trace.launch(kernel), torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-        check(err, entry)
-        _LAUNCHES[kernel] += launched.value
+            check(err, entry)
+            _LAUNCHES[kernel] += launched.value
+            trace.count("launches", launched.value)

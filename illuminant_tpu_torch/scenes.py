@@ -764,9 +764,12 @@ class _FlagshipFrame:
         Returns (uint8 image (H, W, 3), state, next avg_lum, dropped); a
         mesh rank's image is its row band (row1 - row0, W, 3)."""
         f32 = torch.float32
-        i = torch.tensor(float(frame_index), dtype=f32, device=self.device)
-        t = i * DT
-        avg_lum = torch.as_tensor(avg_lum, dtype=f32, device=self.device)
+        with span("illuminant/frame/inputs"):
+            i = torch.tensor(float(frame_index), dtype=f32,
+                             device=self.device)
+            t = i * DT
+            avg_lum = torch.as_tensor(avg_lum, dtype=f32,
+                                      device=self.device)
         with span("illuminant/frame/animate_field"):
             field = self.animate_field(volume, t)
         with span("illuminant/frame/animate_lights"):
@@ -778,9 +781,10 @@ class _FlagshipFrame:
                                    spawn_uniforms)
         with span("illuminant/frame/raster"):
             particle_img, diag = self.raster(state)
-        row0, row1 = self.rows
-        scene_hdr = (lightmap[row0:row1] + particle_img[..., :3]).to(
-            torch.bfloat16)
+        with span("illuminant/frame/composite"):
+            row0, row1 = self.rows
+            scene_hdr = (lightmap[row0:row1] + particle_img[..., :3]).to(
+                torch.bfloat16)
         with span("illuminant/frame/exposure"):
             new_avg = self.exposure(scene_hdr, avg_lum)
         with span("illuminant/frame/tonemap"):

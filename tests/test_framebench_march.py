@@ -77,7 +77,8 @@ def test_the_cell_is_in_the_benchmark(bench_json):
     assert spec["config"]["shadow_mode"] == "march"
     assert spec["config_entry"]["reduced"] == []
     assert {m["name"] for m in spec["per_layer"]} == {
-        "k12_roofline", "sphere_lights_device_ms"}
+        "k12_roofline", "sphere_lights_device_ms", "frame_host_ms",
+        "host_syncs_per_frame", "launch_host_us", "sphere_lights_host_ms"}
     scan = loader.json_file("configs", "flagship-analytic-1080p")
     assert {k: v for k, v in spec["config"].items()
             if k not in ("source", "deployment", "assumed")} == dict(

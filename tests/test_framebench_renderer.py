@@ -44,6 +44,10 @@ SMALL = dict(height=96, width=160, n_lights=8)
 SEED = 2 ** 31 + 101
 NEW_METRICS = {"field_regen_device_ms", "update_fields_host_ms",
                "render_lighting_device_ms", "k12_volume_roofline"}
+# The host times of frames run with the program's recorder on.
+RECORDED_METRICS = {"frame_host_ms", "host_syncs_per_frame",
+                    "launch_host_us", "sphere_lights_host_ms",
+                    "field_slab_host_ms"}
 SLAB = "illuminant/renderer/field_slab"
 
 ref_mod = loader.module("reference", CONFIG)
@@ -92,10 +96,11 @@ def test_the_cell_is_in_the_benchmark(bench_json):
     assert spec["config_entry"]["source"] == spec["config"]["source"]
     assert (spec["config"]["width"], spec["config"]["height"]) == (1920, 1080)
     assert spec["params"]["budget"] == 2
-    assert {m["name"] for m in spec["per_layer"]} == NEW_METRICS
+    assert {m["name"] for m in spec["per_layer"]} == \
+        NEW_METRICS | RECORDED_METRICS
     assert hasattr(loader.module("scenes", CONFIG), "build")
     assert hasattr(ref_mod, "Reference")
-    for name in NEW_METRICS:
+    for name in NEW_METRICS | RECORDED_METRICS:
         assert callable(loader.module("metrics", name).read)
 
 

@@ -42,6 +42,9 @@ SMALL = dict(height=96, width=160, z_unit=96 / 270)
 SEED = 2 ** 31 + 303
 NEW_METRICS = {"gbuffer_25d_device_ms", "scan_readout_device_ms",
                "sphere_ao_device_ms"}
+# The host times of frames run with the program's recorder on.
+RECORDED_METRICS = {"frame_host_ms", "host_syncs_per_frame",
+                    "launch_host_us", "sphere_lights_host_ms"}
 
 ref_mod = loader.module("reference", CONFIG)
 
@@ -92,13 +95,16 @@ def test_the_cell_is_in_the_benchmark(bench_json):
     assert spec["config_entry"]["source"] == spec["config"]["source"]
     assert (spec["config"]["width"], spec["config"]["height"]) == (1920, 1080)
     assert spec["config"]["z_unit"] == 1.0
-    assert {m["name"] for m in spec["per_layer"]} == NEW_METRICS
+    assert {m["name"] for m in spec["per_layer"]} == \
+        NEW_METRICS | RECORDED_METRICS
     for m in spec["per_layer"]:
-        assert m["moves"] == "frame_ms" and m["workloads"] == [CELL]
+        assert m["moves"] == "frame_ms"
+        if m["name"] in NEW_METRICS:
+            assert m["workloads"] == [CELL]
     assert set(spec["params"]["checks"]) == {"gbuffer", "lightmap",
                                              "image_max", "image_mean"}
     assert hasattr(loader.module("scenes", CONFIG), "build")
-    for name in NEW_METRICS:
+    for name in NEW_METRICS | RECORDED_METRICS:
         assert callable(loader.module("metrics", name).read)
 
 

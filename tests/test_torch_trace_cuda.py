@@ -1,7 +1,9 @@
 """The hand-written kernels' launch spans on the card: in a torch.profiler
 trace, the device time of a kernel's `illuminant/kernel/<k>` span is
 that kernel's own device operations, read by name, and the stage span
-around it counts it in its own.
+around it counts it in its own. Under the recorder, each kind of queue
+drain counts once on the span it ran in, and the launches recorded over
+a frame are those `cuda_build.launches()` counts.
 
 This file imports neither jax nor the JAX package, so that it runs where
 the card is:
@@ -207,3 +209,74 @@ def test_cuda_k4_span_holds_the_tick_collision(cell):
     every = _us(ops)
     for stage in ("illuminant/particles/tick", "illuminant/particles/update"):
         assert abs(spans[stage] - every) <= TOLERANCE * every, stage
+
+
+@pytest.mark.cuda
+def test_cuda_recorder_counts_each_queue_drain():
+    """A scalar read, a blocking upload and a copy to the host each count
+    one sync on the span they ran in; the pinned upload counts none."""
+    _needs_card()
+    from illuminant_tpu_torch.core import trace
+    from illuminant_tpu_torch.core.upload import upload
+
+    x = torch.arange(8.0, device="cuda")
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    with trace.recording() as rec:
+        with trace.span("test/item"):
+            x.sum().item()
+        with trace.span("test/blocking_upload"):
+            torch.tensor(1.5, device="cuda")
+        with trace.span("test/cpu"):
+            x.cpu()
+        with trace.span("test/pinned_upload"):
+            upload([1.0, 2.0], "cuda")
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert {r.name: r.syncs for r in rec.records} == {
+        "test/item": 1, "test/blocking_upload": 1, "test/cpu": 1,
+        "test/pinned_upload": 0}
+    assert rec.totals["syncs"] == 3 and rec.outside["syncs"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_recorder_launches_match_the_launch_counts(cell):
+    """Over one flagship frame and one particle frame (update, render),
+    the launches the recorder adds up on its records are the change in
+    `cuda_build.launches()`."""
+    from illuminant_tpu_torch.core import cuda_build, trace
+    from illuminant_tpu_torch.raster.tiled import TiledRasterConfig
+    from illuminant_tpu_torch.scenes import build_flagship
+
+    dev = torch.device("cuda")
+    sc = build_flagship(height=135, width=240, capacity=1 << 14,
+                        spawn_max=256, n_lights=4, device=dev)
+    env_u = sc.environment.uniforms(device=dev)
+    state = {"s": sc.system.state}
+
+    def flagship():
+        _, state["s"], _, _ = sc.frame(
+            state["s"], torch.tensor(0.5, device=dev),
+            torch.Generator(device=dev).manual_seed(3), sc.volume,
+            sc.gbuffer, sc.sphere_lights, env_u, 256)
+
+    raster = TiledRasterConfig(height=cs.PARTICLE_FULL["height"],
+                               width=cs.PARTICLE_FULL["width"])
+
+    def particles():
+        cell.update(cs.DT)
+        cell.render(raster)
+
+    for frame in (flagship, particles):
+        frame()  # builds what the frame launches
+        torch.cuda.synchronize()
+        before = sum(cuda_build.launches().values())
+        with trace.recording() as rec:
+            frame()
+        torch.cuda.synchronize()
+        counted = sum(cuda_build.launches().values()) - before
+        assert counted > 0, frame.__name__
+        assert sum(r.launches for r in rec.records) == counted
+        assert rec.totals["launches"] == counted
+        assert rec.outside["launches"] == 0
+        assert all(r.launches == 0 for r in rec.records
+                   if not r.name.startswith("illuminant/kernel/"))

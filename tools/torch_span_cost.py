@@ -6,20 +6,24 @@
 Builds the cell as `framebench/run.py` does, from the checkout at
 `--root` (default: this one; an unpacked earlier commit for a
 comparison), warms it, then `--repeats` times runs `--frames` frames
-untraced and `--traced-frames` frames under torch.profiler (CPU and
-CUDA), both paced as the benchmark paces them (at most two frames in
-flight), and prints one JSON line:
+untraced, `--frames` frames with the program's recorder on (each frame
+in the span `framebench/frame`, no profiler) and `--traced-frames`
+frames under torch.profiler (CPU and CUDA), all paced as the benchmark
+paces them (at most two frames in flight), and prints one JSON line:
 
-  untraced_ms, traced_ms  wall time a frame of each stretch, in order
-  ratio                   each traced stretch over the untraced one
-                          before it: the profiler's cost, the host's
-                          speed divided out
+  untraced_ms, recorded_ms, traced_ms
+                          wall time a frame of each stretch, in order
+                          (recorded_ms null where the program has no
+                          recorder)
+  ratio, recorded_ratio   each traced and recorded stretch over the
+                          untraced one before it: the profiler's and the
+                          recorder's cost, the host's speed divided out
   metrics                 this checkout's per-layer metric readers on
-                          the last traced stretch (one trace for all
-                          the numbers below)
-  k5_by_name_ms, k7_by_name_ms
-                          the splat's kernels, the column query's and
-                          its pack's kernels a frame, read by name
+                          the last traced stretch, the recorded ones on
+                          the last recorded stretch
+  twins                   each profiled host metric beside the recorded
+                          host time a frame of the same span
+  k5_by_name_ms           the splat's kernels a frame, read by name
   device_ms               the traced device operations a frame
   span_cover              the share of that time held by the outermost
                           `illuminant/` spans (their device time)
@@ -28,8 +32,10 @@ flight), and prints one JSON line:
   untied_ms               the device operations the profiler tied to no
                           host operation at all, ms a frame
 
-Needs a CUDA card. The metric readers and the benchmark's description
-are this checkout's, the cell's scene and the program `--root`'s.
+The last recorded stretch's table of spans by host self time goes to
+standard error. Needs a CUDA card. The metric readers and the
+benchmark's description are this checkout's, the cell's scene and the
+program `--root`'s.
 """
 
 from __future__ import annotations
@@ -42,12 +48,20 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-K7 = r"\b(column_query|pack_quad)_kernel"
 K5 = r"\b(bin|scan|scatter|accumulate)_kernel(<\d+>)?\(.*Splat"
 # The profiler's own event for a buffer of device records: it takes the id
 # of the operator open when the buffer was asked for, and so holds that
 # operator's kernels a second time.
 OVERHEAD = "Activity Buffer Request"
+# Each profiled host metric's span, as the recorder records it (the
+# particle cell's `particles_host_ms` reads the benchmark's own range
+# around `update`, which holds the program's `illuminant/particles/
+# update` and nothing else).
+TWINS = dict(lighting_host_ms="illuminant/frame/lighting",
+             particles_host_ms=("illuminant/frame/particles",
+                                "illuminant/particles/update"),
+             tick_host_ms="illuminant/particles/tick",
+             update_fields_host_ms="illuminant/renderer/update_fields")
 
 
 def _paced(cell, frames, wrap=None):
@@ -68,6 +82,19 @@ def _paced(cell, frames, wrap=None):
         events[i % 2].record()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def _power_limit():
+    """The card's name and power limit, as nvidia-smi reads them."""
+    import subprocess
+
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
 
 
 def _spans(prof):
@@ -140,9 +167,25 @@ def main(argv=None) -> int:
     cell = loader.module("scenes", spec["entry"]["config"], base).build(
         spec["config"], spec["params"], args.seed, dev)
     _paced(cell, spec["params"]["warm_frames"] + 2)
-    untraced_ms, traced_ms = [], []
+    from illuminant_tpu_torch.core import trace as program_trace
+
+    # This checkout's reader of a recording, where the readers look for
+    # it (an earlier `--root` may have none).
+    recorded_mod = loader.module("metrics", "_recorded",
+                                 os.path.join(HERE, "framebench"))
+    sys.modules.setdefault(recorded_mod.__name__, recorded_mod)
+    recorder = getattr(program_trace, "recording", None)
+    untraced_ms, recorded_ms, traced_ms = [], [], []
+    recorded = None
     for _ in range(args.repeats):
         untraced_ms.append(1e3 * _paced(cell, frames) / frames)
+        if recorder is not None:
+            with recorder() as rec:
+                recorded_ms.append(1e3 * _paced(
+                    cell, frames,
+                    wrap=lambda: program_trace.span(recorded_mod.FRAME))
+                    / frames)
+            recorded = recorded_mod.Recorded(rec)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             traced_ms.append(1e3 * _paced(
@@ -151,6 +194,9 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(dev)
     trace = tr.reduce(prof, traced, cell=cell,
                       peaks=peaks_mod.peaks_for(name))
+    trace.recorded = recorded
+    if recorded is not None:
+        print(recorded.table(), file=sys.stderr)
     metrics = {}
     for m in spec["per_layer"]:
         value = loader.module("metrics", m["name"],
@@ -165,12 +211,23 @@ def main(argv=None) -> int:
         return sum(b - a for n, a, b in trace.device_ops
                    if re.search(pattern, n)) * 1e-3 / traced
 
+    twins = {}
+    for metric, spans in TWINS.items():
+        if metric in metrics and recorded is not None:
+            spans = (spans,) if isinstance(spans, str) else spans
+            twins[metric] = [metrics[metric], next(
+                (v for v in map(recorded.host_ms, spans) if v is not None),
+                None)]
+
     print(json.dumps(dict(
         workload=args.workload, root=root, device=name,
-        untraced_ms=untraced_ms, traced_ms=traced_ms,
+        power_limit=_power_limit(),
+        untraced_ms=untraced_ms, recorded_ms=recorded_ms or None,
+        traced_ms=traced_ms,
         ratio=[t / u for u, t in zip(untraced_ms, traced_ms)],
-        frames=frames, traced_frames=traced, metrics=metrics,
-        k5_by_name_ms=by_name(K5), k7_by_name_ms=by_name(K7),
+        recorded_ratio=[r / u for u, r in zip(untraced_ms, recorded_ms)],
+        frames=frames, traced_frames=traced, metrics=metrics, twins=twins,
+        k5_by_name_ms=by_name(K5),
         device_ms=device_us * 1e-3 / traced,
         span_cover=held_us / device_us if device_us else None,
         untied_ms=(device_us - tied_us) * 1e-3 / traced,
